@@ -1,0 +1,646 @@
+"""``omp.compile`` — the staged compiler entry point (counterpart of
+:mod:`repro.core.api`, single-block slice).
+
+One call
+
+    compiled = omp.compile(program, mesh, omp.Options(...))
+
+runs the pass pipeline
+
+    analyze  →  schedule  →  plan  →  plan_comm  →  schedule_comm  →  lower
+
+(plus a 7th **kernel** pass under ``Lowering.KERNEL``), recording each
+stage's artifact on ``compiled.passes``.  A single block has no
+inter-loop boundaries, so plan_comm and schedule_comm record empty
+artifacts; its per-block combines fuse at lower.  Compiling a
+``ParallelRegion`` waits for the region slice of the port and raises.
+
+Options are validated at construction with the reference's messages
+(:class:`CompileError`); compiles are cached under a structural key
+(program signature, mesh shape/axes/device, Options, env shapes).  There
+is no persistent (AOT) store in the port yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+import enum
+import itertools
+import math
+import threading
+from typing import Any, Mapping
+
+from repro_torch.core import pragma
+from repro_torch.core import plan as plan_mod
+from repro_torch.core.context import spec_of
+from repro_torch.core.loop import LoopNotCanonical
+
+
+class CompileError(LoopNotCanonical, ValueError):
+    """Invalid :class:`Options`, an option × program combination the
+    compiler cannot honor, or a body the span kernel cannot express.
+
+    Subclasses :class:`~repro_torch.core.loop.LoopNotCanonical` *and*
+    :class:`ValueError`, as the reference's does."""
+
+
+class Lowering(enum.Enum):
+    """How the parallel block(s) are lowered to the mesh."""
+
+    FUSED = "fused"
+    """One fused program for a whole region (the default); a single
+    ``ParallelFor`` has no boundaries to fuse, so it equals COLLECTIVE
+    there."""
+
+    COLLECTIVE = "collective"
+    """Per-loop staging: chunk-cyclic slabs + balanced collectives, the
+    chunk compute in plain PyTorch."""
+
+    MASTER_WORKER = "master_worker"
+    """Paper-faithful Fig. 1b staging (not ported yet: compiling raises)."""
+
+    KERNEL = "kernel"
+    """COLLECTIVE with each compute span run as ONE launch of the span
+    kernel (:mod:`repro_torch.kernels.span_kernel`, Triton on CUDA; the
+    plain PyTorch version for CPU tensors)."""
+
+
+class CommMode(enum.Enum):
+    """Boundary planner mode for fused regions."""
+
+    AUTO = "auto"
+    GATHER = "gather"
+
+
+class ShardPolicy(enum.Enum):
+    """IN-buffer transfer policy for the per-loop staging lowerings."""
+
+    REPLICATE = "replicate"
+    """The paper's rule: the master broadcasts every IN buffer."""
+
+    SLICE = "slice"
+    """Send each rank only its chunk slices (+ stencil halo rows)."""
+
+
+def _coerce_enum(enum_cls, value, field):
+    if isinstance(value, enum_cls):
+        return value
+    if isinstance(value, str):
+        try:
+            return enum_cls(value.lower())
+        except ValueError:
+            pass
+    raise CompileError(
+        f"Options.{field} must be one of "
+        f"{[e.value for e in enum_cls]} (or a {enum_cls.__name__}), "
+        f"got {value!r}")
+
+
+def _normalize_chunk_weights(cw):
+    """A flat tuple of floats (rank 1), or a 2-tuple of per-axis entries
+    (each a float tuple or ``None``) for ``collapse=2``."""
+
+    def flat(seq, where):
+        try:
+            vals = tuple(float(x) for x in seq)
+        except (TypeError, ValueError):
+            raise CompileError(
+                f"Options.chunk_weights{where} must be a sequence of "
+                f"numbers, got {seq!r}") from None
+        if not vals:
+            raise CompileError(f"Options.chunk_weights{where} is empty")
+        for v in vals:
+            if not math.isfinite(v) or v <= 0:
+                raise CompileError(
+                    f"Options.chunk_weights{where} entries must be "
+                    f"finite and > 0, got {vals}")
+        return vals
+
+    if not isinstance(cw, (tuple, list)):
+        raise CompileError(
+            "Options.chunk_weights must be a per-device weight vector "
+            "(or a 2-tuple of per-axis vectors for collapse=2), got "
+            f"{cw!r}")
+    if any(e is None or isinstance(e, (tuple, list)) for e in cw):
+        if len(cw) != 2 or not all(
+                e is None or isinstance(e, (tuple, list)) for e in cw):
+            raise CompileError(
+                "per-axis Options.chunk_weights must be a 2-tuple of "
+                f"weight vectors (or None per axis), got {cw!r}")
+        return tuple(None if e is None else flat(e, f"[{d}]")
+                     for d, e in enumerate(cw))
+    return flat(cw, "")
+
+
+@dataclasses.dataclass(frozen=True)
+class Options:
+    """Compilation options; every field accepts the enum member or its
+    string value and is validated at construction."""
+
+    axis: Any = None
+    lowering: Lowering = Lowering.FUSED
+    comm: CommMode = CommMode.AUTO
+    shard: ShardPolicy = ShardPolicy.REPLICATE
+    comm_schedule: str = "aggregate"
+    schedule: pragma.Schedule | None = None
+    keep_sharded: bool = False
+    unroll_chunks: bool = False
+    """Accepted for parity with the reference; the port's chunk loop is a
+    vmap, so there is nothing to unroll."""
+    paper_master_excluded: bool | None = None
+    chunk_weights: Any = None
+
+    def __post_init__(self) -> None:
+        from repro_torch.core.comm_schedule import SCHEDULE_MODES
+
+        object.__setattr__(
+            self, "lowering",
+            _coerce_enum(Lowering, self.lowering, "lowering"))
+        object.__setattr__(
+            self, "comm", _coerce_enum(CommMode, self.comm, "comm"))
+        object.__setattr__(
+            self, "shard", _coerce_enum(ShardPolicy, self.shard, "shard"))
+
+        cs = self.comm_schedule
+        if isinstance(cs, str):
+            cs = cs.lower()
+        if cs not in SCHEDULE_MODES:
+            raise CompileError(
+                f"Options.comm_schedule must be one of {SCHEDULE_MODES}, "
+                f"got {self.comm_schedule!r}")
+        object.__setattr__(self, "comm_schedule", cs)
+
+        sched = self.schedule
+        if isinstance(sched, str):
+            try:
+                sched = pragma.Schedule(sched)
+            except ValueError as e:
+                raise CompileError(f"Options.schedule: {e}") from None
+            object.__setattr__(self, "schedule", sched)
+        elif sched is not None and not isinstance(sched, pragma.Schedule):
+            raise CompileError(
+                "Options.schedule must be a Schedule (omp.static()/"
+                f"omp.dynamic()/omp.guided()) or None, got {sched!r}")
+
+        if self.keep_sharded:
+            raise CompileError(
+                "Options.keep_sharded=True: sharded-exit control is not "
+                "implemented by any lowering — outputs are always "
+                "reassembled to the shared-memory layout at exit.  To keep "
+                "arrays resident between loops, compile them as one "
+                "omp.region(...) with Lowering.FUSED (the default)."
+            )
+
+        ax = self.axis
+        if ax is not None:
+            if isinstance(ax, list):
+                ax = tuple(ax)
+                object.__setattr__(self, "axis", ax)
+            if isinstance(ax, tuple):
+                if (len(ax) != 2 or not all(isinstance(a, str) for a in ax)
+                        or ax[0] == ax[1]):
+                    raise CompileError(
+                        "Options.axis: a rank-2 axis clause must be a "
+                        f"2-tuple of distinct mesh axis names, got {ax!r}")
+            elif not isinstance(ax, str):
+                raise CompileError(
+                    "Options.axis must be a mesh axis name, a 2-tuple of "
+                    f"names, or None, got {ax!r}")
+
+        if not isinstance(self.unroll_chunks, bool):
+            raise CompileError(
+                f"Options.unroll_chunks must be a bool, "
+                f"got {self.unroll_chunks!r}")
+        if self.paper_master_excluded not in (None, True, False):
+            raise CompileError(
+                "Options.paper_master_excluded must be True, False or None "
+                f"(= derive from the lowering), got "
+                f"{self.paper_master_excluded!r}")
+
+        if self.lowering is Lowering.KERNEL:
+            if self.unroll_chunks:
+                raise CompileError(
+                    "Options.unroll_chunks has no effect under "
+                    "Lowering.KERNEL: chunk compute runs as one span-kernel "
+                    "grid, not a loop that could be unrolled.  Drop "
+                    "unroll_chunks or use Lowering.FUSED/COLLECTIVE.")
+            if self.paper_master_excluded is not None:
+                raise CompileError(
+                    "Options.paper_master_excluded is a master/worker "
+                    "staging knob; Lowering.KERNEL never stages through "
+                    "a master rank (and Lowering.MASTER_WORKER has no "
+                    "kernel variant).  Drop paper_master_excluded or "
+                    "use Lowering.MASTER_WORKER.")
+
+        if self.chunk_weights is not None:
+            object.__setattr__(self, "chunk_weights",
+                               _normalize_chunk_weights(self.chunk_weights))
+            if self.lowering in (Lowering.MASTER_WORKER, Lowering.KERNEL):
+                raise CompileError(
+                    "Options.chunk_weights (straggler-weighted schedule) "
+                    "requires the collective chunk executor; "
+                    f"lowering={self.lowering.value!r} assumes cyclic "
+                    "chunk ownership (explicit master/worker row math / "
+                    "tiled kernel grids).  Use Lowering.COLLECTIVE, or "
+                    "the default FUSED on a single block.")
+
+    def describe(self) -> str:
+        sched = (f"{self.schedule.kind}({self.schedule.chunk})"
+                 if self.schedule is not None else "per-pragma")
+        return (f"lowering={self.lowering.value} comm={self.comm.value} "
+                f"comm_schedule={self.comm_schedule} "
+                f"shard={self.shard.value} schedule={sched}")
+
+
+# ---------------------------------------------------------------------------
+# Pass records
+# ---------------------------------------------------------------------------
+
+PASS_NAMES = ("analyze", "schedule", "plan", "plan_comm", "schedule_comm",
+              "lower")
+
+
+@dataclasses.dataclass(frozen=True)
+class PassRecord:
+    """One pipeline stage: what went in, what came out."""
+
+    name: str
+    input: str
+    output: Any
+
+    def describe(self) -> str:
+        out = self.output
+        if isinstance(out, (tuple, list)):
+            kind = f"{len(out)} artifact(s)"
+        else:
+            kind = type(out).__name__
+        return f"{self.name}: {self.input} -> {kind}"
+
+
+# ---------------------------------------------------------------------------
+# The structural compilation cache
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class _Artifacts:
+    """Result of the analyze→kernel passes; ``program`` pins the
+    ``id()``s used in the cache key."""
+
+    passes: tuple[PassRecord, ...]
+    exe_plan: Any
+    program: Any
+
+
+class _Counter:
+    """Increment-only counter, exact under threads."""
+
+    __slots__ = ("_n", "_lock")
+
+    def __init__(self) -> None:
+        self._n = 0
+        self._lock = threading.Lock()
+
+    def inc(self) -> None:
+        with self._lock:
+            self._n += 1
+
+    @property
+    def value(self) -> int:
+        return self._n
+
+
+class _Entry:
+    """One cache line: the artifacts plus an LRU recency stamp."""
+
+    __slots__ = ("art", "stamp")
+
+    def __init__(self, art: _Artifacts, stamp: int) -> None:
+        self.art = art
+        self.stamp = stamp
+
+
+_CACHE: dict[tuple, _Entry] = {}
+_CACHE_CAP = 512
+_CACHE_LOCK = threading.Lock()   # guards the miss path: insert + evict
+_TICK = itertools.count()        # LRU clock
+_HITS = _Counter()
+_MISSES = _Counter()
+
+
+def compile_cache_stats() -> dict:
+    """Hit/miss counters and current size of the compilation cache."""
+    return {"hits": _HITS.value, "misses": _MISSES.value,
+            "size": len(_CACHE)}
+
+
+def clear_compile_cache() -> None:
+    """Drop every cached compilation and reset the counters."""
+    global _HITS, _MISSES
+    with _CACHE_LOCK:
+        _CACHE.clear()
+        _HITS = _Counter()
+        _MISSES = _Counter()
+
+
+def _program_signature(p) -> tuple:
+    """Structural identity of a program (bodies by ``id()``; cache
+    entries keep the program alive so ids cannot be recycled)."""
+    return ("for", id(p.body), p.bounds, p.collapse,
+            (p.schedule.kind, p.schedule.chunk),
+            tuple(sorted(p.reduction.items())))
+
+
+def _env_signature(env: Mapping[str, Any]) -> tuple:
+    """Shape/dtype identity of the environment, without touching data."""
+    sig = []
+    for k in sorted(env):
+        s = spec_of(env[k])
+        sig.append((k, tuple(s.shape), str(s.dtype)))
+    return tuple(sig)
+
+
+def _mesh_signature(mesh) -> tuple:
+    return (tuple((str(a), int(mesh.shape[a])) for a in mesh.axis_names),
+            str(mesh.device))
+
+
+# ---------------------------------------------------------------------------
+# compile()
+# ---------------------------------------------------------------------------
+
+
+def compile(
+    program,
+    mesh,
+    options: Options | None = None,
+    *,
+    env_like: Mapping[str, Any] | None = None,
+    **overrides,
+) -> "Compiled":
+    """Compile a :class:`~repro_torch.core.pragma.ParallelFor` to a
+    distributed program on ``mesh`` (a :class:`repro_torch.mesh.Mesh`).
+
+    ``options`` carries every knob, or the fields come as keyword
+    overrides.  ``env_like`` (shapes only) runs the pipeline eagerly;
+    without it the pipeline runs on first call.
+    """
+    from repro_torch.core import transform as tf
+
+    if options is None:
+        options = Options(**overrides)
+    elif overrides:
+        raise CompileError(
+            "pass either an Options object or keyword overrides, not both "
+            f"(got Options plus {sorted(overrides)})")
+    if not isinstance(options, Options):
+        raise CompileError(
+            f"options must be an omp.Options, got {type(options).__name__}")
+    if isinstance(program, pragma.ParallelRegion):
+        raise CompileError(
+            "regions are not ported yet: compile each ParallelFor block of "
+            f"region {program.name!r} on its own (the region slice of the "
+            "PyTorch port brings omp.region compilation)")
+    if not isinstance(program, pragma.ParallelFor):
+        raise CompileError(
+            "omp.compile expects a ParallelFor or ParallelRegion, got "
+            f"{type(program).__name__}")
+
+    axis, num = tf.resolve_axes(program, mesh, options.axis)
+    _validate_combination(program, options, num)
+    compiled = Compiled(program=program, mesh=mesh, options=options,
+                        axis=axis, num_devices=num)
+    if env_like is not None:
+        compiled._ensure(env_like)
+    return compiled
+
+
+def _validate_combination(program, options: Options, num) -> None:
+    """Cross-field validation that needs the program (the reference's
+    diagnostics, block cases)."""
+    rank = program.rank
+    if options.lowering is Lowering.MASTER_WORKER:
+        if rank == 2:
+            raise CompileError(
+                "Lowering.MASTER_WORKER × collapse=2: the paper's "
+                "master/worker staging is rank-1 only.  Use "
+                "Lowering.FUSED (default) or Lowering.COLLECTIVE for "
+                "rank-2 nests.")
+        if options.shard is ShardPolicy.SLICE:
+            raise CompileError(
+                "ShardPolicy.SLICE has no effect under "
+                "Lowering.MASTER_WORKER (the master always sends full "
+                "buffers, paper Fig. 1b); use Lowering.COLLECTIVE for "
+                "sliced inputs.")
+        if num < 2:
+            raise CompileError(
+                "Lowering.MASTER_WORKER needs >= 2 mesh ranks (rank 0 is "
+                f"the master); this mesh has {num}.")
+        raise CompileError(
+            "Lowering.MASTER_WORKER is not ported yet: use "
+            "Lowering.COLLECTIVE or Lowering.KERNEL")
+
+    cw = options.chunk_weights
+    if cw is not None:
+        nested = any(e is None or isinstance(e, tuple) for e in cw)
+        if rank == 2:
+            if not nested:
+                raise CompileError(
+                    "collapse=2 needs per-axis chunk_weights: a 2-tuple "
+                    "of weight vectors (or None to keep an axis "
+                    f"cyclic), got {cw!r}")
+            for d, (e, p_d) in enumerate(zip(cw, num)):
+                if e is not None and len(e) != p_d:
+                    raise CompileError(
+                        f"chunk_weights[{d}] has {len(e)} entries but "
+                        f"mesh axis {d} has {p_d} devices")
+        else:
+            if nested:
+                raise CompileError(
+                    "rank-1 loops need a flat per-device chunk_weights "
+                    f"vector, got the per-axis form {cw!r}")
+            if len(cw) != num:
+                raise CompileError(
+                    f"chunk_weights has {len(cw)} entries but the mesh "
+                    f"axis has {num} devices")
+
+
+# ---------------------------------------------------------------------------
+# Pipeline execution
+# ---------------------------------------------------------------------------
+
+
+def _build_block(program, env_shapes, num, axis, options,
+                 device) -> _Artifacts:
+    shard_inputs = options.shard is ShardPolicy.SLICE
+    nest, ctx = plan_mod.analyze_program(program, env_shapes, device)
+    chunks_axes = plan_mod.plan_schedule(
+        program, nest, num, lowering="collective",
+        paper_master_excluded=options.paper_master_excluded,
+        schedule=options.schedule, weights=options.chunk_weights)
+    plan = plan_mod.decide_strategies(
+        program, nest, ctx, chunks_axes, axis=axis, lowering="collective",
+        shard_inputs=shard_inputs)
+    passes = (
+        PassRecord("analyze",
+                   input=f"block {program.name!r} + env shapes",
+                   output=(nest, ctx)),
+        PassRecord("schedule",
+                   input="loop nest + schedule clause(s)",
+                   output=chunks_axes),
+        PassRecord("plan",
+                   input="context + chunk plans",
+                   output=plan),
+        PassRecord("plan_comm",
+                   input="single block: no inter-loop slab boundaries",
+                   output=()),
+        PassRecord("schedule_comm",
+                   input="single block: no region-wide exchanges to "
+                         "schedule (per-block combines fuse at lower)",
+                   output=()),
+    )
+    if options.lowering is Lowering.KERNEL:
+        from repro_torch.core import kernel_lower as kl
+
+        passes = passes + (PassRecord(
+            "kernel",
+            input="compute span + chunk geometry (tile derivation per axis, "
+                  "span kernel generated from the body's aten graph)",
+            output=kl.plan_block_kernel(plan, program, name=program.name,
+                                        device=device)),)
+    return _Artifacts(passes=passes, exe_plan=plan, program=program)
+
+
+def _make_executor(program, mesh, options: Options, art: _Artifacts):
+    """The **lower** pass: bind the planned artifacts to the mesh."""
+    from repro_torch.core import transform as tf
+
+    kernel_plan = next((pr.output for pr in art.passes
+                        if pr.name == "kernel"), None)
+    return tf.DistributedProgram(
+        program=program, mesh=mesh, plan=art.exe_plan,
+        comm_schedule=options.comm_schedule,
+        use_kernel=options.lowering is Lowering.KERNEL,
+        kernel_plan=kernel_plan)
+
+
+# ---------------------------------------------------------------------------
+# The Compiled artifact
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class Compiled:
+    """The compilation artifact of one block: callable
+    (``compiled(env)`` / ``compiled.run(env)``), with ``.passes``,
+    ``.plan``, ``.boundaries``, ``.comm_schedule``, ``.kernel_plan``,
+    ``.report()``, ``.cost_summary()`` and ``.cache_hit``."""
+
+    program: Any
+    mesh: Any
+    options: Options
+    axis: Any
+    num_devices: Any
+    cache_hit: bool | None = None
+    _exe: Any = dataclasses.field(default=None, repr=False)
+    _passes: tuple | None = dataclasses.field(default=None, repr=False)
+    _env_sig: tuple | None = dataclasses.field(default=None, repr=False)
+
+    def run(self, env: Mapping[str, Any]) -> dict:
+        """Execute on the mesh's device; an env tensor on another device
+        raises."""
+        from repro_torch.core import transform as tf
+
+        env = tf.check_env(env, self.mesh.device)
+        self._ensure(env)
+        return self._exe(env)
+
+    __call__ = run
+
+    def _ensure(self, env_like: Mapping[str, Any]) -> None:
+        sig = _env_signature(env_like)
+        if sig == self._env_sig and self._exe is not None:
+            return
+        key = (_program_signature(self.program), _mesh_signature(self.mesh),
+               self.options, sig)
+        entry = _CACHE.get(key)          # warm hits: lock-free
+        if entry is not None:
+            _HITS.inc()
+            entry.stamp = next(_TICK)
+            self.cache_hit = True
+            self._bind(entry.art, sig)
+            return
+        _MISSES.inc()
+        self.cache_hit = False
+        env_shapes = {k: spec_of(v) for k, v in env_like.items()}
+        art = _build_block(self.program, env_shapes, self.num_devices,
+                           self.axis, self.options, self.mesh.device)
+        with _CACHE_LOCK:
+            _CACHE[key] = _Entry(art, next(_TICK))
+            while len(_CACHE) > _CACHE_CAP:
+                oldest = min(_CACHE, key=lambda k: _CACHE[k].stamp)
+                del _CACHE[oldest]
+        self._bind(art, sig)
+
+    def _bind(self, art: _Artifacts, sig: tuple) -> None:
+        exe = _make_executor(self.program, self.mesh, self.options, art)
+        self._passes = art.passes + (PassRecord(
+            "lower", input="planned artifacts + mesh", output=exe),)
+        self._exe = exe
+        self._env_sig = sig
+
+    def _built(self) -> None:
+        if self._passes is None:
+            raise CompileError(
+                "the pass pipeline has not run yet: call the compiled "
+                "program (or compile with env_like=) to build the plan "
+                "before inspecting it")
+
+    @property
+    def passes(self) -> tuple:
+        self._built()
+        return self._passes
+
+    def _pass(self, name: str) -> PassRecord:
+        self._built()
+        for pr in self._passes:
+            if pr.name == name:
+                return pr
+        raise KeyError(name)
+
+    @property
+    def plan(self):
+        """The :class:`~repro_torch.core.plan.DistPlan`."""
+        return self._pass("plan").output
+
+    @property
+    def boundaries(self) -> tuple:
+        return self._pass("plan_comm").output
+
+    @property
+    def comm_schedule(self):
+        return self._pass("schedule_comm").output
+
+    @property
+    def kernel_plan(self):
+        """The **kernel** artifact (a
+        :class:`~repro_torch.core.kernel_lower.KernelPlan`) under
+        ``Lowering.KERNEL``; ``None`` otherwise."""
+        self._built()
+        for pr in self._passes:
+            if pr.name == "kernel":
+                return pr.output
+        return None
+
+    def report(self) -> str:
+        from repro_torch.core import report as report_mod
+
+        self._built()
+        return report_mod.render_compiled(self)
+
+    def cost_summary(self) -> dict:
+        """Modeled communication totals of the chosen plan."""
+        from repro_torch.core import report as report_mod
+
+        _, total = report_mod._comm_breakdown(self.plan)
+        return {"kind": "block", "lowering": self.options.lowering.value,
+                "modeled_bytes": total}

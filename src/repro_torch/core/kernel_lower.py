@@ -1,0 +1,282 @@
+"""``Lowering.KERNEL`` — the span kernel behind each block (counterpart of
+:mod:`repro.core.pallas_lower`, block side).
+
+The lowering keeps the whole distributed machinery of the collective
+lowering — chunk-cyclic staging, the fused combines, the reassembly —
+and swaps ONLY the compute phase: instead of vmapping the body over
+every rank's chunks in plain PyTorch, each compute span runs as ONE
+launch of the span kernel (:mod:`repro_torch.kernels.span_kernel`), a
+Triton kernel generated from the body's aten graph.  A *span* is one
+loop stage here; chains of region stages wait for the region slice.
+
+The kernel produces only dense per-lane body values, in the global slab
+layout ``(n_loc, P, c, *value_shape)`` (``(n_i, P_i, c_i, n_j, P_j, c_j,
+*value_shape)`` for rank 2) — one launch covers every virtual rank.
+Every merge (scatter/put/reduce folds) runs outside on those values via
+:func:`merge_chunk_values`, which is also how the plain executor
+(``transform._run_local_chunks``) folds: both lowerings share one merge.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.core import nest as nest_mod
+from repro_torch.core import reduction as red_mod
+from repro_torch.core.nest import AxisTiles, derive_nest_tiles
+from repro_torch.kernels import span_kernel
+
+
+# ---------------------------------------------------------------------------
+# The KernelPlan artifact (recorded on Compiled.passes, rendered by
+# report.py)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelSpan:
+    """One span kernel: a chain of same-geometry loop stages with no
+    exchange between them (one stage for a block).
+
+    ``grid`` is the reference's per-rank grid — ``(local_chunks,
+    n_tiles)``, or ``(lc_i, lc_j, nt_i, nt_j)`` for rank 2; one launch
+    covers all ``ranks`` of the mesh.  It runs ``launch_programs``
+    programs: the tiles of the ``slots`` (per axis) that hold an
+    iteration, never the padding slots of the chunk plan."""
+
+    stage_names: tuple[str, ...]
+    stage_indices: tuple[int, ...]
+    rank: int
+    grid: tuple[int, ...]
+    tiles: tuple[AxisTiles, ...]
+    forwarded: tuple[str, ...]
+    n_outputs: int
+    ranks: tuple[int, ...] = ()
+    slots: tuple[int, ...] = ()
+    source: Any = dataclasses.field(default=None, repr=False, compare=False)
+
+    @property
+    def launch_programs(self) -> int:
+        return math.prod(self.slots) * math.prod(t.n_tiles for t in self.tiles)
+
+    def describe(self) -> str:
+        geo = " x ".join(
+            f"{tl.n_tiles}*{tl.tile}" +
+            (f" ({tl.masked_lanes} masked)" if tl.masked_lanes else "")
+            for tl in self.tiles)
+        ranks = "x".join(str(p) for p in self.ranks)
+        slots = "x".join(str(lc * p) for lc, p in
+                         zip(self.grid[:self.rank], self.ranks))
+        return (f"{'+'.join(self.stage_names)}: grid={self.grid} x "
+                f"{ranks} ranks ({self.launch_programs} programs, one "
+                f"launch, over the {'x'.join(map(str, self.slots))} of "
+                f"{slots} chunk slots that hold iterations) tile={geo} "
+                "chunk=" + "x".join(str(tl.chunk) for tl in self.tiles))
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelPlan:
+    """Tile geometry + spans of a KERNEL-lowered program."""
+
+    name: str
+    rank: int
+    spans: tuple[KernelSpan, ...]
+    n_loop_stages: int
+
+    @property
+    def n_kernels(self) -> int:
+        return len(self.spans)
+
+    def describe_lines(self) -> list[str]:
+        lines = [f"span kernels: {self.n_kernels} span(s) over "
+                 f"{self.n_loop_stages} loop stage(s), Triton on CUDA "
+                 "(plain PyTorch for CPU tensors)"]
+        for s in self.spans:
+            lines.append("  " + s.describe())
+        return lines
+
+
+def _span_meta(plan, names, indices, source) -> KernelSpan:
+    chs = plan.chunks_axes
+    tiles = derive_nest_tiles(tuple(ch.chunk for ch in chs))
+    if plan.rank == 1:
+        grid = (chs[0].local_chunks, tiles[0].n_tiles)
+    else:
+        grid = (chs[0].local_chunks, chs[1].local_chunks,
+                tiles[0].n_tiles, tiles[1].n_tiles)
+    return KernelSpan(stage_names=tuple(names), stage_indices=tuple(indices),
+                      rank=plan.rank, grid=grid, tiles=tiles, forwarded=(),
+                      n_outputs=len(plan.written_keys),
+                      ranks=tuple(ch.num_devices for ch in chs),
+                      slots=span_kernel.live_slots(plan), source=source)
+
+
+def plan_block_kernel(plan, program, name: str | None = None,
+                      device=None) -> KernelPlan:
+    """KernelPlan of a single ParallelFor block (one span), with the span
+    kernel's source generated from the body — an op the template cannot
+    express raises ``CompileError`` here, at compile time."""
+    if plan.nest.total_trip == 0 or not plan.written_keys:
+        return KernelPlan(name=name or plan.name, rank=plan.rank,
+                          spans=(), n_loop_stages=0)
+    source = span_kernel.generate(plan, program, device=device)
+    span = _span_meta(plan, [name or plan.name], [0], source)
+    return KernelPlan(name=name or plan.name, rank=plan.rank,
+                      spans=(span,), n_loop_stages=1)
+
+
+# ---------------------------------------------------------------------------
+# Kernel execution
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class SpanStage:
+    """One stage's kernel-side feeds, assembled by the executor."""
+
+    plan: Any
+    program: Any
+    ext_windows: dict          # key -> slab stacks in the global layout
+    env_repl: dict             # key -> replicated tensor
+
+
+def execute_span(stages: list[SpanStage], span: KernelSpan, device
+                 ) -> list[tuple[dict, dict]]:
+    """Run a span's loop bodies as ONE span-kernel launch over every
+    rank; returns each stage's per-rank ``(carry, ys)``.  A block's span
+    has one stage (multi-stage region spans wait for the region slice)."""
+    (sp,) = stages
+    values = span_kernel.span_values(sp.plan, sp.program, sp.ext_windows,
+                                     sp.env_repl, span.source, device)
+    merge = merge_chunk_values if sp.plan.rank == 1 else merge_chunk_values2
+    return [merge(sp.plan, values)]
+
+
+def run_local_chunks_kernel(plan, program, env_in, slab_stacks,
+                            kernel_plan: KernelPlan, device):
+    """Drop-in for ``transform._run_local_chunks``/``2`` backed by one
+    span-kernel launch."""
+    (span,) = kernel_plan.spans
+    sp = SpanStage(plan=plan, program=program,
+                   ext_windows=slab_stacks, env_repl=env_in)
+    (carry, ys), = execute_span([sp], span, device)
+    return carry, ys
+
+
+# ---------------------------------------------------------------------------
+# Merges — dense per-lane values -> per-rank (carry, ys)
+# ---------------------------------------------------------------------------
+
+
+def _valid(ch, trip: int, device):
+    """``(n_loc, P, c)``: which lanes hold a real iteration, and their
+    iteration numbers."""
+    _, ks = nest_mod.slot_iterations(ch, device)
+    return ks < trip, ks
+
+
+def lane_mask(plan, device) -> torch.Tensor:
+    """Which lanes of the dense value layout hold a real iteration:
+    ``(n_loc, P, c)``, or ``(n_i, P_i, c_i, n_j, P_j, c_j)`` for rank 2.
+    The span kernel writes these lanes, and leaves the padding slots of
+    the chunk plan unwritten."""
+    if plan.rank == 1:
+        return _valid(plan.chunks, plan.loop.trip_count, device)[0]
+    (ch_i, ch_j), (loop_i, loop_j) = plan.chunks_axes, plan.nest.axes
+    valid_i, _ = _valid(ch_i, loop_i.trip_count, device)
+    valid_j, _ = _valid(ch_j, loop_j.trip_count, device)
+    return valid_i[:, :, :, None, None, None] & valid_j[None, None, None]
+
+
+def _fold_partials(rop, v, valid, lead: tuple[int, ...]):
+    """Per-rank fold of masked lane values: ``v`` has rank dims at
+    ``lead`` positions among its leading lane dims; returns ``(*ranks,
+    *value_shape)`` combined with the identity carry."""
+    ident = red_mod.identity_like(rop, v)
+    vmask = valid.reshape(valid.shape + (1,) * (v.dim() - valid.dim()))
+    contrib = torch.where(vmask, v, ident)
+    n_lane = valid.dim()
+    rank_dims = list(lead)
+    other = [d for d in range(n_lane) if d not in rank_dims]
+    contrib = contrib.permute(rank_dims + other
+                              + list(range(n_lane, v.dim())))
+    contrib = contrib.flatten(len(rank_dims), n_lane - 1)
+    part = rop.local_fold(contrib, len(rank_dims))
+    carry0 = red_mod.identity_like(rop, part)
+    return rop.pairwise(carry0, part)
+
+
+def merge_chunk_values(plan, values):
+    """``(n_loc, P, c, *value_shape)`` dense values -> per-rank ``(carry,
+    ys)``: ``ys`` keeps the identity/partial values in the slab layout;
+    ``carry`` holds scatter ``(buf, mask)`` pairs ``(P, *shape)`` /
+    ``(P, shape0)``, put rows ``(P, *shape)`` (zeros off the owner) and
+    reduction partials ``(P, *value_shape)``."""
+    ch = plan.chunks
+    t = plan.loop.trip_count
+    p = ch.num_devices
+    device = next(iter(values.values())).device if values else None
+    valid, ks = _valid(ch, t, device)
+    carry: dict[str, Any] = {}
+    ys: dict[str, Any] = {}
+    for key, dec in plan.vars.items():
+        if dec.out_strategy == "none":
+            continue
+        v = values[key]
+        info = plan.context.vars[key]
+        if dec.out_strategy in ("identity", "partial"):
+            ys[key] = v
+        elif dec.out_strategy == "scatter":
+            # masked lanes land on one spare row past the end, sliced off
+            # afterwards: never an out-of-range index on the device
+            shape0 = info.shape[0]
+            pos = torch.where(valid, dec.write_map.a * ks + dec.write_map.b,
+                              shape0)
+            rank = torch.arange(p, device=device).view(1, p, 1)
+            flat = (rank * (shape0 + 1) + pos).reshape(-1)
+            rest = tuple(info.shape[1:])
+            buf = torch.zeros((p * (shape0 + 1),) + rest, dtype=info.dtype,
+                              device=device)
+            buf[flat] = v.reshape((-1,) + rest).to(info.dtype)
+            mask = torch.zeros(p * (shape0 + 1), dtype=torch.bool,
+                               device=device)
+            mask[flat] = True
+            carry[key] = (buf.view((p, shape0 + 1) + rest)[:, :shape0],
+                          mask.view(p, shape0 + 1)[:, :shape0])
+        elif dec.out_strategy == "put":
+            j_star = (t - 1) // ch.chunk
+            lane = (t - 1) - j_star * ch.chunk
+            slots = nest_mod.slot_chunk_ids(ch).reshape(ch.local_chunks, p)
+            q_star, d_star = (int(a[0]) for a in np.nonzero(slots == j_star))
+            row = torch.zeros((p,) + tuple(info.shape), dtype=info.dtype,
+                              device=device)
+            row[d_star] = v[q_star, d_star, lane]
+            carry[key] = row
+        elif dec.out_strategy == "reduce":
+            rop = red_mod.get_reduction(dec.reduction_op)
+            carry[key] = _fold_partials(rop, v, valid, lead=(1,))
+    return carry, ys
+
+
+def merge_chunk_values2(plan, values):
+    """``(n_i, P_i, c_i, n_j, P_j, c_j, *value_shape)`` dense values ->
+    per-rank ``(carry, ys)``; reduction partials lead with
+    ``(P_i, P_j)``."""
+    device = next(iter(values.values())).device if values else None
+    valid = lane_mask(plan, device)
+    carry: dict[str, Any] = {}
+    ys: dict[str, Any] = {}
+    for key, dec in plan.vars.items():
+        if dec.out_strategy == "none":
+            continue
+        v = values[key]
+        if dec.out_strategy in ("identity", "partial"):
+            ys[key] = v
+        elif dec.out_strategy == "reduce":
+            rop = red_mod.get_reduction(dec.reduction_op)
+            carry[key] = _fold_partials(rop, v, valid, lead=(1, 4))
+    return carry, ys

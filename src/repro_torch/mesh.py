@@ -1,0 +1,137 @@
+"""In-process stacked-rank mesh and its collectives.
+
+Counterpart of :func:`repro.compat.make_mesh` / ``shard_map`` and of the
+``jax.lax`` collectives the block executors call.  P virtual ranks live
+on ONE device:
+
+* a **per-rank** tensor carries leading rank dimensions, one per mesh
+  axis named by the collective, in that order (``(P, ...)`` on a rank-1
+  mesh, ``(P_i, P_j, ...)`` over ``("i", "j")``);
+* a **replicated** tensor is one tensor shared by every rank, never P
+  copies;
+* ``psum``/``pmax``/``pmin`` reduce over the rank dimensions and return a
+  replicated tensor; ``all_gather`` returns the stack of every rank's
+  value with the gathered axis leading; ``axis_index`` is an ``arange``.
+
+Chunk-cyclic slabs keep the reference's global layout ``(n_loc, P, c,
+...)``, whose dim 1 is the rank axis (the reference's ``P(None, axis)``
+sharding); the compute phase reads each rank's slabs from that dim.
+
+Every collective counts one launch and the bytes of its per-rank
+operands in :attr:`Mesh.launches` / :attr:`Mesh.bytes` — the port's
+counterpart of the reference's HLO collective audit.
+"""
+from __future__ import annotations
+
+import collections
+from typing import Sequence
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the CUDA card; raise rather than run on the CPU
+    when there is none."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: the port runs on the GPU by default; pass "
+                "device='cpu' explicitly to run on the CPU")
+        return torch.device("cuda")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but CUDA is not "
+                           "available")
+    return device
+
+
+class Mesh:
+    """P virtual ranks on one device, with named axes."""
+
+    def __init__(self, axis_shapes: Sequence[int], axis_names: Sequence[str],
+                 device: torch.device) -> None:
+        axis_shapes = tuple(int(s) for s in axis_shapes)
+        axis_names = tuple(str(a) for a in axis_names)
+        if len(axis_shapes) != len(axis_names) or not axis_names:
+            raise ValueError(
+                f"mesh shape {axis_shapes} and axis names {axis_names} "
+                "must have the same (non-zero) length")
+        if len(set(axis_names)) != len(axis_names):
+            raise ValueError(f"duplicate mesh axis names {axis_names}")
+        if any(s < 1 for s in axis_shapes):
+            raise ValueError(f"mesh axis sizes must be >= 1, got {axis_shapes}")
+        self.axis_names = axis_names
+        self.shape = dict(zip(axis_names, axis_shapes))
+        self.device = device
+        self.launches: collections.Counter = collections.Counter()
+        self.bytes: collections.Counter = collections.Counter()
+
+    def __repr__(self) -> str:
+        axes = ", ".join(f"{a}={s}" for a, s in self.shape.items())
+        return f"Mesh({axes}, device={self.device})"
+
+    def reset_counters(self) -> None:
+        self.launches.clear()
+        self.bytes.clear()
+
+    # -- rank identity ------------------------------------------------------
+
+    def axis_index(self, axis: str) -> torch.Tensor:
+        """Every rank's index along ``axis``: ``arange(P_axis)`` (int32)."""
+        return torch.arange(self.shape[axis], dtype=torch.int32,
+                            device=self.device)
+
+    # -- collectives over the leading rank dimensions -----------------------
+
+    def _axes(self, axis) -> tuple[str, ...]:
+        names = axis if isinstance(axis, tuple) else (axis,)
+        for a in names:
+            if a not in self.shape:
+                raise ValueError(f"axis {a!r} not in mesh axes "
+                                 f"{self.axis_names}")
+        return names
+
+    def _count(self, op: str, x: torch.Tensor) -> None:
+        self.launches[op] += 1
+        self.bytes[op] += x.numel() * x.element_size()
+
+    def _check(self, x: torch.Tensor, names) -> None:
+        lead = tuple(self.shape[a] for a in names)
+        if tuple(x.shape[:len(lead)]) != lead:
+            raise ValueError(
+                f"per-rank tensor over {names} needs leading dims {lead}, "
+                f"got shape {tuple(x.shape)}")
+
+    def psum(self, x: torch.Tensor, axis) -> torch.Tensor:
+        names = self._axes(axis)
+        self._check(x, names)
+        self._count("psum", x)
+        return x.sum(dim=tuple(range(len(names))))
+
+    def pmax(self, x: torch.Tensor, axis) -> torch.Tensor:
+        names = self._axes(axis)
+        self._check(x, names)
+        self._count("pmax", x)
+        return x.flatten(0, len(names) - 1).amax(dim=0)
+
+    def pmin(self, x: torch.Tensor, axis) -> torch.Tensor:
+        names = self._axes(axis)
+        self._check(x, names)
+        self._count("pmin", x)
+        return x.flatten(0, len(names) - 1).amin(dim=0)
+
+    def all_gather(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """Gather along ONE axis: every rank receives the stack of its
+        axis peers' values.  In the stacked layout that stack already
+        leads ``x``; the launch and its bytes are what is recorded."""
+        (name,) = self._axes(axis)
+        self._check(x, (name,))
+        self._count("all_gather", x)
+        return x
+
+
+def make_mesh(axis_shapes: Sequence[int], axis_names: Sequence[str],
+              device=None) -> Mesh:
+    """A stacked-rank mesh on ``device`` (``None``: the CUDA card, raising
+    ``RuntimeError`` when there is none)."""
+    return Mesh(axis_shapes, axis_names, resolve_device(device))

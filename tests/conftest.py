@@ -34,3 +34,9 @@ def run_multidevice(code: str, n_devices: int = 8) -> str:
 @pytest.fixture(scope="session")
 def multidevice():
     return run_multidevice
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (skips without one); run on the "
+        "GPU machine with `python -m pytest -m gpu tests/test_torch_gpu.py`")
