@@ -46,16 +46,53 @@ non-zero (no phase catches an error and carries on):
    once, and each output's values on the loop's iterations, once — not
    the halo windows or the padding slots of the chunk layout.
 
+6. **K2 vs plain** — the flash-attention kernel (CUDA C++, built by
+   ``nvcc`` for ``sm_90a`` into ``build/kernels/`` in a thread started
+   with the script, while phases 2-5 run) against its plain version on
+   the card: the 7 cases of ``tests/test_kernels.py`` and gemma3-1b's two
+   attention shapes (B=1, H=4, KV=1, hd=256, S=4096, causal, window 512
+   and none) in bfloat16 and float32.  The ``agree`` rule of phase 4 with
+   tol = 2e-5 (float32), 5e-3 (float16) and 1e-2 (bfloat16: one output
+   rounding is 2^-8 relative); each check rejects the plain output scaled
+   by 1.001 (float32) or by 1 + 10 x tol (16-bit types, whose rounding is
+   coarser than 0.1%), and all zeros;
+7. **prefill** — gemma3-1b at full width, weights from a seeded
+   ``torch.Generator`` on the card, two prompts of 4096 tokens:
+   ``DecoderLM.prefill(impl="kernel")`` against ``impl="chunked"``
+   (plain PyTorch) in the same type: logits and every layer's k/v cache
+   under ``agree`` at tol = 1e-4 in float32 and 1e-1 in bfloat16 (where
+   both paths lie ~4e-2 from float32 by bf16 rounding through 26
+   layers), positions equal; in bfloat16 the kernel path's worst gap to
+   the float32 result may not exceed 1.5 x the chunked path's; K2 launches exactly once per attention layer, by
+   window (4 global, 22 local), and its kernel-table rows carry those
+   counts; timed end to end in float32 and bfloat16 under both impls;
+8. **serving** — ``ServeEngine(n_slots=4, cache_len=4096, float32)``
+   answers 8 requests of 16-2048 prompt tokens and 16
+   new tokens (K2: 26 launches per prefill).  Each request is replayed
+   through a single-sequence reference (``prefill(impl="chunked")`` then
+   ``decode_step``), teacher-forced on the engine's tokens: at every step
+   the engine's token must score within 1e-3 x max|logit| of that step's
+   best reference logit (random-weight logits over 262144 tokens hold
+   near-ties, so argmax tokens are not compared);
+9. **K2 times** — at both gemma3-1b shapes, both types: the kernel, its
+   plain version, ``F.scaled_dot_product_attention`` (``enable_gqa``,
+   ``is_causal`` or a boolean window mask; a yardstick the port never
+   calls) and the bound: the larger of q, k, v and o's bytes over
+   3.35 TB/s and 4 x hd flops per allowed (query, key) pair and head
+   over 989 TFLOP/s (bfloat16) or 67 TFLOP/s (float32).
+
 The last two lines are the kernel table as one JSON object and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import collections
 import json
 import math
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -67,6 +104,23 @@ REPS = 10                      # timed runs per number (the median is kept)
 INNER = 20                     # back-to-back calls in one timed run
 REPLACES = "src/repro/core/pallas_lower.py:343"
 SOURCE = "src/repro_torch/kernels/span_kernel.py"
+BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core rate
+K2_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
+K2_REPLACES = "src/repro/kernels/flash_attention.py:98"
+ARCH = "gemma3-1b"
+PREFILL_LEN = 4096             # tokens in each of the two prompts
+SERVE = dict(requests=8, shortest=16, longest=2048, max_new=16,
+             n_slots=4, cache_len=4096)
+PREFILL_TOL = 1e-4             # kernel vs chunked prefill, float32
+PREFILL_TOL_BF16 = 1e-1        # kernel vs chunked prefill, bfloat16
+BF16_GAP_RATIO = 1.5           # kernel's bf16 gap to f32 over chunked's
+SERVE_TOL = 1e-3               # engine token vs best reference logit
+
+
+def model_config():
+    from repro_torch.configs import get_config
+
+    return get_config(ARCH)
 
 
 def _setup():
@@ -294,6 +348,411 @@ def compare_spans(torch, omp, transform, kernel_lower, span_kernel, prog,
     return err
 
 
+# ---------------------------------------------------------------------------
+# K2: flash attention
+# ---------------------------------------------------------------------------
+
+
+def k2_cases(torch):
+    """(label, b, h, kv, sq, sk, hd, causal, window, dtype, tol): the 7
+    cases of tests/test_kernels.py, then gemma3-1b's two attention shapes
+    (from its config) in bfloat16 and float32."""
+    f32, f16 = torch.float32, torch.float16
+    cases = [
+        ("mha", 1, 4, 4, 64, 64, 32, True, None, f32, 2e-5),
+        ("gqa", 2, 8, 2, 128, 128, 64, True, None, f32, 2e-5),
+        ("gqa+window", 1, 4, 1, 96, 96, 64, True, 32, f32, 2e-5),
+        ("decode", 2, 4, 4, 1, 160, 64, True, None, f32, 2e-5),
+        ("bidir", 1, 2, 2, 64, 64, 128, False, None, f32, 2e-5),
+        ("ragged+f16", 1, 4, 2, 200, 200, 64, True, None, f16, 5e-3),
+        ("suffix+window", 1, 2, 1, 48, 80, 32, True, 16, f32, 2e-5),
+    ]
+    for label, window in gemma_windows():
+        for dtype, tol in ((torch.bfloat16, 1e-2), (f32, 2e-5)):
+            cases.append((label, *gemma_shape(), True, window, dtype, tol))
+    return cases
+
+
+def gemma_windows():
+    cfg = model_config()
+    return (("global", None), ("local", cfg.sliding_window))
+
+
+def gemma_shape():
+    """(b, h, kv, sq, sk, hd) of one prompt's attention layer."""
+    cfg = model_config()
+    return (1, cfg.n_heads, cfg.n_kv_heads, PREFILL_LEN, PREFILL_LEN,
+            cfg.head_dim)
+
+
+def k2_inputs(torch, dev, b, h, kv, sq, sk, hd, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g, device=dev).to(dtype)
+                 for shape in ((b, h, sq, hd), (b, kv, sk, hd),
+                               (b, kv, sk, hd)))
+
+
+def check_k2(torch, fa, q, k, v, causal, window, tol, label) -> float:
+    """K2 against its plain version on the same inputs; returns the max
+    abs error.  Also shows that the check rejects a wrong output."""
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    got, want = got.float(), want.float()
+    err = (got - want).abs().max().item()
+    if not agree(torch, got, want, tol):
+        raise AssertionError(
+            f"K2 {label}: kernel != plain, max abs err {err:.3e} "
+            f"(rtol={tol}, atol={tol} x {want.abs().max().item():.3e})")
+    bump = 1.001 if q.dtype == torch.float32 else 1 + 10 * tol
+    if agree(torch, want * bump, want, tol) or agree(
+            torch, torch.zeros_like(want), want, tol):
+        raise AssertionError(f"K2 {label}: the check at tol={tol} cannot "
+                             "tell a wrong kernel")
+    return err
+
+
+def band_pairs(sq, sk, causal, window) -> int:
+    """Allowed (query, key) pairs of one head: what the kernel must
+    compute for these shapes."""
+    total = 0
+    for i in range(sq):
+        qp = i + sk - sq
+        hi = min(qp, sk - 1) if causal else sk - 1
+        lo = max(0, qp - window + 1) if window is not None else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def sdpa_call(torch, q, k, v, window):
+    """One PyTorch call computing K2's function (a yardstick only)."""
+    F = torch.nn.functional
+    if window is None:
+        return lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)
+    i = torch.arange(q.shape[2], device=q.device)[:, None]
+    j = torch.arange(k.shape[2], device=q.device)[None, :]
+    mask = (j <= i) & (j > i - window)
+    return lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, enable_gqa=True)
+
+
+def k2_phase(torch, dev, card):
+    """Phase 6: every K2 case against the plain version; returns the max
+    abs error of each gemma3-1b shape and type."""
+    from repro_torch.kernels import flash_attention as fa
+
+    errs = {}
+    for n, case in enumerate(k2_cases(torch)):
+        label, b, h, kv, sq, sk, hd, causal, window, dtype, tol = case
+        q, k, v = k2_inputs(torch, dev, b, h, kv, sq, sk, hd, dtype, n)
+        err = check_k2(torch, fa, q, k, v, causal, window, tol,
+                       f"{label} {dtype}")
+        errs[(label, dtype)] = err
+        print(f"K2-vs-plain {label}: B={b} H={h} KV={kv} Sq={sq} Sk={sk} "
+              f"hd={hd} causal={causal} window={window} {dtype} "
+              f"max_abs_err={err:.3e} (tol {tol})")
+    return errs
+
+
+def k2_times(torch, dev, card, errs, launches):
+    """Phase 9: K2 rows of the kernel table at gemma3-1b's shapes."""
+    from repro_torch.kernels import flash_attention as fa
+
+    rows = []
+    b, h, kv, sq, sk, hd = gemma_shape()
+    for label, window in gemma_windows():
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = k2_inputs(torch, dev, b, h, kv, sq, sk, hd, dtype, 7)
+            ms = cuda_ms(torch, lambda: fa.flash_attention(
+                q, k, v, causal=True, window=window))
+            plain_ms = cuda_ms(torch, lambda: fa.flash_attention_plain(
+                q, k, v, causal=True, window=window), reps=5, inner=5)
+            lib = sdpa_call(torch, q, k, v, window)
+            lib_err = (lib().float() - fa.flash_attention_plain(
+                q, k, v, causal=True, window=window).float()).abs().max()
+            library_ms = cuda_ms(torch, lib, reps=5, inner=5)
+            pairs = band_pairs(sq, sk, True, window)
+            flops = 4 * hd * h * b * pairs
+            size = torch.empty((), dtype=dtype).element_size()
+            nbytes = size * (2 * b * h * sq * hd + 2 * b * kv * sk * hd)
+            peak = (BF16_FLOPS_PER_S if dtype == torch.bfloat16
+                    else FP32_FLOPS_PER_S)
+            bound_s = max(nbytes / HBM_BYTES_PER_S, flops / peak)
+            bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / peak
+                        else "operations")
+            tname = str(dtype).replace("torch.", "")
+            rows.append({
+                "name": f"flash_attention[{ARCH} {label} S={sq} {tname}]",
+                "route": "cuda", "source": K2_SOURCE,
+                "replaces": K2_REPLACES,
+                "launches": launches[tname].get(window, 0),
+                "max_abs_err": errs[(label, dtype)], "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
+                "bound_by": bound_by, "library_ms": library_ms})
+            print(f"times K2 {label} {tname}: kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms (max abs "
+                  f"diff to plain {lib_err.item():.2e}), bound "
+                  f"{bound_s * 1e3:.4f} ms ({bound_by}: {flops} flops at "
+                  f"{peak:.3g} flop/s, {nbytes} B at {HBM_BYTES_PER_S:.3g} "
+                  f"B/s; {pairs} allowed pairs per head) on {card}")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# gemma3-1b: prefill and serving
+# ---------------------------------------------------------------------------
+
+
+def prefill_phase(torch, dev, card):
+    """Phase 7; returns (model, params, K2 launches of one prefill by type
+    and window)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import build_model
+
+    cfg = model_config()
+    f32, bf16 = torch.float32, torch.bfloat16
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params, _ = model.init(gen)
+    tokens = torch.randint(1, cfg.vocab_size, (2, PREFILL_LEN),
+                           generator=gen, device=dev, dtype=torch.int32)
+    n_params = sum(t.numel() for t in _leaves(params))
+    torch.cuda.synchronize()
+    print(f"prefill {cfg.name}: {n_params} parameters (float32, seed 0) "
+          f"built on the card in {time.perf_counter() - t0:.2f} s; "
+          f"{cfg.n_layers} layers, 2 prompts of {PREFILL_LEN} tokens")
+
+    def run(impl, dtype):
+        cache = model.init_cache(2, PREFILL_LEN, dtype=dtype, device=dev)
+        return model.prefill(params, {"tokens": tokens}, cache, impl=impl,
+                             compute_dtype=dtype)
+
+    # one K2 launch per attention layer, under that layer's window
+    want_launches = collections.Counter(
+        cfg.sliding_window if cfg.attn_kind(i) == "local" else None
+        for i in range(cfg.n_layers))
+    launches = {}
+    ref = run("chunked", f32)
+    for dtype, tol in ((f32, PREFILL_TOL), (bf16, PREFILL_TOL_BF16)):
+        fa.LAUNCHES.clear()
+        got = run("kernel", dtype)
+        torch.cuda.synchronize()
+        tname = str(dtype).replace("torch.", "")
+        launches[tname] = dict(fa.LAUNCHES)
+        if fa.LAUNCHES != want_launches:
+            raise AssertionError(
+                f"prefill {dtype}: K2 launched {dict(fa.LAUNCHES)} times "
+                f"by window, want one per attention layer "
+                f"{dict(want_launches)}")
+        if got[0].shape != (2, cfg.vocab_size) or not bool(
+                torch.isfinite(got[0]).all()):
+            raise AssertionError(f"prefill {dtype}: logits "
+                                 f"{tuple(got[0].shape)} not finite")
+        want = ref if dtype == f32 else run("chunked", dtype)
+        worst, where = hold_prefill(torch, got, want, tol, tname)
+        print(f"prefill {cfg.name}: impl=kernel == impl=chunked in {tname} "
+              f"(logits and the k/v caches of all {cfg.n_layers} layers: "
+              f"rtol={tol}, atol={tol} x max|value|; worst err / scale "
+              f"{worst:.3e} in {where}; pos equal); K2 launches by window "
+              f"{launches[tname]}")
+        if dtype != f32:
+            # how far each path's own rounding carries it from float32:
+            # the kernel's may not exceed the plain path's by much
+            gaps = {}
+            for impl, out in (("kernel", got), ("chunked", want)):
+                gaps[impl], where = worst_gap(prefill_pairs(out, ref))
+                print(f"prefill {cfg.name}: impl={impl} {tname} against "
+                      f"impl=chunked float32: worst err / scale "
+                      f"{gaps[impl]:.3e} in {where}")
+            if gaps["kernel"] > BF16_GAP_RATIO * gaps["chunked"]:
+                raise AssertionError(
+                    f"prefill {tname}: impl=kernel lies {gaps['kernel']:.3e}"
+                    f" from float32, over {BF16_GAP_RATIO} x impl=chunked's "
+                    f"{gaps['chunked']:.3e}")
+        del got, want
+    del ref
+    prefill_ms = {}
+    for impl in ("kernel", "chunked"):
+        for dtype in (bf16, f32):
+            ms = prefill_ms[impl, dtype] = cuda_ms(
+                torch, lambda: run(impl, dtype), reps=3, inner=1, warmup=1)
+            print(f"end-to-end prefill {cfg.name} impl={impl} {dtype}: "
+                  f"{ms:.2f} ms for 2 x {PREFILL_LEN} tokens, "
+                  f"{2 * PREFILL_LEN / ms * 1e3:.0f} tokens/s on {card}")
+    profile_prefill(torch, run, card, prefill_ms["kernel", bf16])
+    return model, params, launches
+
+
+def profile_prefill(torch, run, card, wall_ms):
+    """One bfloat16 prefill (impl=kernel) under ``torch.profiler``: its
+    kernels' busy time against ``wall_ms`` (the same prefill timed without
+    the profiler, whose own overhead stretches the wall time it sees),
+    K2's share of the kernel time, and the kernels that take the most."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run("kernel", torch.bfloat16)
+        torch.cuda.synchronize()
+    prof_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if not busy_ms:
+        print("profile prefill: the profiler recorded no device time")
+        return
+    k2 = [e for e in kernels if "flash_fwd" in e.key]   # both K2 kernels
+    k2_ms = sum(e.self_device_time_total for e in k2) / 1e3
+    print(f"profile prefill bfloat16 impl=kernel: kernels busy "
+          f"{busy_ms:.1f} ms, {busy_ms / wall_ms:.1%} of the unprofiled "
+          f"{wall_ms:.1f} ms ({prof_ms:.1f} ms wall under the profiler); "
+          f"K2 {k2_ms:.1f} ms "
+          f"({k2_ms / busy_ms:.1%} of kernel time, "
+          f"{sum(e.count for e in k2)} launches) on {card}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"  {e.self_device_time_total / 1e3:8.2f} ms  x{e.count:<5d} "
+              f"{e.key[:100]}")
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def prefill_pairs(got, want):
+    """(name, got, want) over two prefills' logits and every layer's k
+    and v cache, as float32; ``slot*`` caches are split by period, so
+    ``cache slot1[p]`` is layer ``p x period + 1``."""
+    (got_logits, got_cache), (want_logits, want_cache) = got, want
+    pairs = [("logits", got_logits, want_logits)]
+    for key in want_cache:
+        for name in ("k", "v"):
+            g, w = got_cache[key][name], want_cache[key][name]
+            if key.startswith("slot"):
+                pairs += [(f"cache {key}[{i}]/{name}", g[i], w[i])
+                          for i in range(w.shape[0])]
+            else:
+                pairs.append((f"cache {key}/{name}", g, w))
+    return [(n, g.float(), w.float()) for n, g, w in pairs]
+
+
+def worst_gap(pairs):
+    """The largest max abs err / max |want| of ``pairs``, and its name."""
+    return max(((g - w).abs().max().item() / (w.abs().max().item() or 1.0),
+                name) for name, g, w in pairs)
+
+
+def hold_prefill(torch, got, want, tol, label):
+    """A prefill's (logits, cache) under ``agree`` against another's, the
+    cache's positions equal; returns :func:`worst_gap` of the logits and
+    every layer's k and v.  Every reading is taken before a failure
+    raises, so a failure names them all."""
+    for key in want[1]:
+        if not torch.equal(got[1][key]["pos"], want[1][key]["pos"]):
+            raise AssertionError(f"prefill {label}: cache {key}/pos differ")
+    pairs = prefill_pairs(got, want)
+    worst = worst_gap(pairs)
+    bad = [name for name, g, w in pairs if not agree(torch, g, w, tol)]
+    if bad:
+        raise AssertionError(
+            f"prefill {label}: kernel != chunked at rtol={tol}, atol={tol} "
+            f"x max|value| in {', '.join(bad)}; worst err / scale "
+            f"{worst[0]:.3e} in {worst[1]}")
+    return worst
+
+
+def serving_phase(torch, dev, card, model, params):
+    """Phase 8: the engine on 8 requests, held against a teacher-forced
+    single-sequence reference."""
+    import numpy as np
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.serving import Request, ServeEngine
+
+    cfg = model.cfg
+    f32 = torch.float32
+    rng = np.random.default_rng(0)
+    lens = rng.integers(SERVE["shortest"], SERVE["longest"] + 1,
+                        size=SERVE["requests"])
+    lens[:2] = SERVE["shortest"], SERVE["longest"]
+    reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab_size,
+                                               size=n).tolist(),
+                    max_new_tokens=SERVE["max_new"])
+            for i, n in enumerate(lens)]
+    engine = ServeEngine(model, params, n_slots=SERVE["n_slots"],
+                         cache_len=SERVE["cache_len"], compute_dtype=f32)
+    for r in reqs:
+        engine.submit(r)
+    torch.cuda.synchronize()
+    fa.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    ticks = 0
+    while engine.queue or any(r is not None for r in engine.slot_req):
+        engine.tick()
+        ticks += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = sum(fa.LAUNCHES.values())
+    if launches != cfg.n_layers * len(reqs):
+        raise AssertionError(f"serving: K2 launched {launches} times, want "
+                             f"{cfg.n_layers} per prefill x {len(reqs)}")
+    for r in reqs:
+        if not r.done or len(r.output) != SERVE["max_new"]:
+            raise AssertionError(f"request {r.rid}: done={r.done}, "
+                                 f"{len(r.output)} tokens")
+    tokens = torch.as_tensor(engine.slot_last, dtype=torch.int32,
+                             device=dev)
+    pos = torch.as_tensor(engine.slot_pos, dtype=torch.int32, device=dev)
+    tick_ms = cuda_ms(torch, lambda: model.decode_step(
+        params, engine.caches, tokens, pos, compute_dtype=f32), reps=5,
+        inner=3, warmup=1)
+    n_new = sum(len(r.output) for r in reqs)
+    print(f"serving {cfg.name}: {len(reqs)} requests (prompts "
+          f"{sorted(int(n) for n in lens)} tokens, {SERVE['max_new']} new "
+          f"each) on {SERVE['n_slots']} slots, cache_len "
+          f"{SERVE['cache_len']}, float32, prefill impl=kernel: {ticks} "
+          f"ticks, {wall * 1e3:.1f} ms wall, {n_new / wall:.1f} generated "
+          f"tokens/s; decode tick (4 slots) {tick_ms:.3f} ms; K2 launches "
+          f"{launches} on {card}")
+
+    worst, exact = 0.0, 0
+    for r in reqs:
+        prompt = torch.as_tensor(r.prompt, dtype=torch.int32,
+                                 device=dev)[None]
+        cache = model.init_cache(1, SERVE["cache_len"], dtype=f32,
+                                 device=dev)
+        logits, cache = model.prefill(params, {"tokens": prompt}, cache,
+                                      impl="chunked", compute_dtype=f32)
+        for t, tok in enumerate(r.output):
+            if t:
+                logits, cache = model.decode_step(
+                    params, cache, torch.tensor([r.output[t - 1]],
+                                                device=dev),
+                    torch.tensor([len(r.prompt) + t - 1], device=dev),
+                    compute_dtype=f32)
+            row = logits[0]
+            gap = (row.max() - row[tok]).item() / row.abs().max().item()
+            if gap > SERVE_TOL:
+                raise AssertionError(
+                    f"request {r.rid} step {t}: engine token {tok} scores "
+                    f"{gap:.2e} x max|logit| below the reference's best "
+                    f"(token {int(row.argmax())}); tolerance {SERVE_TOL}")
+            worst = max(worst, gap)
+            exact += int(row.argmax()) == tok
+    print(f"serving {cfg.name}: every engine token within {SERVE_TOL} x "
+          f"max|logit| of the teacher-forced reference's best (worst "
+          f"{worst:.2e}); {exact} of {n_new} equal its argmax")
+    return launches
+
+
 def main(device: str = "cuda") -> int:
     sys.stdout.reconfigure(line_buffering=True)
     torch = _setup()
@@ -301,8 +760,10 @@ def main(device: str = "cuda") -> int:
 
     from repro_torch import omp
     from repro_torch.core import kernel_lower, transform
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import span_kernel
 
+    k2_build = BuildThread(fa.build)    # nvcc runs while K1 builds and runs
     dev = torch.device(device)
     card = card_line()
     print(f"card: {card}")
@@ -432,12 +893,46 @@ def main(device: str = "cuda") -> int:
               f"{run_ms['kernel']:.4f} ms, collective "
               f"{run_ms['collective']:.4f} ms on {card}")
 
+    # -- K2, gemma3-1b prefill and serving -----------------------------------
+    k2_build.join()
+    if k2_build.error is not None:
+        raise k2_build.error
+    regs = sorted({line.split("Used ")[1].split(",")[0] for line in
+                   fa.BUILD_LOG.splitlines() if "Used " in line})
+    print(f"build K2: {fa.SOURCE.name} -> build/kernels/ in "
+          f"{k2_build.seconds:.2f} s (nvcc {' '.join(fa.NVCC_FLAGS)}; "
+          f"ptxas: {', '.join(regs) or 'cached build'})")
+    errs = k2_phase(torch, dev, card)
+    model, params, k2_launches = prefill_phase(torch, dev, card)
+    serving_phase(torch, dev, card, model, params)
+    del model, params
+    torch.cuda.empty_cache()
+    rows += k2_times(torch, dev, card, errs, k2_launches)
+
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+class BuildThread(threading.Thread):
+    """Runs a kernel build beside the main thread; :attr:`error` holds
+    what it raised, for the main thread to raise after ``join``."""
+
+    def __init__(self, build):
+        super().__init__(daemon=True)
+        self._build, self.error, self.seconds = build, None, 0.0
+        self.start()
+
+    def run(self):
+        t0 = time.perf_counter()
+        try:
+            self._build()
+        except BaseException as e:          # re-raised by the main thread
+            self.error = e
+        self.seconds = time.perf_counter() - t0
 
 
 def run_blocks(blocks, env):

@@ -1,8 +1,12 @@
-"""Carry an environment across between the JAX package and the port.
+"""Carry an environment, a parameter tree or a cache across between the
+JAX package and the port.
 
 The JAX package's envs are dicts of arrays; given as numpy, they map
 into the port with :func:`env_from_numpy` and back with
-:func:`env_to_numpy`.  JAX computes in 32 bits by default (float32,
+:func:`env_to_numpy`.  Its model parameter and cache trees (nested dicts
+of arrays, the same keys and shapes in both packages) map in with
+:func:`params_from_numpy` / :func:`cache_from_numpy` and back with
+:func:`tree_to_numpy`.  JAX computes in 32 bits by default (float32,
 int32), so 64-bit numpy values narrow to 32 bits on the way in, as
 ``jnp.asarray`` would narrow them; a 0-d value stays a 0-d tensor.
 """
@@ -37,3 +41,28 @@ def env_to_numpy(env: Mapping[str, Any]) -> dict:
     """``{name: tensor}`` -> ``{name: numpy array}`` (on the host)."""
     return {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
                 else np.asarray(v)) for k, v in env.items()}
+
+
+def _tree_from_numpy(tree, device):
+    if isinstance(tree, Mapping):
+        return {k: _tree_from_numpy(v, device) for k, v in tree.items()}
+    return to_tensor(tree, device)
+
+
+def params_from_numpy(tree, device="cpu") -> dict:
+    """The JAX package's parameter tree (numpy leaves) as the port's:
+    the same keys, every leaf a tensor on ``device``."""
+    return _tree_from_numpy(tree, device)
+
+
+def cache_from_numpy(tree, device="cpu") -> dict:
+    """The JAX package's KV-cache tree (numpy leaves: k, v and the int32
+    positions) as the port's, name for name."""
+    return _tree_from_numpy(tree, device)
+
+
+def tree_to_numpy(tree):
+    """A nested dict of tensors as the same dict of numpy arrays."""
+    if isinstance(tree, Mapping):
+        return {k: tree_to_numpy(v) for k, v in tree.items()}
+    return tree.detach().cpu().numpy()

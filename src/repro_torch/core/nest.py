@@ -380,12 +380,14 @@ class ShiftedWindow:
             raise SubstitutionFailed(
                 f"sliced-read substitution needs {r} leading indices, "
                 f"got {len(idx)}")
-        rows = tuple(
-            torch.clamp(torch.as_tensor(ix) - off, 0, self._win.shape[d] - 1)
-            for d, (ix, off) in enumerate(zip(idx[:r], self._offsets)))
+        rows = tuple(self._row(d, torch.as_tensor(ix))
+                     for d, ix in enumerate(idx[:r]))
         out = self._win[rows]
         rest = tuple(idx[r:])
         return out[rest] if rest else out
+
+    def _row(self, d, ix):
+        return torch.clamp(ix - self._offsets[d], 0, self._win.shape[d] - 1)
 
     def __len__(self):
         return self.shape[0]
@@ -399,3 +401,31 @@ class ShiftedWindow:
     __add__ = __radd__ = __mul__ = __rmul__ = __sub__ = __rsub__ = _no
     __truediv__ = __rtruediv__ = __matmul__ = __rmatmul__ = _no
     __neg__ = __pow__ = __array__ = _no
+
+
+class ClampedArray(ShiftedWindow):
+    """A whole array whose sliced reads (``x[a*i+b]`` on the leading
+    ``ndim`` axes) index it as ``jnp`` indexing does: a negative index
+    wraps once (adds the axis length), then clamps into bounds, so a read
+    past either end gives the edge element as in the reference (K1 reads
+    replicated arrays so too).  :func:`clamp_if_sliced` puts it in place
+    of each replicated array that Context Analysis classifies as a sliced
+    read."""
+
+    def __init__(self, array, ndim: int = 1):
+        super().__init__(array, (0,) * ndim, array.shape, array.dtype)
+
+    def _row(self, d, ix):
+        n = self._win.shape[d]
+        return torch.clamp(torch.where(ix < 0, ix + n, ix), 0, n - 1)
+
+
+def clamp_if_sliced(array, read):
+    """``array`` wrapped in :class:`ClampedArray` when the body reads it
+    sliced (``read``, its ``ReadInfo``, is ``SLICED`` or ``STENCIL``);
+    an array read whole stays the plain tensor."""
+    from repro_torch.core.context import ReadKind
+
+    if read.kind in (ReadKind.SLICED, ReadKind.STENCIL):
+        return ClampedArray(array, read.slice_ndim or 1)
+    return array

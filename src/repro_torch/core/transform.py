@@ -33,9 +33,10 @@ from repro_torch.core import comm_schedule as cs_mod
 from repro_torch.core import kernel_lower as kl
 from repro_torch.core import nest as nest_mod
 from repro_torch.core import pragma, reduction as red_mod
+from repro_torch.core import context as ctx_mod
 from repro_torch.core.context import lane_body, vmap_lanes
 from repro_torch.core.loop import LoopNotCanonical
-from repro_torch.core.nest import LoopNest, ShiftedWindow
+from repro_torch.core.nest import LoopNest, ShiftedWindow, clamp_if_sliced
 from repro_torch.core.plan import DistPlan
 
 
@@ -50,8 +51,6 @@ def env_device(env: Mapping[str, Any]) -> torch.device:
 
 def _fresh_reduction_shapes(program, env, nest):
     """Value shape/dtype of each reduction output not yet in ``env``."""
-    from repro_torch.core import context as ctx_mod
-
     fresh = [k for k in program.reduction if k not in env]
     if not fresh:
         return {}
@@ -70,6 +69,8 @@ def run_reference(program: pragma.ParallelFor, env: Mapping[str, Any]) -> dict:
 
     Reads observe the pre-loop environment (iterations are concurrent in
     OpenMP; racy read-after-write across iterations is unsupported).  A
+    sliced read past either end of an array reads it as ``jnp`` indexing
+    does (negative wraps once, then clamps: :class:`ClampedArray`).  A
     zero-trip loop writes nothing, except that a reduction clause
     defines its variable as the op identity.
     """
@@ -89,7 +90,10 @@ def run_reference(program: pragma.ParallelFor, env: Mapping[str, Any]) -> dict:
         (ax.start + ax.step * torch.arange(ax.trip_count, dtype=torch.int32,
                                            device=device)).to(torch.int32)
         for ax in nest.axes)
-    updates = vmap_lanes(lane_body(program, nest.rank), nest.rank, ivecs, env)
+    ctx = ctx_mod.analyze_context(program, env, nest)
+    reads = {k: clamp_if_sliced(v, ctx.vars[k].read) for k, v in env.items()}
+    updates = vmap_lanes(lane_body(program, nest.rank), nest.rank, ivecs,
+                         reads)
     fold_dims = tuple(range(nest.rank))
     for key, upd in updates.items():
         if isinstance(upd, pragma.At):
@@ -226,7 +230,7 @@ def _env_sub(plan, env_in, wins, offs, device):
             env_sub[key] = ShiftedWindow(wins[key], offs[key], info.shape,
                                          info.dtype)
         elif dec.in_strategy == "replicate":
-            env_sub[key] = env_in[key]
+            env_sub[key] = clamp_if_sliced(env_in[key], info.read)
         else:   # never read: the right shape at no memory (zero strides)
             env_sub[key] = torch.zeros((), dtype=info.dtype,
                                        device=device).expand(info.shape)

@@ -325,3 +325,52 @@ def test_kernel_lowering_matches_jax_pallas_every_family():
         want = {k: np.asarray(v) for k, v in want.items()}
         got = omp.compile(prog, m, lowering="kernel")(env)
         _assert_matches(got, want, f"{family} kernel-vs-pallas")
+
+
+# ---------------------------------------------------------------------------
+# Sliced reads past either end of a replicated array
+# ---------------------------------------------------------------------------
+
+
+def test_out_of_range_replicated_reads_match_jax_reference():
+    """``x[i + 3]`` past the end and ``x[i - 5]`` before the start (and
+    their rank-2 twins): the reference's indexing wraps a negative index
+    once and clamps; the port's plain path (``run_reference`` and the
+    lane executor's replicated reads) and its kernel lowering give the
+    same values, under both shard policies."""
+    import jax.numpy as jnp
+
+    from repro import omp as jomp
+    from repro_torch import omp
+
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=12).astype(np.float32)
+    a = rng.normal(size=(6, 5)).astype(np.float32)
+
+    def rank1(o):
+        @o.parallel_for(stop=12, name="oob")
+        def body(i, env):
+            return {"y": o.at(i, env["x"][i + 3] + 10.0 * env["x"][i - 5])}
+        return body
+
+    def rank2(o):
+        @o.parallel_for(stop=(6, 5), collapse=2, name="oob2")
+        def body(i, j, env):
+            return {"b": o.at((i, j), env["a"][i + 2, j - 3]
+                              - env["a"][i - 4, j + 1])}
+        return body
+
+    cases = [(rank1, {"x": x, "y": np.zeros(12, np.float32)}, (2,),
+              ("data",)),
+             (rank2, {"a": a, "b": np.zeros((6, 5), np.float32)}, (2, 1),
+              ("i", "j"))]
+    for make, env_np, shape, axes in cases:
+        jenv = {k: jnp.asarray(v) for k, v in env_np.items()}
+        want = _jax_reference(make(jomp), jenv)
+        prog, env = make(omp), _env_of(env_np)
+        _assert_matches(prog(env), want, f"{prog.name} run_reference")
+        mesh = omp.make_mesh(shape, axes, device="cpu")
+        for low in ("collective", "kernel"):
+            for shard in ("replicate", "slice"):
+                got = omp.compile(prog, mesh, lowering=low, shard=shard)(env)
+                _assert_matches(got, want, f"{prog.name} {low}/{shard}")

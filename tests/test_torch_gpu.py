@@ -1,5 +1,6 @@
-"""The span kernel (K1) on the card: real Triton launches against the
-plain PyTorch version, every block family.
+"""The port's kernels on the card against their plain PyTorch versions:
+the span kernel (K1, Triton) on every block family, and flash attention
+(K2, CUDA C++) on its test cases.
 
 Marked ``gpu``: it skips without a CUDA card.  Run it on the machine with
 the card (it needs neither JAX nor the reference package)::
@@ -25,3 +26,24 @@ def test_span_kernel_on_the_card_matches_plain():
         chip_smoke.compare_spans(torch, omp, transform, kernel_lower,
                                  span_kernel, prog, env, mesh, "slice",
                                  f"family {prog.name}")
+
+
+
+@pytest.mark.gpu
+def test_flash_attention_kernel_on_the_card_matches_plain():
+    """K2 against its plain version on the 7 cases of
+    tests/test_kernels.py and gemma3-1b's attention shapes, with
+    ``chip_smoke.py``'s check (which also rejects wrong outputs)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import chip_smoke
+    from repro_torch.kernels import flash_attention as fa
+
+    for n, case in enumerate(chip_smoke.k2_cases(torch)):
+        label, b, h, kv, sq, sk, hd, causal, window, dtype, tol = case
+        q, k, v = chip_smoke.k2_inputs(torch, "cuda", b, h, kv, sq, sk, hd,
+                                       dtype, n)
+        before = fa.LAUNCHES[window]
+        chip_smoke.check_k2(torch, fa, q, k, v, causal, window, tol,
+                            f"{label} {dtype}")
+        assert fa.LAUNCHES[window] == before + 1
