@@ -79,7 +79,37 @@ non-zero (no phase catches an error and carries on):
    ``is_causal`` or a boolean window mask; a yardstick the port never
    calls) and the bound: the larger of q, k, v and o's bytes over
    3.35 TB/s and 4 x hd flops per allowed (query, key) pair and head
-   over 989 TFLOP/s (bfloat16) or 67 TFLOP/s (float32).
+   over 989 TFLOP/s (bfloat16) or 67 TFLOP/s (float32);
+10. **K3 vs plain** — the SSD-scan kernel (CUDA C++, built by ``nvcc``
+    into ``build/kernels/`` in a thread started with the script) against
+    its plain version (the per-token recurrence) on the card: the 5
+    cases of ``tests/test_kernels.py`` and mamba2-130m's shape (B=2,
+    S=4096, H=24, P=64, N=128, chunk 256) in float32 and bfloat16, under
+    ``agree`` at tol = 1e-4 (float32), 5e-3 (float16), 1e-2 (bfloat16),
+    each check rejecting the plain output scaled by 1.001 (float32) or by
+    1 + 10 x tol (16-bit), and all zeros; its launch counter moves once
+    per call;
+11. **SSM prefill** — mamba2-130m at full width and depth (24 layers,
+    d_model 768), weights from a seeded ``torch.Generator`` on the card,
+    two prompts of 4096 tokens in float32 and bfloat16: (a) every
+    layer's ``ssd_chunked`` arguments are recorded during one prefill,
+    and ``ops.ssd_scan`` (K3 plus ``D*x``) on them equals that layer's
+    ``ssd_chunked`` output (``agree`` at tol 1e-4 in float32, 1e-2 in
+    bfloat16, h0 zero), its counter set to 0 before and read after (one
+    launch per layer); (b) one 512-token prompt (two chunks): the
+    prefill's logits and every layer's ``h`` / ``conv`` equal those of
+    512 ``decode_step``s from an empty cache (float32, ``agree`` at tol
+    1e-4); prefill timed end to end in both types;
+12. **SSM serving** — phase 8's engine, requests and teacher-forced
+    check on mamba2-130m;
+13. **K3 times** — at mamba2-130m's shape in float32 and bfloat16: the
+    kernel, its plain version and the bound: the larger of x, dt, A, B,
+    C and y's bytes over 3.35 TB/s and the chunked algorithm's flops
+    over 67 TFLOP/s (float32) or 989 TFLOP/s (bfloat16): C.B^T once per
+    (b, chunk) on its causal pairs, scores.x on them per head, C.h_prev
+    and the state update per head on every chunk that has a state to
+    read or a successor to feed.  No single PyTorch call computes the
+    scan, so its library time is null.
 
 The last two lines are the kernel table as one JSON object and
 ``{"ok": true, "device": {...}}``.
@@ -115,12 +145,24 @@ PREFILL_TOL = 1e-4             # kernel vs chunked prefill, float32
 PREFILL_TOL_BF16 = 1e-1        # kernel vs chunked prefill, bfloat16
 BF16_GAP_RATIO = 1.5           # kernel's bf16 gap to f32 over chunked's
 SERVE_TOL = 1e-3               # engine token vs best reference logit
+K3_SOURCE = "src/repro_torch/csrc/ssd_scan.cu"
+K3_REPLACES = "src/repro/kernels/ssd_scan.py:65"
+SSM_ARCH = "mamba2-130m"
+SSM_RECURRENCE_LEN = 512       # prompt held against token-by-token decode
+K3_TOL = {"float32": 1e-4, "float16": 5e-3, "bfloat16": 1e-2}
+SSM_PREFILL_TOL = 1e-4         # chunked prefill vs recurrence, float32
 
 
 def model_config():
     from repro_torch.configs import get_config
 
     return get_config(ARCH)
+
+
+def ssm_config():
+    from repro_torch.configs import get_config
+
+    return get_config(SSM_ARCH)
 
 
 def _setup():
@@ -314,6 +356,25 @@ def agree(torch, got, want, tol) -> bool:
         got, want, rtol=tol, atol=tol * scale)
 
 
+def hold(torch, got, want, tol, label) -> tuple[float, float]:
+    """``got`` under ``agree`` against ``want`` (compared in float32);
+    raises if not, or if the same check would pass a wrong output
+    (``want`` x 1.001 in float32, x (1 + 10 tol) in 16 bits, or zeros).
+    Returns the max abs error and max|want|."""
+    bump = 1.001 if want.dtype == torch.float32 else 1 + 10 * tol
+    got, want = got.float(), want.float()
+    err = (got - want).abs().max().item()
+    if not agree(torch, got, want, tol):
+        raise AssertionError(
+            f"{label}: max abs err {err:.3e} (rtol={tol}, atol={tol} x "
+            f"{want.abs().max().item():.3e})")
+    if agree(torch, want * bump, want, tol) or agree(
+            torch, torch.zeros_like(want), want, tol):
+        raise AssertionError(f"{label}: the check at tol={tol} cannot tell "
+                             "a wrong output")
+    return err, want.abs().max().item()
+
+
 def compare_spans(torch, omp, transform, kernel_lower, span_kernel, prog,
                   env, mesh, shard, label):
     """Kernel vs plain on every span of one compiled block, on the lanes
@@ -398,18 +459,7 @@ def check_k2(torch, fa, q, k, v, causal, window, tol, label) -> float:
     got = fa.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
-    got, want = got.float(), want.float()
-    err = (got - want).abs().max().item()
-    if not agree(torch, got, want, tol):
-        raise AssertionError(
-            f"K2 {label}: kernel != plain, max abs err {err:.3e} "
-            f"(rtol={tol}, atol={tol} x {want.abs().max().item():.3e})")
-    bump = 1.001 if q.dtype == torch.float32 else 1 + 10 * tol
-    if agree(torch, want * bump, want, tol) or agree(
-            torch, torch.zeros_like(want), want, tol):
-        raise AssertionError(f"K2 {label}: the check at tol={tol} cannot "
-                             "tell a wrong kernel")
-    return err
+    return hold(torch, got, want, tol, f"K2 {label}: kernel != plain")[0]
 
 
 def band_pairs(sq, sk, causal, window) -> int:
@@ -500,6 +550,296 @@ def k2_times(torch, dev, card, errs, launches):
 
 
 # ---------------------------------------------------------------------------
+# K3: the SSD scan; mamba2-130m prefill and serving
+# ---------------------------------------------------------------------------
+
+
+def dtname(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def ssm_shape():
+    """(b, s, h, p, n, chunk) of the SSD scan of one mamba2-130m prefill
+    of two prompts."""
+    cfg = ssm_config()
+    return (2, PREFILL_LEN, cfg.ssm.n_heads(cfg.d_model), cfg.ssm.head_dim,
+            cfg.ssm.d_state, cfg.ssm.chunk)
+
+
+def k3_cases(torch):
+    """(label, b, s, h, p, n, chunk, dtype): the 5 cases of
+    tests/test_kernels.py, then mamba2-130m's shape (from its config) in
+    float32 and bfloat16."""
+    f32 = torch.float32
+    cases = [
+        ("small", 1, 64, 2, 16, 8, 16, f32),
+        ("ragged-chunks", 2, 100, 4, 32, 16, 32, f32),
+        ("n128", 1, 128, 3, 64, 128, 64, f32),
+        ("f16", 2, 48, 2, 32, 16, 16, torch.float16),
+        ("chunk>seq", 1, 33, 1, 8, 4, 64, f32),
+    ]
+    for dtype in (f32, torch.bfloat16):
+        cases.append((SSM_ARCH, *ssm_shape(), dtype))
+    return cases
+
+
+def k3_inputs(torch, dev, b, s, h, p, n, dtype, seed):
+    """x, dt, A, Bm, Cm drawn as tests/test_kernels.py draws them."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    x = rnd(b, s, h, p).to(dtype)
+    dt = rnd(b, s, h).abs() * 0.1
+    A = -rnd(h).abs() - 0.1
+    return x, dt, A, rnd(b, s, n).to(dtype), rnd(b, s, n).to(dtype)
+
+
+def check_k3(torch, ssd, args, chunk, tol, label) -> tuple[float, float]:
+    """K3 against its plain version on the same inputs, its counter moving
+    once; returns the max abs error and max|plain|."""
+    before = ssd.LAUNCHES
+    got = ssd.ssd_scan_kernel(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    if ssd.LAUNCHES != before + 1:
+        raise AssertionError(f"K3 {label}: {ssd.LAUNCHES - before} "
+                             "launches counted, want 1")
+    want = ssd.ssd_scan_plain(*args)[0]
+    return hold(torch, got, want, tol, f"K3 {label}: kernel != plain")
+
+
+def k3_phase(torch, dev):
+    """Phase 10: every K3 case against the plain version; returns the max
+    abs error by (label, type)."""
+    from repro_torch.kernels import ssd_scan as ssd
+
+    errs = {}
+    for i, (label, b, s, h, p, n, chunk, dtype) in enumerate(
+            k3_cases(torch)):
+        args = k3_inputs(torch, dev, b, s, h, p, n, dtype, i)
+        tname = dtname(dtype)
+        tol = K3_TOL[tname]
+        err, scale = check_k3(torch, ssd, args, chunk, tol,
+                              f"{label} {tname}")
+        errs[label, tname] = err
+        print(f"K3-vs-plain {label}: B={b} S={s} H={h} P={p} N={n} "
+              f"chunk={chunk} {tname} max_abs_err={err:.3e} (tol {tol}, "
+              f"max|plain| {scale:.3e})")
+    return errs
+
+
+def ssm_prefill_phase(torch, dev, card):
+    """Phase 11; returns (model, params, K3 launches by (path, type):
+    path "ops" is ops.ssd_scan on the layers' activations, "model" the
+    model's own prefill)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.models import build_model
+    from repro_torch.models import ssm as ssm_mod
+
+    cfg = ssm_config()
+    f32, bf16 = torch.float32, torch.bfloat16
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params, _ = model.init(gen)
+    tokens = torch.randint(1, cfg.vocab_size, (2, PREFILL_LEN),
+                           generator=gen, device=dev, dtype=torch.int32)
+    n_params = sum(t.numel() for t in _leaves(params))
+    torch.cuda.synchronize()
+    print(f"prefill {cfg.name}: {n_params} parameters (float32, seed 0) "
+          f"built on the card in {time.perf_counter() - t0:.2f} s; "
+          f"{cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.ssm.n_heads(cfg.d_model)} SSM heads of "
+          f"{cfg.ssm.head_dim}, d_state {cfg.ssm.d_state}, chunk "
+          f"{cfg.ssm.chunk}; 2 prompts of {PREFILL_LEN} tokens")
+
+    def run(dtype, toks=tokens):
+        cache = model.init_cache(toks.shape[0], toks.shape[1], dtype=dtype,
+                                 device=dev)
+        return model.prefill(params, {"tokens": toks}, cache,
+                             compute_dtype=dtype)
+
+    # (a) K3's path, as in the reference: its entry point ops.ssd_scan on
+    # every layer's own activations.  The prefill records what each layer
+    # hands ssd_chunked (the model path, which launches no K3); then
+    # ops.ssd_scan runs on all of it, counted, and each output is held
+    # against that layer's ssd_chunked output.
+    chunked = ssm_mod.ssd_chunked
+    launches = {}
+    for dtype in (f32, bf16):
+        calls = []
+
+        def record(*args, **kw):
+            out = chunked(*args, **kw)
+            calls.append((args, kw, out[0]))
+            return out
+
+        tname = dtname(dtype)
+        ssm_mod.ssd_chunked = record
+        ssd.LAUNCHES = 0
+        try:
+            logits, _ = run(dtype)
+        finally:
+            ssm_mod.ssd_chunked = chunked
+        torch.cuda.synchronize()
+        launches["model", tname] = ssd.LAUNCHES
+        if ssd.LAUNCHES:
+            raise AssertionError(f"prefill {tname}: the model path launched "
+                                 f"K3 {ssd.LAUNCHES} times; it runs "
+                                 "ssd_chunked, as the reference does")
+        if logits.shape != (2, cfg.vocab_size) or not bool(
+                torch.isfinite(logits).all()):
+            raise AssertionError(f"prefill {tname}: logits "
+                                 f"{tuple(logits.shape)} not finite")
+        if len(calls) != cfg.n_layers:
+            raise AssertionError(f"prefill {tname}: ssd_chunked ran "
+                                 f"{len(calls)} times, want one per layer")
+        for layer, (_, kw, _) in enumerate(calls):
+            h0 = kw.get("h0")
+            if h0 is not None and bool(h0.any()):
+                raise AssertionError(f"prefill {tname} layer {layer}: h0 "
+                                     "is not zero in a fresh prefill")
+        ssd.LAUNCHES = 0
+        outs = [ops.ssd_scan(*args, chunk=kw["chunk"])
+                for args, kw, _ in calls]
+        torch.cuda.synchronize()
+        launches["ops", tname] = ssd.LAUNCHES
+        if ssd.LAUNCHES != cfg.n_layers:
+            raise AssertionError(f"prefill {tname}: K3 launched "
+                                 f"{ssd.LAUNCHES} times, want one per layer")
+        tol = K3_TOL[tname]
+        worst = (0.0, 0)
+        for layer, (got, (_, _, want)) in enumerate(zip(outs, calls)):
+            err, scale = hold(torch, got, want, tol, f"prefill {tname} "
+                              f"layer {layer}: ops.ssd_scan != ssd_chunked")
+            worst = max(worst, (err / (scale or 1.0), layer))
+        print(f"prefill {cfg.name} {tname}: ops.ssd_scan (K3 + D*x) == "
+              f"ssd_chunked on the activations of all {cfg.n_layers} layers "
+              f"(rtol={tol}, atol={tol} x max|value|; worst err / scale "
+              f"{worst[0]:.3e} in layer {worst[1]}); K3 launches: "
+              f"{launches['ops', tname]} by ops.ssd_scan, "
+              f"{launches['model', tname]} by the model's prefill")
+        del calls, outs
+
+    # (b) the chunked scan equals the recurrence: prefill vs token by token
+    n = SSM_RECURRENCE_LEN
+    toks = tokens[:1, :n]
+    logits, cache = run(f32, toks)
+    dcache = model.init_cache(1, n, dtype=f32, device=dev)
+    for t in range(n):
+        dlogits, dcache = model.decode_step(
+            params, dcache, toks[:, t],
+            torch.full((1,), t, dtype=torch.int32, device=dev),
+            compute_dtype=f32)
+    worst = hold_prefill(torch, (dlogits, dcache), (logits, cache),
+                         SSM_PREFILL_TOL,
+                         f"prefill {cfg.name}: {n} decode steps != prefill",
+                         names=("h", "conv"))
+    print(f"prefill {cfg.name}: a {n}-token prompt ("
+          f"{-(-n // cfg.ssm.chunk)} chunks) prefilled == {n} decode_steps "
+          f"from an empty cache, float32 (logits and every layer's h and "
+          f"conv: rtol={SSM_PREFILL_TOL}, atol={SSM_PREFILL_TOL} x "
+          f"max|value|; worst err / scale {worst[0]:.3e} in {worst[1]})")
+
+    wall = {}
+    for dtype in (bf16, f32):
+        ms = wall[dtype] = cuda_ms(torch, lambda: run(dtype), reps=3,
+                                   inner=1, warmup=1)
+        print(f"end-to-end prefill {cfg.name} {dtname(dtype)}: {ms:.2f} ms for "
+              f"2 x {PREFILL_LEN} tokens, {2 * PREFILL_LEN / ms * 1e3:.0f} "
+              f"tokens/s on {card}")
+    profile_prefill(torch, lambda: run(bf16), card, wall[bf16],
+                    f"{cfg.name} bfloat16")
+    return model, params, launches
+
+
+def k3_flops(b, s, h, p, n, chunk) -> int:
+    """The products of the chunked scan on these shapes: C.B^T once per
+    (b, chunk) on its causal pairs, scores.x on them per head, C.h_prev
+    per head on every chunk but the first (whose h_prev is zero), the
+    state update per head on every chunk but the last (which feeds no
+    chunk), and the state recurrence between chunks.  The masks and
+    exponentials (~3 operations per pair and head) are left out."""
+    q = min(chunk, s)
+    lens = [min(q, s - c * q) for c in range(-(-s // q))]
+    pairs = sum(ln * (ln + 1) // 2 for ln in lens)
+    flops = 2 * b * pairs * n
+    flops += 2 * b * h * pairs * p
+    flops += 2 * b * h * (sum(lens[1:]) + sum(lens[:-1])) * n * p
+    flops += 2 * b * h * (len(lens) - 1) * n * p
+    return flops
+
+
+def k3_least_flops(b, s, h, p, n) -> tuple[int, int]:
+    """The least products that compute the scan on these shapes, and the
+    chunk that needs them.  The output does not depend on the chunk, so
+    this is :func:`k3_flops` at its best chunk (~16 at mamba2-130m's
+    shape: the intra-chunk pairs grow with it, the state work falls);
+    the per-token recurrence (~5 S N P per (b, h)) needs more."""
+    return min((k3_flops(b, s, h, p, n, q), q) for q in range(1, s + 1))
+
+
+def k3_times(torch, dev, card, errs, launches):
+    """Phase 13: K3 rows of the kernel table at mamba2-130m's shape."""
+    from repro_torch.kernels import ssd_scan as ssd
+
+    rows = []
+    b, s, h, p, n, chunk = ssm_shape()
+    for dtype in (torch.float32, torch.bfloat16):
+        tname = dtname(dtype)
+        args = k3_inputs(torch, dev, b, s, h, p, n, dtype, 7)
+        before = ssd.LAUNCHES
+        ssd.ssd_scan_kernel(*args, chunk=chunk)
+        per_call = ssd.LAUNCHES - before
+        ms = cuda_ms(torch, lambda: ssd.ssd_scan_kernel(*args, chunk=chunk))
+        plain_ms = cuda_ms(torch, lambda: ssd.ssd_scan_plain(*args), reps=3,
+                           inner=1, warmup=1)
+        flops, best_chunk = k3_least_flops(b, s, h, p, n)
+        # x, dt, A, Bm, Cm read once; y written once
+        nbytes = sum(t.numel() * t.element_size() for t in args)
+        nbytes += args[0].numel() * args[0].element_size()
+        peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else \
+            FP32_FLOPS_PER_S
+        bound_s = max(nbytes / HBM_BYTES_PER_S, flops / peak)
+        bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / peak
+                    else "operations")
+        rows.append({
+            "name": f"ssd_scan[{SSM_ARCH} S={s} {tname}]", "route": "cuda",
+            "source": K3_SOURCE, "replaces": K3_REPLACES,
+            "launches": launches["ops", tname],
+            "model_path_launches": launches["model", tname]
+            + launches["serve"],
+            "max_abs_err": errs[SSM_ARCH, tname], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
+            "bound_by": bound_by, "library_ms": None})
+        print(f"times K3 {tname}: kernel {ms:.4f} ms ({per_call} launch "
+              f"per call: 4 CUDA grids; chunk {chunk}), plain "
+              f"{plain_ms:.4f} ms, library none (no single PyTorch call "
+              f"computes the scan), bound {bound_s * 1e3:.4f} ms ("
+              f"{bound_by}: {flops} flops, the chunked scan's at its best "
+              f"chunk {best_chunk} ({k3_flops(b, s, h, p, n, chunk)} at "
+              f"chunk {chunk}), at {peak:.3g} flop/s; {nbytes} B at "
+              f"{HBM_BYTES_PER_S:.3g} B/s; B={b} S={s} H={h} P={p} N={n}) "
+              f"on {card}")
+    return rows
+
+
+def print_build(name, module, thread):
+    """Raise what a kernel's build thread raised, else say what nvcc
+    reported."""
+    thread.join()
+    if thread.error is not None:
+        raise thread.error
+    regs = sorted({line.split("Used ")[1].split(",")[0] for line in
+                   module.BUILD_LOG.splitlines() if "Used " in line})
+    print(f"build {name}: {module.SOURCE.name} -> build/kernels/ in "
+          f"{thread.seconds:.2f} s (nvcc {' '.join(module.NVCC_FLAGS)}; "
+          f"ptxas: {', '.join(regs) or 'cached build'})")
+
+
+# ---------------------------------------------------------------------------
 # gemma3-1b: prefill and serving
 # ---------------------------------------------------------------------------
 
@@ -551,7 +891,9 @@ def prefill_phase(torch, dev, card):
             raise AssertionError(f"prefill {dtype}: logits "
                                  f"{tuple(got[0].shape)} not finite")
         want = ref if dtype == f32 else run("chunked", dtype)
-        worst, where = hold_prefill(torch, got, want, tol, tname)
+        worst, where = hold_prefill(
+            torch, got, want, tol,
+            f"prefill {tname}: impl=kernel != impl=chunked")
         print(f"prefill {cfg.name}: impl=kernel == impl=chunked in {tname} "
               f"(logits and the k/v caches of all {cfg.n_layers} layers: "
               f"rtol={tol}, atol={tol} x max|value|; worst err / scale "
@@ -581,15 +923,18 @@ def prefill_phase(torch, dev, card):
             print(f"end-to-end prefill {cfg.name} impl={impl} {dtype}: "
                   f"{ms:.2f} ms for 2 x {PREFILL_LEN} tokens, "
                   f"{2 * PREFILL_LEN / ms * 1e3:.0f} tokens/s on {card}")
-    profile_prefill(torch, run, card, prefill_ms["kernel", bf16])
+    profile_prefill(torch, lambda: run("kernel", bf16), card,
+                    prefill_ms["kernel", bf16],
+                    f"{cfg.name} bfloat16 impl=kernel", ("K2", "flash_fwd"))
     return model, params, launches
 
 
-def profile_prefill(torch, run, card, wall_ms):
-    """One bfloat16 prefill (impl=kernel) under ``torch.profiler``: its
-    kernels' busy time against ``wall_ms`` (the same prefill timed without
-    the profiler, whose own overhead stretches the wall time it sees),
-    K2's share of the kernel time, and the kernels that take the most."""
+def profile_prefill(torch, fn, card, wall_ms, label, kernel=None):
+    """One prefill (``fn()``) under ``torch.profiler``: its kernels' busy
+    time against ``wall_ms`` (the same prefill timed without the
+    profiler, whose own overhead stretches the wall time it sees), the
+    share of the port's kernel ``kernel`` = (name, substring of its CUDA
+    kernels' names) where given, and the kernels that take the most."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -597,23 +942,25 @@ def profile_prefill(torch, run, card, wall_ms):
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        run("kernel", torch.bfloat16)
+        fn()
         torch.cuda.synchronize()
     prof_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if not busy_ms:
-        print("profile prefill: the profiler recorded no device time")
+        print(f"profile prefill {label}: the profiler recorded no device "
+              "time")
         return
-    k2 = [e for e in kernels if "flash_fwd" in e.key]   # both K2 kernels
-    k2_ms = sum(e.self_device_time_total for e in k2) / 1e3
-    print(f"profile prefill bfloat16 impl=kernel: kernels busy "
-          f"{busy_ms:.1f} ms, {busy_ms / wall_ms:.1%} of the unprofiled "
-          f"{wall_ms:.1f} ms ({prof_ms:.1f} ms wall under the profiler); "
-          f"K2 {k2_ms:.1f} ms "
-          f"({k2_ms / busy_ms:.1%} of kernel time, "
-          f"{sum(e.count for e in k2)} launches) on {card}")
+    share = ""
+    if kernel is not None:
+        mine = [e for e in kernels if kernel[1] in e.key]
+        ms = sum(e.self_device_time_total for e in mine) / 1e3
+        share = (f"; {kernel[0]} {ms:.1f} ms ({ms / busy_ms:.1%} of kernel "
+                 f"time, {sum(e.count for e in mine)} launches)")
+    print(f"profile prefill {label}: kernels busy {busy_ms:.1f} ms, "
+          f"{busy_ms / wall_ms:.1%} of the unprofiled {wall_ms:.1f} ms "
+          f"({prof_ms:.1f} ms wall under the profiler){share} on {card}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {e.self_device_time_total / 1e3:8.2f} ms  x{e.count:<5d} "
               f"{e.key[:100]}")
@@ -627,14 +974,14 @@ def _leaves(tree):
         yield tree
 
 
-def prefill_pairs(got, want):
-    """(name, got, want) over two prefills' logits and every layer's k
-    and v cache, as float32; ``slot*`` caches are split by period, so
-    ``cache slot1[p]`` is layer ``p x period + 1``."""
+def prefill_pairs(got, want, names=("k", "v")):
+    """(name, got, want) over two prefills' logits and every layer's cache
+    entries ``names``, as float32; ``slot*`` caches are split by period,
+    so ``cache slot1[p]`` is layer ``p x period + 1``."""
     (got_logits, got_cache), (want_logits, want_cache) = got, want
     pairs = [("logits", got_logits, want_logits)]
     for key in want_cache:
-        for name in ("k", "v"):
+        for name in names:
             g, w = got_cache[key][name], want_cache[key][name]
             if key.startswith("slot"):
                 pairs += [(f"cache {key}[{i}]/{name}", g[i], w[i])
@@ -650,31 +997,35 @@ def worst_gap(pairs):
                 name) for name, g, w in pairs)
 
 
-def hold_prefill(torch, got, want, tol, label):
+def hold_prefill(torch, got, want, tol, label, names=("k", "v")):
     """A prefill's (logits, cache) under ``agree`` against another's, the
-    cache's positions equal; returns :func:`worst_gap` of the logits and
-    every layer's k and v.  Every reading is taken before a failure
-    raises, so a failure names them all."""
+    cache's positions equal where it keeps them; returns
+    :func:`worst_gap` of the logits and every layer's cache entries
+    ``names``.  Every reading is taken before a failure raises, so a
+    failure names them all."""
     for key in want[1]:
-        if not torch.equal(got[1][key]["pos"], want[1][key]["pos"]):
-            raise AssertionError(f"prefill {label}: cache {key}/pos differ")
-    pairs = prefill_pairs(got, want)
+        if "pos" in want[1][key] and not torch.equal(got[1][key]["pos"],
+                                                     want[1][key]["pos"]):
+            raise AssertionError(f"{label}: cache {key}/pos differ")
+    pairs = prefill_pairs(got, want, names)
     worst = worst_gap(pairs)
     bad = [name for name, g, w in pairs if not agree(torch, g, w, tol)]
     if bad:
         raise AssertionError(
-            f"prefill {label}: kernel != chunked at rtol={tol}, atol={tol} "
-            f"x max|value| in {', '.join(bad)}; worst err / scale "
-            f"{worst[0]:.3e} in {worst[1]}")
+            f"{label} at rtol={tol}, atol={tol} x max|value| in "
+            f"{', '.join(bad)}; worst err / scale {worst[0]:.3e} in "
+            f"{worst[1]}")
     return worst
 
 
 def serving_phase(torch, dev, card, model, params):
-    """Phase 8: the engine on 8 requests, held against a teacher-forced
-    single-sequence reference."""
+    """Phases 8 and 12: the engine on 8 requests, held against a
+    teacher-forced single-sequence reference; returns the K3 launches of
+    the engine's run."""
     import numpy as np
 
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.serving import Request, ServeEngine
 
     cfg = model.cfg
@@ -693,6 +1044,7 @@ def serving_phase(torch, dev, card, model, params):
         engine.submit(r)
     torch.cuda.synchronize()
     fa.LAUNCHES.clear()
+    ssd.LAUNCHES = 0
     t0 = time.perf_counter()
     ticks = 0
     while engine.queue or any(r is not None for r in engine.slot_req):
@@ -700,10 +1052,14 @@ def serving_phase(torch, dev, card, model, params):
         ticks += 1
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = sum(fa.LAUNCHES.values())
-    if launches != cfg.n_layers * len(reqs):
+    launches, k3_launches = sum(fa.LAUNCHES.values()), ssd.LAUNCHES
+    if k3_launches:
+        raise AssertionError(f"serving: K3 launched {k3_launches} times; "
+                             "the model path runs ssd_chunked")
+    n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
+    if launches != n_attn * len(reqs):
         raise AssertionError(f"serving: K2 launched {launches} times, want "
-                             f"{cfg.n_layers} per prefill x {len(reqs)}")
+                             f"{n_attn} per prefill x {len(reqs)}")
     for r in reqs:
         if not r.done or len(r.output) != SERVE["max_new"]:
             raise AssertionError(f"request {r.rid}: done={r.done}, "
@@ -721,7 +1077,7 @@ def serving_phase(torch, dev, card, model, params):
           f"{SERVE['cache_len']}, float32, prefill impl=kernel: {ticks} "
           f"ticks, {wall * 1e3:.1f} ms wall, {n_new / wall:.1f} generated "
           f"tokens/s; decode tick (4 slots) {tick_ms:.3f} ms; K2 launches "
-          f"{launches} on {card}")
+          f"{launches}, K3 launches {k3_launches} on {card}")
 
     worst, exact = 0.0, 0
     for r in reqs:
@@ -750,7 +1106,7 @@ def serving_phase(torch, dev, card, model, params):
     print(f"serving {cfg.name}: every engine token within {SERVE_TOL} x "
           f"max|logit| of the teacher-forced reference's best (worst "
           f"{worst:.2e}); {exact} of {n_new} equal its argmax")
-    return launches
+    return k3_launches
 
 
 def main(device: str = "cuda") -> int:
@@ -762,8 +1118,11 @@ def main(device: str = "cuda") -> int:
     from repro_torch.core import kernel_lower, transform
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import span_kernel
+    from repro_torch.kernels import ssd_scan as ssd
 
-    k2_build = BuildThread(fa.build)    # nvcc runs while K1 builds and runs
+    # nvcc runs while K1 builds and runs
+    k2_build = BuildThread(fa.build)
+    k3_build = BuildThread(ssd.build)
     dev = torch.device(device)
     card = card_line()
     print(f"card: {card}")
@@ -894,20 +1253,22 @@ def main(device: str = "cuda") -> int:
               f"{run_ms['collective']:.4f} ms on {card}")
 
     # -- K2, gemma3-1b prefill and serving -----------------------------------
-    k2_build.join()
-    if k2_build.error is not None:
-        raise k2_build.error
-    regs = sorted({line.split("Used ")[1].split(",")[0] for line in
-                   fa.BUILD_LOG.splitlines() if "Used " in line})
-    print(f"build K2: {fa.SOURCE.name} -> build/kernels/ in "
-          f"{k2_build.seconds:.2f} s (nvcc {' '.join(fa.NVCC_FLAGS)}; "
-          f"ptxas: {', '.join(regs) or 'cached build'})")
+    print_build("K2", fa, k2_build)
     errs = k2_phase(torch, dev, card)
     model, params, k2_launches = prefill_phase(torch, dev, card)
     serving_phase(torch, dev, card, model, params)
     del model, params
     torch.cuda.empty_cache()
     rows += k2_times(torch, dev, card, errs, k2_launches)
+
+    # -- K3, mamba2-130m prefill and serving ---------------------------------
+    print_build("K3", ssd, k3_build)
+    errs = k3_phase(torch, dev)
+    model, params, k3_launches = ssm_prefill_phase(torch, dev, card)
+    k3_launches["serve"] = serving_phase(torch, dev, card, model, params)
+    del model, params
+    torch.cuda.empty_cache()
+    rows += k3_times(torch, dev, card, errs, k3_launches)
 
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -6,12 +6,10 @@ Replaces ``src/repro/kernels/flash_attention.py::flash_attention_kernel``
 (``sm_90a``), in ``src/repro_torch/csrc/flash_attention.cu``; its note
 says what it computes, what bounds it on the H100 and how it is laid out.
 
-Build: at first use, ``nvcc -gencode arch=compute_90a,code=sm_90a -O3
--shared -Xcompiler -fPIC`` compiles the source into
-``build/kernels/flash_attention_<hash>.so`` (the hash covers the source
-and the flags, so an edited source builds anew), and ``ctypes`` loads it.
-:func:`build` may be called ahead, e.g. in a thread while other work
-runs.
+Build: at first use, :mod:`repro_torch.kernels._build` compiles the
+source with ``nvcc`` into ``build/kernels/flash_attention_<hash>.so`` and
+``ctypes`` loads it.  :func:`build` may be called ahead, e.g. in a thread
+while other work runs.
 
 :func:`flash_attention` is the wrapper: tensors on the CPU take
 :func:`flash_attention_plain` (the port of
@@ -24,67 +22,40 @@ from __future__ import annotations
 
 import collections
 import ctypes
-import hashlib
 import math
-import subprocess
-import threading
-from pathlib import Path
 
 import torch
+
+from repro_torch.kernels import _build
 
 #: Kernel launches so far, by ``window`` (one per :func:`flash_attention`
 #: call on CUDA); ``sum(LAUNCHES.values())`` is the total.
 LAUNCHES: collections.Counter = collections.Counter()
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "flash_attention.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
+def _bind(lib: ctypes.CDLL) -> None:
+    fn = lib.k2_flash_attention_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.k2_error_string.argtypes = [ctypes.c_int]
+    lib.k2_error_string.restype = ctypes.c_char_p
+
+
+_LIBRARY = _build.CudaLibrary("flash_attention.cu", "K2", _bind)
+SOURCE = _LIBRARY.source
+NVCC_FLAGS = _build.NVCC_FLAGS
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_LIB = None
-_BUILD_LOCK = threading.Lock()
 #: What nvcc printed for the last build (ptxas registers, spills, smem).
 BUILD_LOG = ""
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME is None:
-        raise RuntimeError("K2 needs nvcc: no CUDA toolkit found "
-                           "(set CUDA_HOME)")
-    return str(Path(CUDA_HOME) / "bin" / "nvcc")
-
-
 def build() -> ctypes.CDLL:
     """Compile the kernel (once per source and flags) and load it."""
-    global _LIB, BUILD_LOG
-    with _BUILD_LOCK:
-        if _LIB is not None:
-            return _LIB
-        text = SOURCE.read_bytes()
-        key = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode())
-        lib_path = BUILD_DIR / f"flash_attention_{key.hexdigest()[:16]}.so"
-        if not lib_path.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = lib_path.with_suffix(f".{threading.get_ident()}.tmp")
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                capture_output=True, text=True)
-            BUILD_LOG = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed to build K2:\n{BUILD_LOG}")
-            tmp.replace(lib_path)
-        lib = ctypes.CDLL(str(lib_path))
-        fn = lib.k2_flash_attention_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
-                       + [ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        lib.k2_error_string.argtypes = [ctypes.c_int]
-        lib.k2_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-        return lib
+    global BUILD_LOG
+    lib = _LIBRARY.load()
+    BUILD_LOG = _LIBRARY.log
+    return lib
 
 
 def flash_attention_plain(q, k, v, *, causal=True, window=None):

@@ -10,7 +10,8 @@ on the CPU)::
 The weights are random, drawn from a ``torch.Generator`` seeded with
 ``--seed``; prompts are random token ids.  The engine computes in
 float32, and every prefill's attention runs K2 (its plain version on
-the CPU).
+the CPU); an SSM model (``--arch mamba2-130m``) prefills with the
+chunked scan and decodes with its recurrence.
 """
 from __future__ import annotations
 

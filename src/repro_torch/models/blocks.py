@@ -1,14 +1,13 @@
 """Transformer blocks and the layer-interleave structure — counterpart of
-:mod:`repro.models.blocks`, for the attention kinds.
+:mod:`repro.models.blocks`, for the attention kinds and the SSM mixer.
 
 A heterogeneous stack (gemma3's 5:1 local:global interleave) is a
 repeating *period* of block kinds; the model loops over periods (params
 stacked over a leading LAYERS dim) and then over the remainder.  A block
 kind is the string "<mixer>:<flavour>:<ffn>", e.g. "attn:global:dense".
-The SSM mixer, the MoE FFN and cross-attention wait for their modules
-(:mod:`repro_torch.models.ssm`, :mod:`repro_torch.models.moe`, the
-encoder-decoder model); a block that needs one raises
-``NotImplementedError`` naming it.
+The MoE FFN and cross-attention wait for their modules
+(:mod:`repro_torch.models.moe`, the encoder-decoder model); a block that
+needs one raises ``NotImplementedError`` naming it.
 """
 from __future__ import annotations
 
@@ -17,6 +16,7 @@ import math
 import torch
 
 from repro_torch.core import tensor_plan as tp
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     INT32_MAX,
     apply_rope,
@@ -114,12 +114,16 @@ def init_ffn(gen, cfg, kind_ffn: str):
 
 def init_block(gen, cfg, kind: str, *, with_cross: bool = False):
     mixer, _, ffn = kind.split(":")
-    if mixer != "attn":
-        raise not_ported("an SSM block", "repro_torch.models.ssm")
     if with_cross:
         raise not_ported("cross-attention",
                          "repro_torch.models.model.EncDecLM")
-    t: dict = {"attn": init_attn(gen, cfg)}
+    t: dict = {}
+    if mixer == "attn":
+        t["attn"] = init_attn(gen, cfg)
+    else:
+        t["ssm"] = {"norm": zeros_param((cfg.d_model,), (tp.D_MODEL,),
+                                        device=gen.device),
+                    **ssm_mod.init_ssm_block(gen, cfg.d_model, cfg.ssm)}
     f = init_ffn(gen, cfg, ffn)
     if f is not None:
         t["ffn"] = f
@@ -142,7 +146,8 @@ def init_block_cache(cfg, kind: str, batch: int, cache_len: int,
                      dtype=torch.bfloat16, device="cpu"):
     mixer, _, _ = kind.split(":")
     if mixer == "ssm":
-        raise not_ported("an SSM cache", "repro_torch.models.ssm")
+        return ssm_mod.init_ssm_cache(batch, cfg.d_model, cfg.ssm, dtype,
+                                      device)
     length = attn_cache_len(cfg, kind, cache_len)
     kv, hd = cfg.n_kv_heads, cfg.head_dim
     return {
@@ -248,15 +253,18 @@ def block_apply(p, x, cfg, kind: str, *, positions, cache=None,
 
     Returns (x, new_cache, aux_loss)."""
     mixer, _, ffn = kind.split(":")
-    if mixer != "attn":
-        raise not_ported("an SSM block", "repro_torch.models.ssm")
     if enc_kv is not None:
         raise not_ported("cross-attention",
                          "repro_torch.models.model.EncDecLM")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    out, new_cache = attn_apply(p["attn"], x, cfg, kind,
-                                positions=positions, cache=cache,
-                                decode_pos=decode_pos, impl=impl)
+    if mixer == "attn":
+        out, new_cache = attn_apply(p["attn"], x, cfg, kind,
+                                    positions=positions, cache=cache,
+                                    decode_pos=decode_pos, impl=impl)
+    else:
+        h = rms_norm(x, p["ssm"]["norm"], cfg.norm_eps)
+        sp = {k: v for k, v in p["ssm"].items() if k != "norm"}
+        out, new_cache = ssm_mod.ssm_apply(sp, h, cfg.ssm, cache=cache)
     x = x + out
     if ffn != "none":
         out, aux = ffn_apply(p, x, cfg, kind)

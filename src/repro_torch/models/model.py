@@ -185,9 +185,8 @@ class DecoderLM:
         return logits, new_caches
 
 
-_MISSING = {"ssm": "repro_torch.models.ssm",
-            "moe": "repro_torch.models.moe",
-            "hybrid": "repro_torch.models.ssm and repro_torch.models.moe",
+_MISSING = {"moe": "repro_torch.models.moe",
+            "hybrid": "repro_torch.models.moe",
             "encdec": "repro_torch.models.model.EncDecLM"}
 
 

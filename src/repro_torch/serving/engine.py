@@ -11,7 +11,9 @@ tick runs one batched decode step for all slots.  Greedy sampling
 It runs eagerly (the reference jits its decode step).  Every prefill
 attends through K2 (``impl="kernel"``, whose wrapper takes its plain
 version on CPU tensors); decode attends with materialised scores over
-the cache, as in the reference.
+the cache, as in the reference.  An SSM layer's cache is its state ``h``
+and conv history ``conv``, scattered into the slot like a KV cache; it
+prefills with the chunked scan and decodes with the one-step recurrence.
 """
 from __future__ import annotations
 

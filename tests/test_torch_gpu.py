@@ -1,6 +1,6 @@
 """The port's kernels on the card against their plain PyTorch versions:
-the span kernel (K1, Triton) on every block family, and flash attention
-(K2, CUDA C++) on its test cases.
+the span kernel (K1, Triton) on every block family, flash attention
+(K2, CUDA C++) and the SSD scan (K3, CUDA C++) on their test cases.
 
 Marked ``gpu``: it skips without a CUDA card.  Run it on the machine with
 the card (it needs neither JAX nor the reference package)::
@@ -47,3 +47,21 @@ def test_flash_attention_kernel_on_the_card_matches_plain():
         chip_smoke.check_k2(torch, fa, q, k, v, causal, window, tol,
                             f"{label} {dtype}")
         assert fa.LAUNCHES[window] == before + 1
+
+
+@pytest.mark.gpu
+def test_ssd_scan_kernel_on_the_card_matches_plain():
+    """K3 against its plain version on the 5 cases of tests/test_kernels.py,
+    with ``chip_smoke.py``'s check (which also rejects wrong outputs); the
+    counter moves once per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import chip_smoke
+    from repro_torch.kernels import ssd_scan as ssd
+
+    for n, case in enumerate(chip_smoke.k3_cases(torch)[:5]):
+        label, b, s, h, p, nst, chunk, dtype = case
+        args = chip_smoke.k3_inputs(torch, "cuda", b, s, h, p, nst, dtype, n)
+        chip_smoke.check_k3(torch, ssd, args, chunk,
+                            chip_smoke.K3_TOL[chip_smoke.dtname(dtype)],
+                            f"{label} {dtype}")

@@ -123,7 +123,7 @@ def test_families_without_their_module_name_it():
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
 
-    for arch, module in (("mamba2-130m", "repro_torch.models.ssm"),
+    for arch, module in (("jamba-1.5-large-398b", "repro_torch.models.moe"),
                          ("qwen2-moe-a2.7b", "repro_torch.models.moe"),
                          ("whisper-small", "EncDecLM")):
         with pytest.raises(NotImplementedError, match=module):
