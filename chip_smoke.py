@@ -46,16 +46,24 @@ non-zero (no phase catches an error and carries on):
    once, and each output's values on the loop's iterations, once — not
    the halo windows or the padding slots of the chunk layout.
 
-6. **K2 vs plain** — the flash-attention kernel (CUDA C++, built by
+6. **K2 vs plain** — the flash-attention kernels (CUDA C++, built by
    ``nvcc`` for ``sm_90a`` into ``build/kernels/`` in a thread started
-   with the script, while phases 2-5 run) against its plain version on
-   the card: the 7 cases of ``tests/test_kernels.py`` and gemma3-1b's two
-   attention shapes (B=1, H=4, KV=1, hd=256, S=4096, causal, window 512
-   and none) in bfloat16 and float32.  The ``agree`` rule of phase 4 with
-   tol = 2e-5 (float32), 5e-3 (float16) and 1e-2 (bfloat16: one output
-   rounding is 2^-8 relative); each check rejects the plain output scaled
-   by 1.001 (float32) or by 1 + 10 x tol (16-bit types, whose rounding is
-   coarser than 0.1%), and all zeros;
+   with the script, while phases 2-5 run: ``wgmma`` fed by TMA for 16-bit
+   types, register-tiled FMAs for float32) against their plain version on
+   the card: the 7 cases of ``tests/test_kernels.py`` in their own types
+   and again in bfloat16, a head_dim of 72 in bfloat16 and float32, a
+   ragged head_dim of 256 (B=1, H=2, KV=1, S=300) in bfloat16 and
+   float16, and gemma3-1b's two attention shapes (H=4, KV=1, hd=256,
+   S=4096, causal, window 512 and none) at B=1 and B=2 in bfloat16 and
+   float32.  Two checks at tol = 2e-5 (float32), 5e-3 (float16) and
+   1e-2 (bfloat16: one output rounding is at most 2^-7 relative): the
+   ``agree`` rule of phase 4, which rejects the plain output scaled by
+   1.001 (float32) or by 1 + 10 x tol (16-bit types, whose rounding is
+   coarser than 0.1%), and all zeros; and ``agree_rows``, which holds
+   each query row to tol x (|value| + the row's RMS), so that an error
+   in the small outputs of long causal rows (~0.03 at S=4096, where
+   tol x max|value| is as large) shows; it also rejects those wrong
+   outputs and one row moved by a tenth of its RMS;
 7. **prefill** — gemma3-1b at full width, weights from a seeded
    ``torch.Generator`` on the card, two prompts of 4096 tokens:
    ``DecoderLM.prefill(impl="kernel")`` against ``impl="chunked"``
@@ -74,12 +82,16 @@ non-zero (no phase catches an error and carries on):
    the engine's token must score within 1e-3 x max|logit| of that step's
    best reference logit (random-weight logits over 262144 tokens hold
    near-ties, so argmax tokens are not compared);
-9. **K2 times** — at both gemma3-1b shapes, both types: the kernel, its
-   plain version, ``F.scaled_dot_product_attention`` (``enable_gqa``,
-   ``is_causal`` or a boolean window mask; a yardstick the port never
-   calls) and the bound: the larger of q, k, v and o's bytes over
-   3.35 TB/s and 4 x hd flops per allowed (query, key) pair and head
-   over 989 TFLOP/s (bfloat16) or 67 TFLOP/s (float32);
+9. **K2 times** — at both gemma3-1b shapes for one prompt (B=1), both
+   types: the kernel, its plain version, ``F.scaled_dot_product_attention``
+   (``enable_gqa``, ``is_causal`` or a boolean window mask; a yardstick the
+   port never calls) and the bound: the larger of q, k, v and o's bytes
+   over 3.35 TB/s and 4 x hd flops per allowed (query, key) pair and head
+   over 989 TFLOP/s (bfloat16) or 67 TFLOP/s (float32); the kernel's and
+   SDPA's times at B=2 (what the prefill launches) are printed beside,
+   and so are the kernel's device time per launch under
+   ``torch.profiler`` and the host's time to enqueue a call (when the
+   host is the slower, back-to-back event timing reads the host);
 10. **K3 vs plain** — the SSD-scan kernel (CUDA C++, built by ``nvcc``
     into ``build/kernels/`` in a thread started with the script) against
     its plain version (the per-token recurrence) on the card: the 5
@@ -375,6 +387,37 @@ def hold(torch, got, want, tol, label) -> tuple[float, float]:
     return err, want.abs().max().item()
 
 
+def agree_rows(torch, got, want, tol) -> bool:
+    """``got`` within tol x (|want| + the RMS of want's row) of ``want``,
+    a row being the last axis: each row is held at its own scale, so a
+    fault in the small rows of a long causal band shows however large
+    the largest row is, while rounding, relative, passes."""
+    rms = want.pow(2).mean(dim=-1, keepdim=True).sqrt()
+    return got.shape == want.shape and bool(
+        ((got - want).abs() <= tol * (want.abs() + rms)).all())
+
+
+def hold_rows(torch, got, want, tol, label) -> float:
+    """``got`` under ``agree_rows`` against ``want`` (compared in float32);
+    raises if not, or if the same check would pass ``want`` x (1 + 10 tol),
+    zeros, or ``want`` with its last row moved by a tenth of that row's
+    RMS.  Returns the worst |got - want| / (|want| + row RMS)."""
+    got, want = got.float(), want.float()
+    rms = want.pow(2).mean(dim=-1, keepdim=True).sqrt()
+    worst = ((got - want).abs() / (want.abs() + rms)).nan_to_num(
+        nan=0.0).max().item()
+    if not agree_rows(torch, got, want, tol):
+        raise AssertionError(f"{label}: worst |err| / (|want| + row RMS) "
+                             f"{worst:.3e} > {tol}")
+    moved = want.clone()
+    moved[..., -1, :] += 0.1 * rms[..., -1, :]
+    if any(agree_rows(torch, w, want, tol) for w in (
+            want * (1 + 10 * tol), torch.zeros_like(want), moved)):
+        raise AssertionError(f"{label}: the row check at tol={tol} cannot "
+                             "tell a wrong output")
+    return worst
+
+
 def compare_spans(torch, omp, transform, kernel_lower, span_kernel, prog,
                   env, mesh, shard, label):
     """Kernel vs plain on every span of one compiled block, on the lanes
@@ -416,21 +459,39 @@ def compare_spans(torch, omp, transform, kernel_lower, span_kernel, prog,
 
 def k2_cases(torch):
     """(label, b, h, kv, sq, sk, hd, causal, window, dtype, tol): the 7
-    cases of tests/test_kernels.py, then gemma3-1b's two attention shapes
-    (from its config) in bfloat16 and float32."""
-    f32, f16 = torch.float32, torch.float16
-    cases = [
-        ("mha", 1, 4, 4, 64, 64, 32, True, None, f32, 2e-5),
-        ("gqa", 2, 8, 2, 128, 128, 64, True, None, f32, 2e-5),
-        ("gqa+window", 1, 4, 1, 96, 96, 64, True, 32, f32, 2e-5),
-        ("decode", 2, 4, 4, 1, 160, 64, True, None, f32, 2e-5),
-        ("bidir", 1, 2, 2, 64, 64, 128, False, None, f32, 2e-5),
-        ("ragged+f16", 1, 4, 2, 200, 200, 64, True, None, f16, 5e-3),
-        ("suffix+window", 1, 2, 1, 48, 80, 32, True, 16, f32, 2e-5),
+    cases of tests/test_kernels.py in their own types (float32, the
+    ragged case float16) and each again in bfloat16; a head_dim of 72 (a
+    multiple of 8, not of 16) in bfloat16 and float32; a ragged head_dim
+    of 256 (the 16-bit kernel's 3-stage ring) in bfloat16 and float16;
+    gemma3-1b's two
+    attention shapes (from its config) at B=1 and at B=2 (what its
+    prefill of two prompts launches) in bfloat16 and float32."""
+    f32, f16, bf16 = torch.float32, torch.float16, torch.bfloat16
+    tols = {f32: 2e-5, f16: 5e-3, bf16: 1e-2}
+    small = [
+        ("mha", (1, 4, 4, 64, 64, 32, True, None), f32),
+        ("gqa", (2, 8, 2, 128, 128, 64, True, None), f32),
+        ("gqa+window", (1, 4, 1, 96, 96, 64, True, 32), f32),
+        ("decode", (2, 4, 4, 1, 160, 64, True, None), f32),
+        ("bidir", (1, 2, 2, 64, 64, 128, False, None), f32),
+        ("ragged", (1, 4, 2, 200, 200, 64, True, None), f16),
+        ("suffix+window", (1, 2, 1, 48, 80, 32, True, 16), f32),
     ]
-    for label, window in gemma_windows():
-        for dtype, tol in ((torch.bfloat16, 1e-2), (f32, 2e-5)):
-            cases.append((label, *gemma_shape(), True, window, dtype, tol))
+    cases = []
+    for label, shape, dtype in small:
+        for dt in (dtype, bf16):
+            cases.append((label, *shape, dt, tols[dt]))
+    for dt in (bf16, f32):
+        cases.append(("hd72", 1, 4, 2, 130, 150, 72, True, None, dt,
+                      tols[dt]))
+    for dt in (bf16, f16):
+        cases.append(("hd256", 1, 2, 1, 300, 300, 256, True, None, dt,
+                      tols[dt]))
+    for b in (1, 2):
+        for label, window in gemma_windows():
+            for dt in (bf16, f32):
+                cases.append((label, *gemma_shape(b), True, window, dt,
+                              tols[dt]))
     return cases
 
 
@@ -439,10 +500,10 @@ def gemma_windows():
     return (("global", None), ("local", cfg.sliding_window))
 
 
-def gemma_shape():
-    """(b, h, kv, sq, sk, hd) of one prompt's attention layer."""
+def gemma_shape(b=1):
+    """(b, h, kv, sq, sk, hd) of an attention layer over ``b`` prompts."""
     cfg = model_config()
-    return (1, cfg.n_heads, cfg.n_kv_heads, PREFILL_LEN, PREFILL_LEN,
+    return (b, cfg.n_heads, cfg.n_kv_heads, PREFILL_LEN, PREFILL_LEN,
             cfg.head_dim)
 
 
@@ -453,13 +514,18 @@ def k2_inputs(torch, dev, b, h, kv, sq, sk, hd, dtype, seed):
                                (b, kv, sk, hd)))
 
 
-def check_k2(torch, fa, q, k, v, causal, window, tol, label) -> float:
-    """K2 against its plain version on the same inputs; returns the max
-    abs error.  Also shows that the check rejects a wrong output."""
+def check_k2(torch, fa, q, k, v, causal, window, tol,
+             label) -> tuple[float, float]:
+    """K2 against its plain version on the same inputs, under ``hold`` and
+    ``hold_rows`` at the same tol; returns the max abs error and the worst
+    error relative to its row.  Also shows that each check rejects a
+    wrong output."""
     got = fa.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
-    return hold(torch, got, want, tol, f"K2 {label}: kernel != plain")[0]
+    label = f"K2 {label}: kernel != plain"
+    return (hold(torch, got, want, tol, label)[0],
+            hold_rows(torch, got, want, tol, label))
 
 
 def band_pairs(sq, sk, causal, window) -> int:
@@ -496,56 +562,118 @@ def k2_phase(torch, dev, card):
     for n, case in enumerate(k2_cases(torch)):
         label, b, h, kv, sq, sk, hd, causal, window, dtype, tol = case
         q, k, v = k2_inputs(torch, dev, b, h, kv, sq, sk, hd, dtype, n)
-        err = check_k2(torch, fa, q, k, v, causal, window, tol,
-                       f"{label} {dtype}")
-        errs[(label, dtype)] = err
+        err, row_err = check_k2(torch, fa, q, k, v, causal, window, tol,
+                                f"{label} {dtype}")
+        errs[(label, b, dtype)] = err
         print(f"K2-vs-plain {label}: B={b} H={h} KV={kv} Sq={sq} Sk={sk} "
               f"hd={hd} causal={causal} window={window} {dtype} "
-              f"max_abs_err={err:.3e} (tol {tol})")
+              f"max_abs_err={err:.3e} worst_row_rel_err={row_err:.3e} "
+              f"(tol {tol})")
     return errs
 
 
+def k2_bound(torch, b, h, kv, sq, sk, hd, window, dtype):
+    """(bound in s, what bounds it, flops, bytes, allowed pairs per
+    head) of one K2 call at these shapes, causal."""
+    pairs = band_pairs(sq, sk, True, window)
+    flops = 4 * hd * h * b * pairs
+    size = torch.empty((), dtype=dtype).element_size()
+    nbytes = size * (2 * b * h * sq * hd + 2 * b * kv * sk * hd)
+    peak = (BF16_FLOPS_PER_S if dtype == torch.bfloat16
+            else FP32_FLOPS_PER_S)
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return (max(by_bytes, by_ops),
+            "bytes" if by_bytes >= by_ops else "operations", flops, nbytes,
+            pairs)
+
+
+def kernel_device_ms(torch, fn, name, calls=INNER) -> tuple[float, float]:
+    """``calls`` calls of ``fn`` back to back under ``torch.profiler``: the
+    device time per launch of the CUDA kernels whose names hold ``name``
+    (what the card spent, whatever the host did; averaged over the
+    launches the profiler recorded), and the host's
+    milliseconds per call to enqueue them (``fn`` returning, before the
+    card is waited for; timed apart from the profiler).  When the host's
+    time is the larger, back-to-back event timing reads the host."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    mine = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and name in e.key]
+    count = sum(e.count for e in mine)
+    if not count:
+        raise AssertionError(f"the profiler saw no launch of {name}")
+    return sum(e.self_device_time_total for e in mine) / 1e3 / count, host_ms
+
+
 def k2_times(torch, dev, card, errs, launches):
-    """Phase 9: K2 rows of the kernel table at gemma3-1b's shapes."""
+    """Phase 9: K2 rows of the kernel table at gemma3-1b's shapes for one
+    prompt (B=1, the shape of the earlier kernels' times), with the
+    kernel and SDPA at B=2 (what the prefill launches) printed beside
+    them."""
     from repro_torch.kernels import flash_attention as fa
 
     rows = []
-    b, h, kv, sq, sk, hd = gemma_shape()
     for label, window in gemma_windows():
         for dtype in (torch.bfloat16, torch.float32):
+            b, h, kv, sq, sk, hd = gemma_shape(1)
             q, k, v = k2_inputs(torch, dev, b, h, kv, sq, sk, hd, dtype, 7)
             ms = cuda_ms(torch, lambda: fa.flash_attention(
                 q, k, v, causal=True, window=window))
+            device_ms, host_ms = kernel_device_ms(
+                torch, lambda: fa.flash_attention(
+                    q, k, v, causal=True, window=window), "flash_fwd")
             plain_ms = cuda_ms(torch, lambda: fa.flash_attention_plain(
                 q, k, v, causal=True, window=window), reps=5, inner=5)
             lib = sdpa_call(torch, q, k, v, window)
             lib_err = (lib().float() - fa.flash_attention_plain(
                 q, k, v, causal=True, window=window).float()).abs().max()
             library_ms = cuda_ms(torch, lib, reps=5, inner=5)
-            pairs = band_pairs(sq, sk, True, window)
-            flops = 4 * hd * h * b * pairs
-            size = torch.empty((), dtype=dtype).element_size()
-            nbytes = size * (2 * b * h * sq * hd + 2 * b * kv * sk * hd)
-            peak = (BF16_FLOPS_PER_S if dtype == torch.bfloat16
-                    else FP32_FLOPS_PER_S)
-            bound_s = max(nbytes / HBM_BYTES_PER_S, flops / peak)
-            bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / peak
-                        else "operations")
+            bound_s, bound_by, flops, nbytes, pairs = k2_bound(
+                torch, b, h, kv, sq, sk, hd, window, dtype)
+            peak = flops / bound_s if bound_by == "operations" else None
+            del q, k, v, lib
+            q2, k2, v2 = k2_inputs(torch, dev, *gemma_shape(2), dtype, 8)
+            ms2 = cuda_ms(torch, lambda: fa.flash_attention(
+                q2, k2, v2, causal=True, window=window))
+            library_ms2 = cuda_ms(torch, sdpa_call(
+                torch, q2, k2, v2, window), reps=5, inner=5)
+            bound2 = k2_bound(torch, *gemma_shape(2), window, dtype)[0]
+            del q2, k2, v2
             tname = str(dtype).replace("torch.", "")
             rows.append({
                 "name": f"flash_attention[{ARCH} {label} S={sq} {tname}]",
                 "route": "cuda", "source": K2_SOURCE,
                 "replaces": K2_REPLACES,
                 "launches": launches[tname].get(window, 0),
-                "max_abs_err": errs[(label, dtype)], "ms": ms,
+                "max_abs_err": errs[(label, 1, dtype)], "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
-                "bound_by": bound_by, "library_ms": library_ms})
-            print(f"times K2 {label} {tname}: kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms (max abs "
-                  f"diff to plain {lib_err.item():.2e}), bound "
-                  f"{bound_s * 1e3:.4f} ms ({bound_by}: {flops} flops at "
-                  f"{peak:.3g} flop/s, {nbytes} B at {HBM_BYTES_PER_S:.3g} "
-                  f"B/s; {pairs} allowed pairs per head) on {card}")
+                "bound_by": bound_by, "library_ms": library_ms,
+                "device_ms": device_ms, "host_ms": host_ms})
+            rate = (f", {flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s = "
+                    f"{bound_s / (ms * 1e-3):.1%} of peak"
+                    if peak else "")
+            print(f"times K2 {label} {tname} B=1: kernel {ms:.4f} ms"
+                  f"{rate} (profiler: {device_ms:.4f} ms on the card a "
+                  f"launch; the host enqueues a call in {host_ms:.4f} ms), "
+                  f"plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} "
+                  f"ms (max abs diff to plain {lib_err.item():.2e}), bound "
+                  f"{bound_s * 1e3:.4f} ms ({bound_by}: {flops} flops, "
+                  f"{nbytes} B at {HBM_BYTES_PER_S:.3g} B/s; {pairs} "
+                  f"allowed pairs per head); B=2: kernel {ms2:.4f} ms, SDPA "
+                  f"{library_ms2:.4f} ms, bound {bound2 * 1e3:.4f} ms on "
+                  f"{card}")
     return rows
 
 

@@ -17,6 +17,8 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from repro_torch.mesh import resolve_device
+
 _NARROW = {np.dtype(np.float64): np.dtype(np.float32),
            np.dtype(np.int64): np.dtype(np.int32),
            np.dtype(np.uint64): np.dtype(np.uint32)}
@@ -49,16 +51,18 @@ def _tree_from_numpy(tree, device):
     return to_tensor(tree, device)
 
 
-def params_from_numpy(tree, device="cpu") -> dict:
+def params_from_numpy(tree, device=None) -> dict:
     """The JAX package's parameter tree (numpy leaves) as the port's:
-    the same keys, every leaf a tensor on ``device``."""
-    return _tree_from_numpy(tree, device)
+    the same keys, every leaf a tensor on ``device`` (``None``: the CUDA
+    card, as :func:`repro_torch.mesh.resolve_device` says)."""
+    return _tree_from_numpy(tree, resolve_device(device))
 
 
-def cache_from_numpy(tree, device="cpu") -> dict:
+def cache_from_numpy(tree, device=None) -> dict:
     """The JAX package's KV-cache tree (numpy leaves: k, v and the int32
-    positions) as the port's, name for name."""
-    return _tree_from_numpy(tree, device)
+    positions) as the port's, name for name, on ``device`` (``None``:
+    the CUDA card)."""
+    return _tree_from_numpy(tree, resolve_device(device))
 
 
 def tree_to_numpy(tree):

@@ -50,6 +50,21 @@ def test_flash_attention_kernel_on_the_card_matches_plain():
 
 
 @pytest.mark.gpu
+def test_conversion_helpers_default_to_the_card():
+    """``params_from_numpy`` / ``cache_from_numpy`` with no device put
+    their leaves on the CUDA card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import numpy as np
+
+    from repro_torch import convert
+
+    tree = {"blk": {"w": np.ones((2, 3), np.float32)}}
+    for fn in (convert.params_from_numpy, convert.cache_from_numpy):
+        assert fn(tree)["blk"]["w"].device.type == "cuda"
+
+
+@pytest.mark.gpu
 def test_ssd_scan_kernel_on_the_card_matches_plain():
     """K3 against its plain version on the 5 cases of tests/test_kernels.py,
     with ``chip_smoke.py``'s check (which also rejects wrong outputs); the

@@ -60,7 +60,8 @@ def _setup():
         else (rng.normal(size=s.shape) * 0.02).astype(np.float32), shapes)
     jparams = jax.tree_util.tree_map(jnp.asarray, np_params)
     model = build_model(smoke_config("gemma3-1b"))
-    return (jmodel, jparams, model, convert.params_from_numpy(np_params),
+    return (jmodel, jparams, model,
+            convert.params_from_numpy(np_params, device="cpu"),
             axes["tree"])
 
 
@@ -250,7 +251,7 @@ def test_three_decode_steps_match_reference():
 
     jmodel, jparams, model, params = _setup()[:4]
     _, jcache = _jax_prefill("full")
-    cache = convert.cache_from_numpy(jcache)
+    cache = convert.cache_from_numpy(jcache, device="cpu")
     jstep = jax.jit(lambda p, c, t, q: jmodel.decode_step(
         p, c, t, q, compute_dtype=jnp.float32))
     rng = np.random.default_rng(5)
@@ -308,3 +309,22 @@ def test_serve_driver_runs_on_the_cpu():
     hot = [serve.main(args + ["--temperature", "2.0"]) for _ in range(2)]
     assert [r.output for r in hot[0]] == [r.output for r in hot[1]]
     assert all(0 <= t < 512 for r in hot[0] for t in r.output)
+
+
+def test_conversion_helpers_put_trees_on_the_card_unless_asked(monkeypatch):
+    """``params_from_numpy`` / ``cache_from_numpy`` follow the port's rule,
+    as ``init_cache`` does: the CUDA card by default, the CPU when the
+    caller asks; with no card the default raises instead of running on
+    the CPU."""
+    from repro_torch import convert
+
+    tree = {"blk": {"w": np.ones((2, 3))}, "pos": np.zeros(2, np.int64)}
+    for fn in (convert.params_from_numpy, convert.cache_from_numpy):
+        got = fn(tree, device="cpu")
+        assert got["blk"]["w"].device.type == "cpu"
+        assert got["blk"]["w"].dtype == torch.float32
+        assert got["pos"].dtype == torch.int32
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for fn in (convert.params_from_numpy, convert.cache_from_numpy):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn(tree)

@@ -73,7 +73,8 @@ def _setup():
         lambda path, s: _leaf(path[-1].key, s.shape, rng), shapes)
     jparams = jax.tree_util.tree_map(jnp.asarray, np_params)
     model = build_model(smoke_config(ARCH))
-    return (jmodel, jparams, model, convert.params_from_numpy(np_params),
+    return (jmodel, jparams, model,
+            convert.params_from_numpy(np_params, device="cpu"),
             axes["tree"])
 
 
@@ -187,7 +188,8 @@ def test_ssm_apply_prefill_and_decode_match_reference():
     prefilled = jax.tree_util.tree_map(np.asarray, want_cache)
     want_y, want_cache = step(jp, x1, cache=want_cache)
     y, cache = ssm.ssm_apply(p, _t(x1), cfg,
-                             cache=convert.cache_from_numpy(prefilled))
+                             cache=convert.cache_from_numpy(
+                                 prefilled, device="cpu"))
     _close(y, want_y, "decode y")
     _close(cache, want_cache, "decode cache")
 
@@ -221,7 +223,7 @@ def test_prefill_and_three_decode_steps_match_reference():
     _close(new_cache, jcache, "prefill cache")
     assert not any(bool(t.any()) for t in cache["slot0"].values())
 
-    cache = convert.cache_from_numpy(jcache)
+    cache = convert.cache_from_numpy(jcache, device="cpu")
     jstep = jax.jit(lambda p, c, t, q: jmodel.decode_step(
         p, c, t, q, compute_dtype=jnp.float32))
     rng = np.random.default_rng(5)
