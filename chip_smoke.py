@@ -99,16 +99,18 @@ non-zero (no phase catches an error and carries on):
     S=4096, H=24, P=64, N=128, chunk 256) in float32 and bfloat16, under
     ``agree`` at tol = 1e-4 (float32), 5e-3 (float16), 1e-2 (bfloat16),
     each check rejecting the plain output scaled by 1.001 (float32) or by
-    1 + 10 x tol (16-bit), and all zeros; its launch counter moves once
-    per call;
+    1 + 10 x tol (16-bit), and all zeros, and under ``agree_rows`` with
+    rows of P (each row of the output held at tol x (|value| + the row's
+    RMS), so that a fault in small rows shows however large the largest
+    output is); its launch counter moves once per call;
 11. **SSM prefill** — mamba2-130m at full width and depth (24 layers,
     d_model 768), weights from a seeded ``torch.Generator`` on the card,
     two prompts of 4096 tokens in float32 and bfloat16: (a) every
     layer's ``ssd_chunked`` arguments are recorded during one prefill,
     and ``ops.ssd_scan`` (K3 plus ``D*x``) on them equals that layer's
-    ``ssd_chunked`` output (``agree`` at tol 1e-4 in float32, 1e-2 in
-    bfloat16, h0 zero), its counter set to 0 before and read after (one
-    launch per layer); (b) one 512-token prompt (two chunks): the
+    ``ssd_chunked`` output (``agree`` and ``agree_rows`` at tol 1e-4 in
+    float32, 1e-2 in bfloat16, h0 zero), its counter set to 0 before and
+    read after (one launch per layer); (b) one 512-token prompt (two chunks): the
     prefill's logits and every layer's ``h`` / ``conv`` equal those of
     512 ``decode_step``s from an empty cache (float32, ``agree`` at tol
     1e-4); prefill timed end to end in both types;
@@ -121,7 +123,40 @@ non-zero (no phase catches an error and carries on):
     (b, chunk) on its causal pairs, scores.x on them per head, C.h_prev
     and the state update per head on every chunk that has a state to
     read or a successor to feed.  No single PyTorch call computes the
-    scan, so its library time is null.
+    scan, so its library time is null;
+14. **regions** — whole programs (``omp.region``) through
+    ``omp.compile`` / ``Compiled.run``, float32, at PolyBench/C
+    EXTRALARGE scale or above, the repo's own region benchmarks with
+    torch bodies: ``jacobi_chain`` (two pointwise sweeps and a ``+``
+    reduction, N = 2^24, 8 ranks: ONE span of 3 stages), ``heat3``
+    (three ping-pong 3-point sweeps with halo exchanges, N = 2^24, 8
+    ranks, ``static(2^16)``), ``multifield`` (3 fields x 5 sweeps, the
+    same), ``heat2d_region`` (three 5-point sweeps, 4096 x 4096, a 4x2
+    mesh, ``static(256)``) and ``pipeline`` (``examples/
+    region_pipeline.py``, N = 2^24, with serial glue).  Each runs under
+    ``fused`` (comm auto with the aggregate and the inline schedule;
+    comm gather), ``collective`` (per-loop staging) and ``kernel``, and
+    is held against its shared-memory run on the card, ``prog(env)``
+    (rtol=atol=1e-4); aggregate equals inline bit for bit and moves the
+    same ppermute bytes (``multifield``: at least 2x fewer ppermute
+    launches aggregated); K1's counter moves by exactly the planned
+    number of spans per kernel run, and by none under the other
+    lowerings; the mesh's counters are printed per lowering;
+15. **region spans vs plain** — every span of a kernel run on seeded
+    normal data of the program's shapes (its stage feeds recorded as the
+    executor hands them over; as many spans recorded as planned) launched
+    again and held against ``span_values_plain_stages`` (the stages'
+    plain values in order, forwarded keys handed over as tensors), stage
+    by stage, under phase 4's ``agree`` rule and its rejections, and
+    shown to reject the plain values moved by one lane (a forward served
+    from the neighbouring lane's tile: ``tools/k1_planted_fault.py``
+    plants one in the kernel);
+16. **region times** — per span the kernel, its plain version and the
+    bound (each env array the span reads from outside, once; each
+    stage's outputs on the loop's iterations, once; forwarded
+    intermediates count as outputs, never as reads); library null (no
+    single PyTorch call computes a chain of loop bodies); and
+    ``Compiled.run`` per lowering.
 
 The last two lines are the kernel table as one JSON object and
 ``{"ok": true, "device": {...}}``.
@@ -429,26 +464,65 @@ def compare_spans(torch, omp, transform, kernel_lower, span_kernel, prog,
     err = 0.0
     for span in comp.kernel_plan.spans:
         repl, slabs = transform.stage_inputs(comp.plan, env)
-        got = span_kernel.span_values(comp.plan, prog, slabs, repl,
-                                      span.source, mesh.device)
+        (got,) = span_kernel.span_stage_values(
+            one_stage(kernel_lower, comp.plan, prog, slabs, repl),
+            span.source, mesh.device)
         want = span_kernel.span_values_plain(comp.plan, prog, slabs, repl,
                                              mesh.device)
-        tol = 1e-4 if "tl.sum(" in span.source.text else 1e-5
-        for k in want:
-            g, w = got[k][mask], want[k][mask]
-            e = (g - w).abs().max().item()
-            if not agree(torch, g, w, tol):
-                raise AssertionError(
-                    f"{label} {k}: kernel != plain, max abs err {e:.3e} "
-                    f"(rtol={tol}, atol={tol} x {w.abs().max().item():.3e})")
-            if w.abs().max().item() > 0 and (
-                    agree(torch, w * 1.001, w, tol)
-                    or agree(torch, torch.zeros_like(w), w, tol)):
-                raise AssertionError(f"{label} {k}: the check at tol={tol} "
-                                     "cannot tell a wrong kernel")
-            err = max(err, e)
+        err = max(err, hold_lanes(torch, got, want, mask,
+                                  span_tol(span.source), label))
     print(f"kernel-vs-plain {label}: {len(comp.kernel_plan.spans)} span(s) "
           f"max_abs_err={err:.3e}")
+    return err
+
+
+def one_stage(kernel_lower, plan, prog, slabs, repl) -> list:
+    """A block's span as the executor hands it to the wrapper: one
+    stage."""
+    return [kernel_lower.SpanStage(plan=plan, program=prog,
+                                   ext_windows=slabs, env_repl=repl)]
+
+
+def span_tol(source) -> float:
+    """1e-5 for pointwise bodies; 1e-4 where a body sums a trailing axis,
+    whose summation order differs."""
+    return 1e-4 if "tl.sum(" in source.text else 1e-5
+
+
+def hold_lanes(torch, got, want, mask, tol, label, lane_dim=None) -> float:
+    """Every key's dense values under ``agree`` on the lanes ``mask``
+    selects (those holding an iteration; the kernel writes no other), and
+    the same check shown to reject the plain values scaled by 1.001 and
+    all zeros — and, given ``lane_dim`` (the dense layout's innermost
+    lane axis), the plain values moved by one lane along it inside each
+    chunk, which is what a forward served from the neighbouring lane's
+    tile would give (keys equal under that move are skipped: no lane
+    fault shows there).  Returns the max abs error."""
+    err = 0.0
+    for k in want:
+        g, w = got[k][mask], want[k][mask]
+        e = (g - w).abs().max().item()
+        if not agree(torch, g, w, tol):
+            raise AssertionError(
+                f"{label} {k}: kernel != plain, max abs err {e:.3e} "
+                f"(rtol={tol}, atol={tol} x {w.abs().max().item():.3e})")
+        if w.abs().max().item() > 0 and (
+                agree(torch, w * 1.001, w, tol)
+                or agree(torch, torch.zeros_like(w), w, tol)):
+            raise AssertionError(f"{label} {k}: the check at tol={tol} "
+                                 "cannot tell a wrong kernel")
+        if lane_dim is not None:
+            # lane l's values held at lane l + 1 of the same chunk
+            c = mask.shape[lane_dim] - 1
+            both = mask.narrow(lane_dim, 0, c) & mask.narrow(lane_dim, 1, c)
+            here = want[k].narrow(lane_dim, 0, c)[both]
+            moved = want[k].narrow(lane_dim, 1, c)[both]
+            if not torch.equal(moved, here) and agree(torch, moved, here,
+                                                      tol):
+                raise AssertionError(f"{label} {k}: the check at tol={tol} "
+                                     "cannot tell a read of the "
+                                     "neighbouring lane")
+        err = max(err, e)
     return err
 
 
@@ -724,9 +798,12 @@ def k3_inputs(torch, dev, b, s, h, p, n, dtype, seed):
     return x, dt, A, rnd(b, s, n).to(dtype), rnd(b, s, n).to(dtype)
 
 
-def check_k3(torch, ssd, args, chunk, tol, label) -> tuple[float, float]:
+def check_k3(torch, ssd, args, chunk, tol, label) -> tuple[float, float,
+                                                          float]:
     """K3 against its plain version on the same inputs, its counter moving
-    once; returns the max abs error and max|plain|."""
+    once: under ``hold`` (whole-tensor scale) and ``hold_rows`` (each row
+    of P at its own scale); returns the max abs error, max|plain| and the
+    worst row-relative error."""
     before = ssd.LAUNCHES
     got = ssd.ssd_scan_kernel(*args, chunk=chunk)
     torch.cuda.synchronize()
@@ -734,7 +811,10 @@ def check_k3(torch, ssd, args, chunk, tol, label) -> tuple[float, float]:
         raise AssertionError(f"K3 {label}: {ssd.LAUNCHES - before} "
                              "launches counted, want 1")
     want = ssd.ssd_scan_plain(*args)[0]
-    return hold(torch, got, want, tol, f"K3 {label}: kernel != plain")
+    err, scale = hold(torch, got, want, tol, f"K3 {label}: kernel != plain")
+    worst = hold_rows(torch, got, want, tol,
+                      f"K3 {label}: kernel != plain, row by row")
+    return err, scale, worst
 
 
 def k3_phase(torch, dev):
@@ -748,12 +828,13 @@ def k3_phase(torch, dev):
         args = k3_inputs(torch, dev, b, s, h, p, n, dtype, i)
         tname = dtname(dtype)
         tol = K3_TOL[tname]
-        err, scale = check_k3(torch, ssd, args, chunk, tol,
-                              f"{label} {tname}")
+        err, scale, worst = check_k3(torch, ssd, args, chunk, tol,
+                                     f"{label} {tname}")
         errs[label, tname] = err
         print(f"K3-vs-plain {label}: B={b} S={s} H={h} P={p} N={n} "
               f"chunk={chunk} {tname} max_abs_err={err:.3e} (tol {tol}, "
-              f"max|plain| {scale:.3e})")
+              f"max|plain| {scale:.3e}); rows of P: worst |err| / "
+              f"(|plain| + row RMS) {worst:.3e}")
     return errs
 
 
@@ -839,14 +920,20 @@ def ssm_prefill_phase(torch, dev, card):
                                  f"{ssd.LAUNCHES} times, want one per layer")
         tol = K3_TOL[tname]
         worst = (0.0, 0)
+        worst_row = (0.0, 0)
         for layer, (got, (_, _, want)) in enumerate(zip(outs, calls)):
-            err, scale = hold(torch, got, want, tol, f"prefill {tname} "
-                              f"layer {layer}: ops.ssd_scan != ssd_chunked")
+            label = (f"prefill {tname} layer {layer}: ops.ssd_scan != "
+                     "ssd_chunked")
+            err, scale = hold(torch, got, want, tol, label)
             worst = max(worst, (err / (scale or 1.0), layer))
+            worst_row = max(worst_row, (hold_rows(
+                torch, got, want, tol, f"{label}, row by row"), layer))
         print(f"prefill {cfg.name} {tname}: ops.ssd_scan (K3 + D*x) == "
               f"ssd_chunked on the activations of all {cfg.n_layers} layers "
               f"(rtol={tol}, atol={tol} x max|value|; worst err / scale "
-              f"{worst[0]:.3e} in layer {worst[1]}); K3 launches: "
+              f"{worst[0]:.3e} in layer {worst[1]}; rows of P held at tol "
+              f"x (|value| + row RMS): worst {worst_row[0]:.3e} in layer "
+              f"{worst_row[1]}); K3 launches: "
               f"{launches['ops', tname]} by ops.ssd_scan, "
               f"{launches['model', tname]} by the model's prefill")
         del calls, outs
@@ -878,8 +965,8 @@ def ssm_prefill_phase(torch, dev, card):
         print(f"end-to-end prefill {cfg.name} {dtname(dtype)}: {ms:.2f} ms for "
               f"2 x {PREFILL_LEN} tokens, {2 * PREFILL_LEN / ms * 1e3:.0f} "
               f"tokens/s on {card}")
-    profile_prefill(torch, lambda: run(bf16), card, wall[bf16],
-                    f"{cfg.name} bfloat16")
+    profile_run(torch, lambda: run(bf16), card, wall[bf16],
+                f"prefill {cfg.name} bfloat16")
     return model, params, launches
 
 
@@ -1051,18 +1138,19 @@ def prefill_phase(torch, dev, card):
             print(f"end-to-end prefill {cfg.name} impl={impl} {dtype}: "
                   f"{ms:.2f} ms for 2 x {PREFILL_LEN} tokens, "
                   f"{2 * PREFILL_LEN / ms * 1e3:.0f} tokens/s on {card}")
-    profile_prefill(torch, lambda: run("kernel", bf16), card,
-                    prefill_ms["kernel", bf16],
-                    f"{cfg.name} bfloat16 impl=kernel", ("K2", "flash_fwd"))
+    profile_run(torch, lambda: run("kernel", bf16), card,
+                prefill_ms["kernel", bf16],
+                f"prefill {cfg.name} bfloat16 impl=kernel", ("K2", "flash_fwd"))
     return model, params, launches
 
 
-def profile_prefill(torch, fn, card, wall_ms, label, kernel=None):
-    """One prefill (``fn()``) under ``torch.profiler``: its kernels' busy
-    time against ``wall_ms`` (the same prefill timed without the
-    profiler, whose own overhead stretches the wall time it sees), the
-    share of the port's kernel ``kernel`` = (name, substring of its CUDA
-    kernels' names) where given, and the kernels that take the most."""
+def profile_run(torch, fn, card, wall_ms, label, kernel=None):
+    """One run (``fn()``: a prefill, a region's ``Compiled.run``) under
+    ``torch.profiler``: its kernels' busy time against ``wall_ms`` (the
+    same run timed without the profiler, whose own overhead stretches the
+    wall time it sees), the share of the port's kernel ``kernel`` =
+    (name, substring of its CUDA kernels' names) where given, and the
+    kernels that take the most."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1077,16 +1165,15 @@ def profile_prefill(torch, fn, card, wall_ms, label, kernel=None):
                if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if not busy_ms:
-        print(f"profile prefill {label}: the profiler recorded no device "
-              "time")
+        print(f"profile {label}: the profiler recorded no device time")
         return
     share = ""
     if kernel is not None:
         mine = [e for e in kernels if kernel[1] in e.key]
         ms = sum(e.self_device_time_total for e in mine) / 1e3
-        share = (f"; {kernel[0]} {ms:.1f} ms ({ms / busy_ms:.1%} of kernel "
+        share = (f"; {kernel[0]} {ms:.2f} ms ({ms / busy_ms:.1%} of kernel "
                  f"time, {sum(e.count for e in mine)} launches)")
-    print(f"profile prefill {label}: kernels busy {busy_ms:.1f} ms, "
+    print(f"profile {label}: kernels busy {busy_ms:.2f} ms, "
           f"{busy_ms / wall_ms:.1%} of the unprofiled {wall_ms:.1f} ms "
           f"({prof_ms:.1f} ms wall under the profiler){share} on {card}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
@@ -1237,6 +1324,354 @@ def serving_phase(torch, dev, card, model, params):
     return k3_launches
 
 
+# ---------------------------------------------------------------------------
+# Regions: whole programs through the fused, staged and kernel lowerings
+# ---------------------------------------------------------------------------
+
+N_REGION = 1 << 24             # rank-1 region programs
+REGION_CHUNK = 1 << 16         # static(2^16): 32 chunks per rank at 8 ranks
+REGION2_CHUNK = 256            # heat2d_region: static(256) on both axes
+REGION_LOWERINGS = {
+    "fused": dict(),                           # comm auto, aggregate
+    "fused_inline": dict(comm_schedule="inline"),
+    "fused_gather": dict(comm="gather"),
+    "collective": dict(lowering="collective"),
+    "kernel": dict(lowering="kernel"),
+}
+REGION_LIBRARY_NOTE = ("no single PyTorch call computes a chain of loop "
+                       "bodies")
+
+
+def jacobi_chain_region(omp, torch, dev, n=N_REGION):
+    """``benchmarks/region_chains.py::make_jacobi_chain``: two pointwise
+    sweeps and a ``+`` reduction, every hand-off resident (ONE span)."""
+    @omp.parallel_for(stop=n, name="sweep1")
+    def sweep1(i, env):
+        return {"u": omp.at(i, env["a"][i] * 0.5 + 1.0)}
+
+    @omp.parallel_for(stop=n, name="sweep2")
+    def sweep2(i, env):
+        return {"v": omp.at(i, env["u"][i] * env["u"][i])}
+
+    @omp.parallel_for(stop=n, reduction={"norm": "+"}, name="norm")
+    def norm(i, env):
+        return {"norm": omp.red(env["v"][i])}
+
+    env = {"a": torch.arange(n, dtype=torch.float32, device=dev),
+           "u": torch.zeros(n, device=dev), "v": torch.zeros(n, device=dev),
+           "norm": torch.zeros((), device=dev)}
+    return (omp.region(sweep1, sweep2, norm, name="jacobi_chain"), env,
+            (8,), ("data",))
+
+
+def _pingpong(omp, names, n, c, fields, sweeps, region_name):
+    a_names = tuple(f"a{k}" for k in range(fields)) if fields else ("a",)
+    b_names = tuple(f"b{k}" for k in range(fields)) if fields else ("b",)
+
+    def sweep(srcs, dsts, name):
+        @omp.parallel_for(start=1, stop=n - 1, schedule=omp.static(c),
+                          name=name)
+        def body(i, env):
+            return {d: omp.at(i, 0.25 * (env[s][i - 1] + 2.0 * env[s][i]
+                                         + env[s][i + 1]))
+                    for s, d in zip(srcs, dsts)}
+        return body
+
+    stages, cur, nxt = [], a_names, b_names
+    for k in range(sweeps):
+        stages.append(sweep(cur, nxt, f"{names}{k + 1}"))
+        cur, nxt = nxt, cur
+    return omp.region(*stages, name=region_name), a_names, b_names
+
+
+def heat3_region(omp, torch, dev, n=N_REGION, c=REGION_CHUNK):
+    """``benchmarks/stencil_halo.py::make_heat_chain``: three ping-pong
+    3-point sweeps with a halo exchange between each (three spans)."""
+    reg, _, _ = _pingpong(omp, "sweep", n, c, 0, 3, "heat3")
+    x = torch.arange(n, dtype=torch.float32, device=dev)
+    env = {"a": torch.sin(x * 0.01), "b": torch.zeros(n, device=dev)}
+    return reg, env, (8,), ("data",)
+
+
+def multifield_region(omp, torch, dev, n=N_REGION, c=REGION_CHUNK):
+    """``benchmarks/stencil_halo.py::make_multifield_chain``: 3 fields x
+    5 sweeps, every boundary carrying 3 buffers on one ring (the
+    aggregation case)."""
+    reg, a_names, b_names = _pingpong(omp, "mf", n, c, 3, 5, "multifield")
+    x = torch.arange(n, dtype=torch.float32, device=dev)
+    env = {k: torch.sin((j + 1) * x * 0.01) for j, k in enumerate(a_names)}
+    env.update({k: torch.zeros(n, device=dev) for k in b_names})
+    return reg, env, (8,), ("data",)
+
+
+def heat2d_region(omp, torch, dev, n=N2, c=REGION2_CHUNK):
+    """``benchmarks/heat2d.py::make_heat2d_chain``: three 5-point
+    ``collapse(2)`` sweeps a -> b -> a -> b over a 4x2 mesh."""
+    def sweep(src, dst, name):
+        @omp.parallel_for(start=(1, 1), stop=(n - 1, n - 1), collapse=2,
+                          schedule=omp.static(c), name=name)
+        def body(i, j, env):
+            v = 0.25 * (env[src][i - 1, j] + env[src][i + 1, j]
+                        + env[src][i, j - 1] + env[src][i, j + 1])
+            return {dst: omp.at((i, j), v)}
+        return body
+
+    reg = omp.region(sweep("a", "b", "sweep1"), sweep("b", "a", "sweep2"),
+                     sweep("a", "b", "sweep3"), name="heat2d_region")
+    x = torch.arange(n * n, dtype=torch.float32, device=dev)
+    env = {"a": torch.sin(x * 0.01).reshape(n, n),
+           "b": torch.zeros(n, n, device=dev)}
+    return reg, env, (4, 2), ("i", "j")
+
+
+def pipeline_region(omp, torch, dev, n=N_REGION):
+    """``examples/region_pipeline.py``: sweep, square, sum of squares,
+    serial glue (scale = 1/sqrt(sum)), normalize — the glue breaks the
+    spans."""
+    @omp.parallel_for(stop=n, name="sweep")
+    def sweep(i, env):
+        return {"u": omp.at(i, env["a"][i] * 0.5 + 1.0)}
+
+    @omp.parallel_for(stop=n, name="square")
+    def square(i, env):
+        return {"v": omp.at(i, env["u"][i] * env["u"][i])}
+
+    @omp.parallel_for(stop=n, reduction={"ss": "+"}, name="sumsq")
+    def sumsq(i, env):
+        return {"ss": omp.red(env["v"][i])}
+
+    rescale = omp.serial(
+        lambda env: {"scale": 1.0 / torch.sqrt(env["ss"] + 1e-6)[None]},
+        reads=("ss",), name="rescale")
+
+    @omp.parallel_for(stop=n, name="normalize")
+    def normalize(i, env):
+        return {"y": omp.at(i, env["v"][i] * env["scale"][0])}
+
+    env = {"a": torch.arange(n, dtype=torch.float32, device=dev) / n,
+           "u": torch.zeros(n, device=dev), "v": torch.zeros(n, device=dev),
+           "ss": torch.zeros((), device=dev),
+           "scale": torch.zeros(1, device=dev),
+           "y": torch.zeros(n, device=dev)}
+    return (omp.region(sweep, square, sumsq, rescale, normalize,
+                       name="pipeline"), env, (8,), ("data",))
+
+
+def region_programs(omp, torch, dev):
+    return {name: make(omp, torch, dev) for name, make in (
+        ("jacobi_chain", jacobi_chain_region), ("heat3", heat3_region),
+        ("multifield", multifield_region), ("heat2d_region", heat2d_region),
+        ("pipeline", pipeline_region))}
+
+
+def record_spans(span_kernel, run):
+    """Run ``run()`` with the span wrapper recording every span's stage
+    feeds and source as the executor hands them over."""
+    calls = []
+    wrapper = span_kernel.span_stage_values
+
+    def record(stages, source, device):
+        calls.append((list(stages), source))
+        return wrapper(stages, source, device)
+
+    span_kernel.span_stage_values = record
+    try:
+        run()
+    finally:
+        span_kernel.span_stage_values = wrapper
+    return calls
+
+
+def compare_region_spans(torch, kernel_lower, span_kernel, calls, dev,
+                         label) -> float:
+    """Every span's kernel (one launch for all its stages) against the
+    multi-stage plain version on the same feeds, stage by stage, on the
+    lanes that hold an iteration, with ``hold_lanes``' rejections of a
+    neighbouring lane's values; returns the max abs error."""
+    err = 0.0
+    for stages, source in calls:
+        got = span_kernel.launch_span(
+            source, [(st.ext_windows, st.env_repl) for st in stages], dev)
+        want = span_kernel.span_values_plain_stages(stages, dev)
+        for st, g, w in zip(stages, got, want):
+            err = max(err, hold_lanes(
+                torch, g, w, kernel_lower.lane_mask(st.plan, dev),
+                span_tol(source), f"{label} span {source.fn_name} stage "
+                f"{st.plan.name}", lane_dim=3 * st.plan.rank - 1))
+    return err
+
+
+def random_env(torch, env, seed):
+    """``env``'s keys, shapes and types filled with seeded normal values:
+    neighbouring lanes differ by O(1), so a lane fault shows at any
+    tolerance (on a program's own smooth data, such as an ``arange``, a
+    neighbour differs by less than float32 resolves)."""
+    g = torch.Generator(device=env[next(iter(env))].device).manual_seed(seed)
+    return {k: torch.randn(v.shape, generator=g, device=v.device,
+                           dtype=v.dtype) for k, v in env.items()}
+
+
+def check_region_spans(torch, kernel_lower, span_kernel, comp, env, dev,
+                       label, seed=0):
+    """Record the spans of one kernel-lowered run of ``comp`` on seeded
+    random data of ``env``'s shapes, check that every planned span was
+    recorded, and hold each against its plain version.  Returns
+    ``(calls, max abs error)``."""
+    calls = record_spans(span_kernel, lambda: comp(random_env(torch, env,
+                                                              seed)))
+    n = comp.kernel_plan.n_kernels
+    if len(calls) != n or n == 0:
+        raise AssertionError(f"{label}: recorded {len(calls)} span calls, "
+                             f"planned {n}")
+    return calls, compare_region_spans(torch, kernel_lower, span_kernel,
+                                       calls, dev, label)
+
+
+def span_bound(torch, stages, source):
+    """(bytes, flops) the span must move and do: each env array its
+    stages read from outside the span, once; each stage's outputs on the
+    loop's iterations, once (forwarded intermediates are stored, so they
+    count as outputs, never as reads)."""
+    nbytes, seen = 0, set()
+    for _, si, key in source.inputs:
+        if key not in seen:
+            seen.add(key)
+            info = stages[si].plan.context.vars[key]
+            nbytes += math.prod(info.shape) * torch.empty(
+                (), dtype=info.dtype).element_size()
+    trip = stages[0].plan.nest.total_trip
+    for si, _, shape, dt in source.outputs:
+        rank = stages[si].plan.rank
+        nbytes += trip * math.prod(shape[3 * rank:]) * torch.empty(
+            (), dtype=dt).element_size()
+    return nbytes, source.flops_per_lane * trip
+
+
+def region_phase(torch, dev, card):
+    """Phases 14-16: every region program under every lowering against
+    its shared-memory run on the card; the mesh's counters; K1's launches
+    per run; each span's kernel against its plain version; times.
+    Returns the kernel-table rows."""
+    from repro_torch import omp
+    from repro_torch.core import kernel_lower
+    from repro_torch.kernels import span_kernel
+
+    rows = []
+    for name, (reg, env, shape, axes) in region_programs(
+            omp, torch, dev).items():
+        mesh = omp.make_mesh(shape, axes, device=dev)
+        ref = reg(env)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        comps = {low: omp.compile(reg, mesh, env_like=env, **opts)
+                 for low, opts in REGION_LOWERINGS.items()}
+        kp = comps["kernel"].kernel_plan
+        outs, counts = {}, {}
+        for low, comp in comps.items():
+            comp(env)                   # first run: builds K1's kernels
+            torch.cuda.synchronize()
+            mesh.reset_counters()
+            span_kernel.LAUNCHES = 0
+            outs[low] = comp(env)
+            torch.cuda.synchronize()
+            counts[low] = (dict(mesh.launches), dict(mesh.bytes),
+                           span_kernel.LAUNCHES)
+            for k in ref:
+                torch.testing.assert_close(
+                    outs[low][k], ref[k], rtol=1e-4, atol=1e-4,
+                    msg=lambda m: f"region {name}/{low} {k}: {m}")
+                if not bool(torch.isfinite(outs[low][k]).all()):
+                    raise AssertionError(f"region {name}/{low} {k}: "
+                                         "not finite")
+        for agg, inl in (("fused", "fused_inline"),):
+            for k in ref:
+                if not torch.equal(outs[agg][k], outs[inl][k]):
+                    raise AssertionError(
+                        f"region {name} {k}: aggregate != inline bit for "
+                        "bit")
+        launches = counts["kernel"][2]
+        if launches != kp.n_kernels or any(
+                counts[low][2] for low in comps if low != "kernel"):
+            raise AssertionError(
+                f"region {name}: K1 launched {launches} times under "
+                f"lowering=kernel (planned {kp.n_kernels} spans), "
+                f"{[counts[low][2] for low in comps]} by lowering")
+        pp = {low: (counts[low][0].get("ppermute", 0),
+                    counts[low][1].get("ppermute", 0))
+              for low in ("fused", "fused_inline")}
+        if pp["fused"][1] != pp["fused_inline"][1]:
+            raise AssertionError(f"region {name}: aggregate moves "
+                                 f"{pp['fused'][1]} ppermute bytes, inline "
+                                 f"{pp['fused_inline'][1]}")
+        if name == "multifield" and not (
+                pp["fused_inline"][0] >= 2 * pp["fused"][0] > 0):
+            raise AssertionError(f"region {name}: inline {pp['fused_inline']}"
+                                 f" vs aggregate {pp['fused']} ppermutes: "
+                                 "want >= 2x fewer launches aggregated")
+        shapes = {k: tuple(v.shape) for k, v in outs["kernel"].items()
+                  if k in comps["fused"].plan.touched_keys}
+        print(f"region {name}: {len(reg.stages)} stages on a "
+              f"{'x'.join(map(str, shape))} mesh, compiled 5 ways in "
+              f"{time.perf_counter() - t0:.2f} s; fused (auto/aggregate, "
+              "auto/inline, gather), collective and kernel == prog(env) "
+              "(rtol=atol=1e-4), aggregate == inline bit for bit; "
+              f"spans {[len(sp.stage_indices) for sp in kp.spans]}, K1 "
+              f"launches per run {launches} (planned {kp.n_kernels}); "
+              f"outputs {shapes}")
+        for low in comps:
+            print(f"  mesh counters {name}/{low}: launches "
+                  f"{counts[low][0]} bytes {counts[low][1]}")
+
+        calls, err = check_region_spans(torch, kernel_lower, span_kernel,
+                                        comps["kernel"], env, dev,
+                                        f"region {name}")
+        print(f"kernel-vs-plain region {name} (seeded normal data): "
+              f"{len(calls)} span(s), "
+              f"stages {[len(st) for st, _ in calls]}, forwarded "
+              f"{[list(src.forwarded) for _, src in calls]}, "
+              f"max_abs_err={err:.3e}")
+
+        ms = plain_ms = bound_s = 0.0
+        nbytes = flops = 0
+        for stages, source in calls:
+            io = [(st.ext_windows, st.env_repl) for st in stages]
+            k_ms = cuda_ms(torch, lambda: span_kernel.launch_span(
+                source, io, dev))
+            p_ms = cuda_ms(torch, lambda: span_kernel.
+                           span_values_plain_stages(stages, dev),
+                           reps=5, inner=2, warmup=1)
+            b, f = span_bound(torch, stages, source)
+            b_s = max(b / HBM_BYTES_PER_S, f / FP32_FLOPS_PER_S)
+            print(f"  times span {'+'.join(st.plan.name for st in stages)} "
+                  f"of {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+                  f"bound {b_s * 1e3:.4f} ms ({b} B, {f} flops), library "
+                  f"null ({REGION_LIBRARY_NOTE}) on {card}")
+            ms, plain_ms, bound_s = ms + k_ms, plain_ms + p_ms, bound_s + b_s
+            nbytes, flops = nbytes + b, flops + f
+        del calls
+        bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S
+                    >= flops / FP32_FLOPS_PER_S else "operations")
+        rows.append({
+            "name": f"span_kernel[region {name}]", "route": "triton",
+            "source": SOURCE, "replaces": REPLACES, "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+            "library_ms": None, "library_note": REGION_LIBRARY_NOTE})
+        run_ms = {low: cuda_ms(torch, lambda: comp(env), reps=5, inner=3,
+                               warmup=2)
+                  for low, comp in comps.items()}
+        print(f"end-to-end region {name}: Compiled.run " + ", ".join(
+            f"{low} {t:.4f} ms" for low, t in run_ms.items())
+            + f"; spans sum: kernel {ms:.4f} ms, bound "
+            f"{bound_s * 1e3:.4f} ms on {card}")
+        for low in ("kernel", "fused"):
+            profile_run(torch, lambda: comps[low](env), card, run_ms[low],
+                        f"region {name} lowering={low}", ("K1", "span_"))
+        del comps, outs, ref, env
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main(device: str = "cuda") -> int:
     sys.stdout.reconfigure(line_buffering=True)
     torch = _setup()
@@ -1336,8 +1771,9 @@ def main(device: str = "cuda") -> int:
             repl, slabs = transform.stage_inputs(comp.plan, env)
             for span in comp.kernel_plan.spans:
                 src = span.source
-                ms += cuda_ms(torch, lambda: span_kernel.span_values(
-                    comp.plan, prog, slabs, repl, src, dev))
+                one = one_stage(kernel_lower, comp.plan, prog, slabs, repl)
+                ms += cuda_ms(torch, lambda: span_kernel.span_stage_values(
+                    one, src, dev))
                 plain_ms += cuda_ms(torch, lambda: span_kernel.
                                     span_values_plain(comp.plan, prog, slabs,
                                                       repl, dev))
@@ -1345,10 +1781,10 @@ def main(device: str = "cuda") -> int:
                 # values on the loop's iterations, once
                 trip = comp.plan.nest.total_trip
                 b = sum(env[key].numel() * env[key].element_size()
-                        for _, key in src.inputs)
+                        for _, _, key in src.inputs)
                 b += sum(trip * math.prod(shape[3 * prog.rank:])
                          * torch.empty((), dtype=dt).element_size()
-                         for _, shape, dt in src.outputs)
+                         for _, _, shape, dt in src.outputs)
                 f = src.flops_per_lane * trip
                 bytes_moved += b
                 flops += f
@@ -1397,6 +1833,9 @@ def main(device: str = "cuda") -> int:
     del model, params
     torch.cuda.empty_cache()
     rows += k3_times(torch, dev, card, errs, k3_launches)
+
+    # -- regions: whole programs, fused / staged / kernel --------------------
+    rows += region_phase(torch, dev, card)
 
     print(card)
     print(json.dumps({"kernels": rows}))

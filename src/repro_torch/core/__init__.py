@@ -12,9 +12,14 @@ Module for module the counterpart of :mod:`repro.core`:
 * :mod:`repro_torch.core.schedule`     — chunking math (§3.1.3),
 * :mod:`repro_torch.core.plan`         — Workload Distribution (§3.1.3),
 * :mod:`repro_torch.core.transform`    — block executors (§3.1.3–4),
+* :mod:`repro_torch.core.region`       — whole programs: the residency
+  planner and the fused region executors,
+* :mod:`repro_torch.core.comm`         — the cost-modeled boundary
+  planner and the halo emitters,
+* :mod:`repro_torch.core.comm_schedule` — the schedule_comm pass: packed
+  exchanges, fused combines, hoisting,
 * :mod:`repro_torch.core.kernel_lower` — ``Lowering.KERNEL``: the span
-  kernel behind each block,
-* :mod:`repro_torch.core.comm_schedule` — fused block combines,
+  kernel behind each block and each span of region stages,
 * :mod:`repro_torch.core.reduction`    — reduction clause lowering,
 * :mod:`repro_torch.core.report`       — the "generated code" view.
 """

@@ -1,5 +1,5 @@
 """``omp.compile`` — the staged compiler entry point (counterpart of
-:mod:`repro.core.api`, single-block slice).
+:mod:`repro.core.api`).
 
 One call
 
@@ -12,8 +12,13 @@ runs the pass pipeline
 (plus a 7th **kernel** pass under ``Lowering.KERNEL``), recording each
 stage's artifact on ``compiled.passes``.  A single block has no
 inter-loop boundaries, so plan_comm and schedule_comm record empty
-artifacts; its per-block combines fuse at lower.  Compiling a
-``ParallelRegion`` waits for the region slice of the port and raises.
+artifacts; its per-block combines fuse at lower.  A ``ParallelRegion``
+plans as a whole under ``Lowering.FUSED`` (the default) and
+``Lowering.KERNEL``: the residency planner's
+:class:`~repro_torch.core.region.RegionPlan`, its boundary exchanges and
+their :class:`~repro_torch.core.comm_schedule.CommSchedule`; under
+``Lowering.COLLECTIVE`` each loop plans in isolation (per-loop
+staging).
 
 Options are validated at construction with the reference's messages
 (:class:`CompileError`); compiles are cached under a structural key
@@ -47,9 +52,10 @@ class Lowering(enum.Enum):
     """How the parallel block(s) are lowered to the mesh."""
 
     FUSED = "fused"
-    """One fused program for a whole region (the default); a single
-    ``ParallelFor`` has no boundaries to fuse, so it equals COLLECTIVE
-    there."""
+    """One fused program for a whole region (the default): slabs stay
+    resident between loops, boundaries become halo exchanges or gathers;
+    a single ``ParallelFor`` has no boundaries to fuse, so it equals
+    COLLECTIVE there."""
 
     COLLECTIVE = "collective"
     """Per-loop staging: chunk-cyclic slabs + balanced collectives, the
@@ -59,9 +65,10 @@ class Lowering(enum.Enum):
     """Paper-faithful Fig. 1b staging (not ported yet: compiling raises)."""
 
     KERNEL = "kernel"
-    """COLLECTIVE with each compute span run as ONE launch of the span
-    kernel (:mod:`repro_torch.kernels.span_kernel`, Triton on CUDA; the
-    plain PyTorch version for CPU tensors)."""
+    """COLLECTIVE (a block) or FUSED (a region) with each compute span —
+    a block, or a chain of exchange-free region stages — run as ONE
+    launch of the span kernel (:mod:`repro_torch.kernels.span_kernel`,
+    Triton on CUDA; the plain PyTorch version for CPU tensors)."""
 
 
 class CommMode(enum.Enum):
@@ -345,6 +352,10 @@ def clear_compile_cache() -> None:
 def _program_signature(p) -> tuple:
     """Structural identity of a program (bodies by ``id()``; cache
     entries keep the program alive so ids cannot be recycled)."""
+    if isinstance(p, pragma.ParallelRegion):
+        return ("region", tuple(_program_signature(s) for s in p.stages))
+    if isinstance(p, pragma.SerialStage):
+        return ("serial", id(p.fn), p.reads)
     return ("for", id(p.body), p.bounds, p.collapse,
             (p.schedule.kind, p.schedule.chunk),
             tuple(sorted(p.reduction.items())))
@@ -377,8 +388,9 @@ def compile(
     env_like: Mapping[str, Any] | None = None,
     **overrides,
 ) -> "Compiled":
-    """Compile a :class:`~repro_torch.core.pragma.ParallelFor` to a
-    distributed program on ``mesh`` (a :class:`repro_torch.mesh.Mesh`).
+    """Compile a :class:`~repro_torch.core.pragma.ParallelFor` or
+    :class:`~repro_torch.core.pragma.ParallelRegion` to a distributed
+    program on ``mesh`` (a :class:`repro_torch.mesh.Mesh`).
 
     ``options`` carries every knob, or the fields come as keyword
     overrides.  ``env_like`` (shapes only) runs the pipeline eagerly;
@@ -395,12 +407,7 @@ def compile(
     if not isinstance(options, Options):
         raise CompileError(
             f"options must be an omp.Options, got {type(options).__name__}")
-    if isinstance(program, pragma.ParallelRegion):
-        raise CompileError(
-            "regions are not ported yet: compile each ParallelFor block of "
-            f"region {program.name!r} on its own (the region slice of the "
-            "PyTorch port brings omp.region compilation)")
-    if not isinstance(program, pragma.ParallelFor):
+    if not isinstance(program, (pragma.ParallelFor, pragma.ParallelRegion)):
         raise CompileError(
             "omp.compile expects a ParallelFor or ParallelRegion, got "
             f"{type(program).__name__}")
@@ -441,6 +448,13 @@ def _validate_combination(program, options: Options, num) -> None:
 
     cw = options.chunk_weights
     if cw is not None:
+        if isinstance(program, pragma.ParallelRegion) \
+                and options.lowering is Lowering.FUSED:
+            raise CompileError(
+                "Options.chunk_weights on a region requires "
+                "Lowering.COLLECTIVE (per-loop staging): the fused "
+                "region executor's ring halo exchanges and slab "
+                "residency assume cyclic chunk ownership.")
         nested = any(e is None or isinstance(e, tuple) for e in cw)
         if rank == 2:
             if not nested:
@@ -510,12 +524,172 @@ def _build_block(program, env_shapes, num, axis, options,
     return _Artifacts(passes=passes, exe_plan=plan, program=program)
 
 
-def _make_executor(program, mesh, options: Options, art: _Artifacts):
+def _build_artifacts(program, env_shapes, num, axis, options,
+                     device) -> _Artifacts:
+    if isinstance(program, pragma.ParallelRegion):
+        if options.lowering in (Lowering.FUSED, Lowering.KERNEL):
+            return _build_region_fused(program, env_shapes, num, axis,
+                                       options, device)
+        return _build_region_staged(program, env_shapes, num, axis, options,
+                                    device)
+    return _build_block(program, env_shapes, num, axis, options, device)
+
+
+def _build_region_fused(region, env_shapes, num, axis, options,
+                        device) -> _Artifacts:
+    from repro_torch.core import comm_schedule as cs_mod
+    from repro_torch.core import region as region_mod
+
+    try:
+        rp = region_mod.plan_region(
+            region, env_shapes, num, axis=axis, comm=options.comm.value,
+            schedule=options.schedule, device=device)
+    except LoopNotCanonical:
+        raise
+    except Exception as e:
+        if options.lowering is Lowering.KERNEL:
+            # almost always host-side serial glue that cannot be traced on
+            # the meta device: the kernel lowering runs every stage inside
+            # the one fused program and cannot plan around it
+            raise CompileError(
+                f"Lowering.KERNEL cannot compile region {region.name!r}: "
+                f"a stage is not shape-traceable "
+                f"({type(e).__name__}: {e}).  Host-side serial glue "
+                "(numpy conversion, I/O) runs only under the staged "
+                "Lowering.COLLECTIVE path.") from e
+        raise
+    rp.comm_sched = cs_mod.build_comm_schedule(
+        rp, mode=options.comm_schedule)
+    loop_stages = [se for se in rp.stages if se.plan is not None]
+    passes = (
+        PassRecord("analyze",
+                   input=f"region {region.name!r} "
+                         f"({len(region.stages)} stages) + env shapes",
+                   output=tuple((se.name, se.plan.context)
+                                for se in loop_stages)),
+        PassRecord("schedule",
+                   input="per-stage loop nests + schedule clause(s)",
+                   output=tuple((se.name, se.plan.chunks_axes)
+                                for se in loop_stages)),
+        PassRecord("plan",
+                   input="per-stage contexts + chunk plans "
+                         "(inter-loop residency planner)",
+                   output=rp),
+        PassRecord("plan_comm",
+                   input="stage OUT layouts vs next-stage IN needs",
+                   output=tuple(rp.comms)),
+        PassRecord("schedule_comm",
+                   input="planned boundary exchanges + stage order "
+                         "(aggregate payloads / fuse combines / hoist "
+                         "to producers)",
+                   output=rp.comm_sched),
+    )
+    if options.lowering is Lowering.KERNEL:
+        from repro_torch.core import kernel_lower as kl
+
+        passes = passes + (PassRecord(
+            "kernel",
+            input="exchange-free compute spans + chunk geometry (one span "
+                  "kernel per span, generated from the stages' aten "
+                  "graphs)",
+            output=kl.plan_region_kernels(rp, device=device)),)
+    return _Artifacts(passes=passes, exe_plan=rp, program=region)
+
+
+def _build_region_staged(region, env_shapes, num, axis, options,
+                         device) -> _Artifacts:
+    """Per-loop staging (COLLECTIVE on a region): each loop planned in
+    isolation, environment shapes threaded through the stages as the
+    staged executor will see them.
+
+    Serial glue is shape-traced on the ``meta`` device to thread its
+    output shapes.  The staged executor runs glue eagerly on concrete
+    tensors, so host-side glue (numpy conversion, I/O) is legal here:
+    when its shapes cannot be traced, planning of the remaining stages is
+    deferred to run time instead of failing the compile."""
+    from repro_torch.core import region as region_mod
+
+    shard_inputs = options.shard is ShardPolicy.SLICE
+    shapes = dict(env_shapes)
+    analyses, schedules, plans = [], [], []
+    deferred = None
+    for stage in region.stages:
+        if isinstance(stage, pragma.SerialStage):
+            try:
+                out_sh = region_mod.serial_out_specs(stage, shapes)
+            except Exception as e:  # host-side glue: shapes unknowable
+                deferred = (f"serial stage {stage.name!r} is not "
+                            f"shape-traceable ({type(e).__name__}); "
+                            "remaining stages plan at run time")
+                break
+            shapes.update(out_sh)
+            continue
+        nest, ctx = plan_mod.analyze_program(stage, shapes, device)
+        chunks_axes = plan_mod.plan_schedule(
+            stage, nest, num, lowering="collective",
+            paper_master_excluded=options.paper_master_excluded,
+            schedule=options.schedule, weights=options.chunk_weights)
+        p = plan_mod.decide_strategies(
+            stage, nest, ctx, chunks_axes, axis=axis, lowering="collective",
+            shard_inputs=shard_inputs)
+        analyses.append((stage.name, ctx))
+        schedules.append((stage.name, chunks_axes))
+        plans.append((stage.name, p))
+        for key, dec in p.vars.items():
+            if dec.out_strategy == "reduce" and key not in shapes:
+                shapes[key] = region_mod._fresh_spec(p, key)
+    stage_plans = tuple(plans)
+    plan_input = ("per-stage contexts + chunk plans "
+                  "(each loop planned in isolation)")
+    if deferred is not None:
+        plan_input += f"; {deferred}"
+    passes = (
+        PassRecord("analyze",
+                   input=f"region {region.name!r} "
+                         f"({len(region.stages)} stages) + env shapes",
+                   output=tuple(analyses)),
+        PassRecord("schedule",
+                   input="per-stage loop nests + schedule clause(s)",
+                   output=tuple(schedules)),
+        PassRecord("plan", input=plan_input, output=stage_plans),
+        PassRecord("plan_comm",
+                   input="staged lowering: every boundary round-trips "
+                         "through the replicated layout (paper Fig. 1b)",
+                   output=()),
+        PassRecord("schedule_comm",
+                   input="staged lowering: no region-wide exchanges to "
+                         "schedule (per-block combines fuse at lower)",
+                   output=()),
+    )
+    return _Artifacts(
+        passes=passes,
+        # a partial plan list cannot feed the executor 1:1: every loop
+        # then plans at run time
+        exe_plan=None if deferred is not None else stage_plans,
+        program=region)
+
+
+def _make_executor(program, mesh, axis, options: Options, art: _Artifacts):
     """The **lower** pass: bind the planned artifacts to the mesh."""
+    from repro_torch.core import region as region_mod
     from repro_torch.core import transform as tf
 
     kernel_plan = next((pr.output for pr in art.passes
                         if pr.name == "kernel"), None)
+    if isinstance(program, pragma.ParallelRegion):
+        fused = options.lowering in (Lowering.FUSED, Lowering.KERNEL)
+        return region_mod.DistributedRegion(
+            region=program, mesh=mesh,
+            plan=art.exe_plan if fused else None,
+            axis=axis, fuse=fused,
+            shard_inputs=options.shard is ShardPolicy.SLICE,
+            comm=options.comm.value,
+            comm_schedule=options.comm_schedule,
+            schedule_override=options.schedule,
+            stage_plans=None if fused else art.exe_plan,
+            use_kernel=options.lowering is Lowering.KERNEL,
+            kernel_plan=kernel_plan,
+            chunk_weights=options.chunk_weights)
     return tf.DistributedProgram(
         program=program, mesh=mesh, plan=art.exe_plan,
         comm_schedule=options.comm_schedule,
@@ -530,7 +704,7 @@ def _make_executor(program, mesh, options: Options, art: _Artifacts):
 
 @dataclasses.dataclass
 class Compiled:
-    """The compilation artifact of one block: callable
+    """The compilation artifact of a block or a region: callable
     (``compiled(env)`` / ``compiled.run(env)``), with ``.passes``,
     ``.plan``, ``.boundaries``, ``.comm_schedule``, ``.kernel_plan``,
     ``.report()``, ``.cost_summary()`` and ``.cache_hit``."""
@@ -572,8 +746,8 @@ class Compiled:
         _MISSES.inc()
         self.cache_hit = False
         env_shapes = {k: spec_of(v) for k, v in env_like.items()}
-        art = _build_block(self.program, env_shapes, self.num_devices,
-                           self.axis, self.options, self.mesh.device)
+        art = _build_artifacts(self.program, env_shapes, self.num_devices,
+                               self.axis, self.options, self.mesh.device)
         with _CACHE_LOCK:
             _CACHE[key] = _Entry(art, next(_TICK))
             while len(_CACHE) > _CACHE_CAP:
@@ -582,7 +756,8 @@ class Compiled:
         self._bind(art, sig)
 
     def _bind(self, art: _Artifacts, sig: tuple) -> None:
-        exe = _make_executor(self.program, self.mesh, self.options, art)
+        exe = _make_executor(self.program, self.mesh, self.axis,
+                             self.options, art)
         self._passes = art.passes + (PassRecord(
             "lower", input="planned artifacts + mesh", output=exe),)
         self._exe = exe
@@ -609,15 +784,23 @@ class Compiled:
 
     @property
     def plan(self):
-        """The :class:`~repro_torch.core.plan.DistPlan`."""
+        """The planning artifact: a :class:`~repro_torch.core.plan.DistPlan`
+        for a block, a :class:`~repro_torch.core.region.RegionPlan` for a
+        fused region, per-stage ``(name, DistPlan)`` pairs for a staged
+        region."""
         return self._pass("plan").output
 
     @property
     def boundaries(self) -> tuple:
+        """The planned boundary exchanges (empty for single blocks and
+        staged regions)."""
         return self._pass("plan_comm").output
 
     @property
     def comm_schedule(self):
+        """The **schedule_comm** artifact: a
+        :class:`~repro_torch.core.comm_schedule.CommSchedule` for fused
+        regions; ``()`` for single blocks and staged regions."""
         return self._pass("schedule_comm").output
 
     @property
@@ -639,8 +822,31 @@ class Compiled:
 
     def cost_summary(self) -> dict:
         """Modeled communication totals of the chosen plan."""
+        from repro_torch.core import region as region_mod
         from repro_torch.core import report as report_mod
 
-        _, total = report_mod._comm_breakdown(self.plan)
-        return {"kind": "block", "lowering": self.options.lowering.value,
-                "modeled_bytes": total}
+        plan = self.plan
+        base = {"lowering": self.options.lowering.value}
+        if isinstance(plan, region_mod.RegionPlan):
+            out = {
+                "kind": "region", **base,
+                "comm": plan.comm_mode,
+                "planned_wire_bytes": plan.planned_wire_bytes,
+                "gather_wire_bytes": plan.gather_wire_bytes,
+                "n_elided": plan.n_elided,
+                "n_halo": plan.n_halo,
+                "n_reshards": plan.n_reshards,
+            }
+            sched = plan.comm_sched
+            if sched is not None:
+                out["comm_schedule"] = sched.mode
+                out["launches_inline"] = sched.launches_inline
+                out["launches_scheduled"] = sched.launches_scheduled
+                out["n_hoisted"] = sched.n_hoisted
+            return out
+        if isinstance(plan, plan_mod.DistPlan):
+            _, total = report_mod._comm_breakdown(plan)
+            return {"kind": "block", **base, "modeled_bytes": total}
+        total = sum(report_mod._comm_breakdown(p)[1] for _, p in plan)
+        return {"kind": "region_staged", **base, "modeled_bytes": total,
+                "n_loops": len(plan)}

@@ -6,8 +6,13 @@ lowering — chunk-cyclic staging, the fused combines, the reassembly —
 and swaps ONLY the compute phase: instead of vmapping the body over
 every rank's chunks in plain PyTorch, each compute span runs as ONE
 launch of the span kernel (:mod:`repro_torch.kernels.span_kernel`), a
-Triton kernel generated from the body's aten graph.  A *span* is one
-loop stage here; chains of region stages wait for the region slice.
+Triton kernel generated from the body's aten graph.  A *span* is a
+single loop stage, or — inside a fused region — the maximal chain of
+consecutive loop stages between exchanges (:func:`compute_region_spans`):
+those stages share chunk geometry and hand values to each other only
+through resident slabs, so the chain runs as ONE launch whose later
+stages read the earlier stages' outputs from registers (the *forwarded*
+keys), while every stage's outputs are still stored for the merges.
 
 The kernel produces only dense per-lane body values, in the global slab
 layout ``(n_loc, P, c, *value_shape)`` (``(n_i, P_i, c_i, n_j, P_j, c_j,
@@ -71,11 +76,14 @@ class KernelSpan:
         ranks = "x".join(str(p) for p in self.ranks)
         slots = "x".join(str(lc * p) for lc, p in
                          zip(self.grid[:self.rank], self.ranks))
-        return (f"{'+'.join(self.stage_names)}: grid={self.grid} x "
+        line = (f"{'+'.join(self.stage_names)}: grid={self.grid} x "
                 f"{ranks} ranks ({self.launch_programs} programs, one "
                 f"launch, over the {'x'.join(map(str, self.slots))} of "
                 f"{slots} chunk slots that hold iterations) tile={geo} "
                 "chunk=" + "x".join(str(tl.chunk) for tl in self.tiles))
+        if self.forwarded:
+            line += f"  register-forwarded: {', '.join(self.forwarded)}"
+        return line
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,6 +99,17 @@ class KernelPlan:
     def n_kernels(self) -> int:
         return len(self.spans)
 
+    @property
+    def max_fused(self) -> int:
+        return max((len(s.stage_names) for s in self.spans), default=0)
+
+    def span_at(self, stage_idx: int) -> KernelSpan:
+        """The span whose first stage is ``stage_idx``."""
+        for s in self.spans:
+            if s.stage_indices[0] == stage_idx:
+                return s
+        raise KeyError(stage_idx)
+
     def describe_lines(self) -> list[str]:
         lines = [f"span kernels: {self.n_kernels} span(s) over "
                  f"{self.n_loop_stages} loop stage(s), Triton on CUDA "
@@ -100,19 +119,107 @@ class KernelPlan:
         return lines
 
 
-def _span_meta(plan, names, indices, source) -> KernelSpan:
-    chs = plan.chunks_axes
+# ---------------------------------------------------------------------------
+# Span planning
+# ---------------------------------------------------------------------------
+
+
+def _stage_geom(plan) -> tuple:
+    return tuple((ch.chunk, ch.num_devices, ch.local_chunks,
+                  ch.padded_trip, ch.trip_count)
+                 for ch in plan.chunks_axes)
+
+
+def written_key_set(plan) -> set:
+    """Keys a stage writes (any out strategy)."""
+    return {k for k, dec in plan.vars.items() if dec.out_strategy != "none"}
+
+
+def compute_region_spans(rp) -> list[list[int]]:
+    """Partition a region's executable loop stages into fusable spans.
+
+    A stage joins the running span iff it shares chunk geometry, needs
+    no gather/halo exchange, and every value it consumes is either
+    external to the span or hand-off-able on chip (a resident feed from
+    an in-span identity/partial producer).  Serial and zero-trip stages
+    break spans (they never reach the kernel), and so does a 1-D slab of
+    a 2-D nest (not lane-aligned).
+    """
+    spans: list[list[int]] = []
+    cur: list[int] | None = None
+    cur_geom = None
+    written: set = set()
+    for si, se in enumerate(rp.stages):
+        if se.kind != "loop" or se.plan is None \
+                or se.plan.nest.total_trip == 0:
+            cur = None
+            continue
+        plan = se.plan
+        geom = _stage_geom(plan)
+        ok = cur is not None and not se.gathers and geom == cur_geom
+        if ok:
+            for key in plan.context.env_keys:
+                dec = plan.vars[key]
+                if dec.in_strategy == "replicate":
+                    if key in written:      # produced by a pending merge
+                        ok = False
+                        break
+                elif dec.in_strategy in ("shard", "shard_halo"):
+                    feed = se.feeds.get(key, "slice")
+                    if feed == "halo":      # an exchange sits between
+                        ok = False
+                        break
+                    if key in written:
+                        if feed != "resident":
+                            ok = False
+                            break
+                        if plan.rank == 2 and dec.shard_ndim != 2:
+                            ok = False      # 1-D slab of a 2-D nest
+                            break
+        if ok:
+            cur.append(si)
+        else:
+            cur = [si]
+            spans.append(cur)
+            cur_geom = geom
+            written = set()
+        written |= written_key_set(plan)
+    return spans
+
+
+def _forwarded_per_stage(plans) -> list[tuple]:
+    """Per stage, the keys it reads from an earlier span stage's tiles
+    (in env-key order)."""
+    out, written = [], set()
+    for plan in plans:
+        out.append(tuple(
+            k for k in plan.context.env_keys
+            if plan.vars[k].in_strategy in ("shard", "shard_halo")
+            and k in written))
+        written |= written_key_set(plan)
+    return out
+
+
+def _span_meta(plans, names, indices, source) -> KernelSpan:
+    plan0 = plans[0]
+    chs = plan0.chunks_axes
     tiles = derive_nest_tiles(tuple(ch.chunk for ch in chs))
-    if plan.rank == 1:
+    # one tile and one grid for every stage: generate_span checked it
+    slots = span_kernel.live_slots(plan0)
+    if plan0.rank == 1:
         grid = (chs[0].local_chunks, tiles[0].n_tiles)
     else:
         grid = (chs[0].local_chunks, chs[1].local_chunks,
                 tiles[0].n_tiles, tiles[1].n_tiles)
+    fwd: list[str] = []
+    for keys in _forwarded_per_stage(plans):
+        fwd += [k for k in keys if k not in fwd]
     return KernelSpan(stage_names=tuple(names), stage_indices=tuple(indices),
-                      rank=plan.rank, grid=grid, tiles=tiles, forwarded=(),
-                      n_outputs=len(plan.written_keys),
+                      rank=plan0.rank, grid=grid, tiles=tiles,
+                      forwarded=tuple(fwd),
+                      n_outputs=sum(len(written_key_set(p)) for p in plans),
                       ranks=tuple(ch.num_devices for ch in chs),
-                      slots=span_kernel.live_slots(plan), source=source)
+                      slots=slots, source=source)
 
 
 def plan_block_kernel(plan, program, name: str | None = None,
@@ -124,9 +231,27 @@ def plan_block_kernel(plan, program, name: str | None = None,
         return KernelPlan(name=name or plan.name, rank=plan.rank,
                           spans=(), n_loop_stages=0)
     source = span_kernel.generate(plan, program, device=device)
-    span = _span_meta(plan, [name or plan.name], [0], source)
+    span = _span_meta([plan], [name or plan.name], [0], source)
     return KernelPlan(name=name or plan.name, rank=plan.rank,
                       spans=(span,), n_loop_stages=1)
+
+
+def plan_region_kernels(rp, device=None) -> KernelPlan:
+    """KernelPlan of a fused region: one span per exchange-free chain,
+    each with ONE generated kernel (``CompileError`` at compile time for
+    a body the template cannot express)."""
+    spans = []
+    for idxs in compute_region_spans(rp):
+        ses = [rp.stages[i] for i in idxs]
+        plans = [se.plan for se in ses]
+        fwd = _forwarded_per_stage(plans)
+        source = span_kernel.generate_span(
+            [(se.plan, se.stage, f) for se, f in zip(ses, fwd)], device)
+        spans.append(_span_meta(plans, [se.name for se in ses], idxs,
+                                source))
+    return KernelPlan(name=rp.name, rank=rp.rank, spans=tuple(spans),
+                      n_loop_stages=sum(len(s.stage_indices)
+                                        for s in spans))
 
 
 # ---------------------------------------------------------------------------
@@ -142,18 +267,18 @@ class SpanStage:
     program: Any
     ext_windows: dict          # key -> slab stacks in the global layout
     env_repl: dict             # key -> replicated tensor
+    forwarded: frozenset = frozenset()  # keys served by earlier stages
 
 
 def execute_span(stages: list[SpanStage], span: KernelSpan, device
                  ) -> list[tuple[dict, dict]]:
     """Run a span's loop bodies as ONE span-kernel launch over every
-    rank; returns each stage's per-rank ``(carry, ys)``.  A block's span
-    has one stage (multi-stage region spans wait for the region slice)."""
-    (sp,) = stages
-    values = span_kernel.span_values(sp.plan, sp.program, sp.ext_windows,
-                                     sp.env_repl, span.source, device)
-    merge = merge_chunk_values if sp.plan.rank == 1 else merge_chunk_values2
-    return [merge(sp.plan, values)]
+    rank; returns each stage's per-rank ``(carry, ys)``, merged outside
+    the kernel."""
+    values = span_kernel.span_stage_values(stages, span.source, device)
+    return [(merge_chunk_values if sp.plan.rank == 1 else
+             merge_chunk_values2)(sp.plan, vals)
+            for sp, vals in zip(stages, values)]
 
 
 def run_local_chunks_kernel(plan, program, env_in, slab_stacks,

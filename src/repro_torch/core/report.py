@@ -5,8 +5,9 @@ The paper presents its output as generated MPI source (Tables 2 and 3).
 The port has no C source to show; the equivalent artifact is the
 *distribution plan* — which buffer moves where, which collective plays the
 role of which MPI_Send/Recv pair — plus the chunk schedule and, under
-``Lowering.KERNEL``, the span kernels.  Region reports wait for the
-region slice.
+``Lowering.KERNEL``, the span kernels; for a region, the residency
+planner's journal, the cost-modeled boundary plan and the communication
+schedule (:func:`render_region`).
 """
 from __future__ import annotations
 
@@ -119,7 +120,10 @@ def render_plan(plan: DistPlan) -> str:
 
 def render_compiled(compiled) -> str:
     """Render the :class:`~repro_torch.core.api.Compiled` artifact: the
-    pass pipeline header followed by the per-block Tables 2/3 view."""
+    pass pipeline header followed by the per-block Tables 2/3 view or the
+    whole-region residency report."""
+    from repro_torch.core.region import RegionPlan
+
     lines = [
         f"=== omp.compile: {compiled.program.name} ===",
         f"options         : {compiled.options.describe()}",
@@ -136,7 +140,118 @@ def render_compiled(compiled) -> str:
     if kp is not None:
         lines.extend(kp.describe_lines())
         lines.append("")
-    lines.append(render_plan(compiled.plan))
+    plan = compiled.plan
+    if isinstance(plan, RegionPlan):
+        lines.append(render_region(plan))
+    elif isinstance(plan, DistPlan):
+        lines.append(render_plan(plan))
+    else:  # staged region: per-stage plans, each loop in isolation
+        lines.append("staged lowering: each loop transformed in isolation "
+                     "(paper Fig. 1b round trips)")
+        for _, p in plan:
+            lines.append("")
+            lines.append(render_plan(p))
+    return "\n".join(lines)
+
+
+def render_region(rp) -> str:
+    """Render a :class:`~repro_torch.core.region.RegionPlan`: stage
+    roster, the residency planner's transition journal, the boundary
+    plan, the communication schedule and the staged-vs-fused
+    comparison."""
+    from repro_torch.core.region import REPLICATED, SlabLayout2
+
+    lines = [
+        f"=== ParallelRegion transformation report: {rp.name} ===",
+        f"mesh axis       : {rp.axis!r} ({rp.num_devices} compute ranks)",
+        f"stages          : {len(rp.stages)} "
+        f"({sum(1 for s in rp.stages if s.kind == 'loop')} parallel loops, "
+        f"{sum(1 for s in rp.stages if s.kind == 'serial')} serial glue)",
+        "",
+        "stage roster:",
+    ]
+    for s in rp.stages:
+        if s.kind == "serial":
+            lines.append(f"  {s.name:>16s}  serial glue "
+                         f"(writes {list(s.serial_writes)})")
+        elif s.plan.rank == 2:
+            trips = s.plan.nest.trip_counts
+            chs = s.plan.chunks_axes
+            lines.append(
+                f"  {s.name:>16s}  loop nest t={trips[0]}x{trips[1]} "
+                f"chunks={chs[0].chunk}x{chs[1].chunk} "
+                f"({chs[0].num_chunks}x{chs[1].num_chunks} tiles cyclic)")
+        else:
+            ch = s.plan.chunks
+            lines.append(
+                f"  {s.name:>16s}  loop t={s.plan.loop.trip_count} "
+                f"chunk={ch.chunk} ({ch.num_chunks} chunks cyclic)")
+    lines.append("")
+    lines.append("inter-loop residency (the beyond-paper layout planner):")
+    if rp.log:
+        lines.extend(f"  {entry}" for entry in rp.log)
+    else:
+        lines.append("  (no inter-stage traffic: single loop or "
+                     "disjoint buffers)")
+    lines.append("")
+    lines.append("communication plan (cost-modeled boundary lowering, "
+                 "paper §3.1.4 block-boundary send/recv):")
+    if rp.comms:
+        for bc in rp.comms:
+            lines.append(f"  {bc.describe()}")
+            lines.append(f"  {'':>4s}why: {bc.reason}")
+        lines.append(
+            f"  planned wire total: ~{rp.planned_wire_bytes} B "
+            f"(all-gather-only baseline: ~{rp.gather_wire_bytes} B)")
+    else:
+        lines.append("  (no slab boundaries: nothing to exchange)")
+    sched = rp.comm_sched
+    if sched is not None:
+        what = ("aggregated ppermute payloads, fused reductions, "
+                "prefetched exchanges" if sched.mode == "aggregate"
+                else "per-buffer exchanges issued at the consumer "
+                     "(un-scheduled baseline)")
+        lines.append("")
+        lines.append(
+            f"communication schedule (schedule_comm, mode={sched.mode}): "
+            f"{what}:")
+        event_lines = sched.describe_lines()
+        if len(event_lines) == 1 and not sched.events:
+            lines.append("  (no exchanges to schedule)")
+        lines.extend(f"  {ln}" for ln in event_lines)
+    lines.append("")
+    lines.append(
+        f"residency summary: {rp.n_elided} resident handoff(s) elided, "
+        f"{rp.n_halo} halo ppermute exchange(s), "
+        f"{rp.n_reshards} minimal reshard collective(s) inserted")
+    lines.append("")
+    lines.append("per-loop staged estimate (paper: every block round-trips "
+                 "through the master):")
+    staged_total = 0
+    for s in rp.stages:
+        if s.plan is None:
+            continue
+        _, sub = _comm_breakdown(s.plan)
+        staged_total += sub
+        lines.append(f"  {s.name:>16s}: ~{sub} B")
+    lines.append(f"  {'TOTAL':>16s}: ~{staged_total} B if each loop is "
+                 "transformed in isolation")
+    lines.append("")
+    lines.append("final buffer layouts:")
+    for key, lay in rp.final_layout.items():
+        if lay == REPLICATED:
+            lines.append(f"  {key:>16s}: replicated")
+        elif isinstance(lay, SlabLayout2):
+            (bi, bj), (ci, cj) = lay.bases, lay.covers
+            lines.append(
+                f"  {key:>16s}: 2-D chunk-cyclic slab "
+                f"rows [{bi}, {bi + ci}) x cols [{bj}, {bj + cj}) "
+                f"(reassembled by layout at exit)")
+        else:
+            lines.append(
+                f"  {key:>16s}: chunk-cyclic slab "
+                f"rows [{lay.base}, {lay.base + lay.cover}) "
+                f"(reassembled by layout at exit)")
     return "\n".join(lines)
 
 

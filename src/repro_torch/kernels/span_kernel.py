@@ -1,5 +1,6 @@
-"""K1 — the span kernel: one block's loop body on every lane of every
-rank's chunks, in ONE Triton launch for Hopper (``sm_90a``).
+"""K1 — the span kernel: the loop bodies of a span (one block, or a chain
+of exchange-free region stages) on every lane of every rank's chunks, in
+ONE Triton launch for Hopper (``sm_90a``).
 
 Replaces ``src/repro/core/pallas_lower.py::execute_span`` (its
 ``pl.pallas_call``), which ran once per device over that device's slab.
@@ -36,16 +37,31 @@ the Pallas kernel traced the body into its own body:
 * the epilogue stores the dense values, masked, in the global slab
   layout ``(n_loc, P, c, *value_shape)``.
 
+A span of several stages (:func:`generate_span`) is one function: one
+prologue, then the stages' bodies in span order, each storing all its
+written keys (the merges outside need them).  A key an earlier stage of
+the span wrote (identity/partial) and a later stage reads through a
+resident feed is *forwarded*: the later stage reads the register tile
+the earlier one stored for the same lanes, never a reload from device
+memory.  The generator serves a forwarded read only when it provably
+addresses the lane's own row — the index is ``k + base`` on every
+sharded axis for the lane's iteration ``k`` and the producer's write
+``base`` (tracked through the aten graph as an affine form of the
+iterator) — and raises ``CompileError`` otherwise.  All stages share one
+chunk geometry, so one tile and one grid (checked, not assumed).
+
 An op outside the template raises ``CompileError`` naming it, when the
 program compiles.  The source is written to ``build/span_kernels/`` and
 imported from there (``@triton.jit`` reads its source from disk); Triton
 caches its builds under ``build/triton/``.  Triton is imported only
 when a kernel launches, so this module imports on machines without it.
 
-:func:`span_values` is the wrapper: CPU tensors take
-:func:`span_values_plain` (the same function in plain PyTorch — the body
-vmapped over lanes); CUDA tensors launch the kernel or raise.
-:data:`LAUNCHES` counts launches.
+:func:`span_stage_values` is the wrapper, for a block's one-stage span
+and a region's span alike: CPU tensors take
+:func:`span_values_plain_stages` (the same function in plain PyTorch —
+each stage's body vmapped over lanes by :func:`span_values_plain`,
+forwarded values handed over as tensors); CUDA tensors launch the kernel
+or raise.  :data:`LAUNCHES` counts launches, one per span.
 """
 from __future__ import annotations
 
@@ -66,7 +82,7 @@ from repro_torch.core.nest import (derive_nest_tiles, pow2_at_least,
 
 aten = torch.ops.aten
 
-#: Kernel launches so far (one per :func:`span_values` call on CUDA).
+#: Kernel launches so far (one per span launched on CUDA).
 LAUNCHES = 0
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
@@ -129,10 +145,11 @@ class SpanSource:
 
     fn_name: str
     text: str
-    inputs: tuple            # ("win" | "repl", key) per pointer argument
-    outputs: tuple           # (key, global shape, dtype) per output
+    inputs: tuple            # ("win" | "repl", stage, key) per pointer arg
+    outputs: tuple           # (stage, key, global shape, dtype) per output
     n_programs: int
     flops_per_lane: int      # arithmetic ops per real lane (for the bound)
+    forwarded: tuple = ()    # (stage, key): reads served from a register
 
 
 # ---------------------------------------------------------------------------
@@ -158,6 +175,7 @@ class _Val:
     k: int | None = None        # length of the per-lane value axis
     const: Any = None           # a Python number (inline literal)
     mem: _Mem | None = None
+    aff: tuple | None = None    # (axis, a, b): exactly a * iterator + b
 
 
 def _lit(v, dtype) -> str:
@@ -175,32 +193,73 @@ def _lit(v, dtype) -> str:
     return str(int(v))
 
 
-class _Gen:
-    """Walks the aten graph, emitting the kernel body line by line."""
+def _affine(op: str, a: _Val, b: _Val, alpha) -> tuple | None:
+    """The iterator-affine form ``(axis, coef, offset)`` of ``a op
+    alpha*b`` for integer values, when one side is affine and the other
+    an integer constant; ``None`` otherwise."""
+    def const(v):
+        return (int(v.const) if v.const is not None and not v.lane
+                and float(v.const) == int(v.const) else None)
 
-    def __init__(self, plan, trace_a, trace_b):
-        self.plan = plan
-        self.rank = plan.rank
+    ca, cb = const(a), const(b)
+    if cb is not None and a.aff is not None:
+        ax, m, c = a.aff
+        cb *= alpha
+        return {"+": (ax, m, c + cb), "-": (ax, m, c - cb),
+                "*": (ax, m * cb, c * cb)}.get(op)
+    if ca is not None and b.aff is not None:
+        ax, m, c = b.aff
+        m, c = m * alpha, c * alpha
+        return {"+": (ax, m, ca + c), "-": (ax, -m, ca - c),
+                "*": (ax, ca * m, ca * c)}.get(op)
+    return None
+
+
+class _Gen:
+    """Walks the aten graphs of a span's stages in order, emitting one
+    kernel body line by line; :meth:`stage` starts each stage."""
+
+    def __init__(self, plans):
+        plan0 = plans[0]
+        self.rank = plan0.rank
         self.lines: list[str] = []
-        self.vals: dict = {}
         self.n = 0
         self.flops = 0
         self.kvars: dict[int, tuple[str, str]] = {}
-        self.ptrs: dict[str, str] = {}
+        self.ptrs: dict[tuple, str] = {}
         self.inputs: list = []
-        self.roles = self._roles(trace_a, trace_b)
-        self.constants = ctx_mod.graph_constants(trace_a.graph)
-        chs = plan.chunks_axes
+        self.fwd_vals: dict[str, tuple[_Val, tuple]] = {}
+        self.fwd_reads: list = []
+        chs = plan0.chunks_axes
         self.tiles = derive_nest_tiles(tuple(ch.chunk for ch in chs))
         self.block = math.prod(t.tile for t in self.tiles)
         # 64-bit offsets once an input buffer or a dense output could pass
         # 2^31 elements; 32-bit below
         sizes = [math.prod(plan.context.vars[k].shape)
-                 for k in plan.context.env_keys]
-        sizes += [math.prod(_out_shape(plan, k)) for k in plan.written_keys]
+                 for plan in plans for k in plan.context.env_keys]
+        sizes += [math.prod(_out_shape(plan, k))
+                  for plan in plans for k in plan.written_keys]
         self.wide = max(sizes, default=0) >= _WIDE_ELEMS
-        for it, name in zip(trace_a.iter_nodes, ("i0", "j0")):
-            self.vals[it] = _Val(name, torch.int32, lane=True)
+        self.loops0 = plan0.nest.axes
+
+    def stage(self, si, plan, trace_a, trace_b, forwarded) -> None:
+        """Begin stage ``si``: its graph's values, and the keys whose
+        reads come from an earlier span stage's register tile."""
+        self.si, self.plan = si, plan
+        self.forwarded = frozenset(forwarded)
+        self.vals = {}
+        self.roles = self._roles(trace_a, trace_b)
+        self.constants = ctx_mod.graph_constants(trace_a.graph)
+        self.lines.append(f"    # stage {si}: {plan.name}")
+        for d, (it, name) in enumerate(zip(trace_a.iter_nodes, ("i0", "j0"))):
+            loop, loop0 = plan.nest.axes[d], self.loops0[d]
+            if (loop.start, loop.step) != (loop0.start, loop0.step):
+                it_name = "it" if self.rank == 1 else ("iti", "itj")[d]
+                name = self.emit(
+                    f"({loop.start} + {loop.step} * tl.minimum({it_name}, "
+                    f"{loop.trip_count - 1})).to(tl.int32)",
+                    torch.int32, True, None).expr
+            self.vals[it] = _Val(name, torch.int32, lane=True, aff=(d, 1, 0))
         for key, node in trace_a.env_nodes.items():
             info = plan.context.vars[key]
             self.vals[node] = _Val(mem=_Mem(key, tuple(info.shape), {},
@@ -268,10 +327,11 @@ class _Gen:
         return f"{v.expr}.to({_TL[dtype]})"
 
     def ptr(self, kind: str, key: str) -> str:
-        if key not in self.ptrs:
-            self.ptrs[key] = f"p_{len(self.inputs)}"
-            self.inputs.append((kind, key))
-        return self.ptrs[key]
+        tag = (self.si, key)
+        if tag not in self.ptrs:
+            self.ptrs[tag] = f"p{self.si}_{len(self.inputs)}"
+            self.inputs.append((kind, self.si, key))
+        return self.ptrs[tag]
 
     def value(self, a) -> _Val:
         if isinstance(a, torch.fx.Node):
@@ -313,6 +373,8 @@ class _Gen:
             f"0), {size - 1})", torch.int32, v.lane, None).expr
 
     def load(self, mem: _Mem, indices: list) -> _Val:
+        if mem.key in self.forwarded:
+            return self._forwarded(mem, indices)
         plan = self.plan
         key = mem.key
         dec = plan.vars[key]
@@ -372,6 +434,63 @@ class _Gen:
             return self.emit(f"tl.load({p} + {off}, mask={km}, other=0)",
                              info.dtype, lane, value_k)
         return self.emit(f"tl.load({p} + {off})", info.dtype, lane, None)
+
+    def _forwarded(self, mem: _Mem, indices: list) -> _Val:
+        """A read of a key an earlier span stage wrote for the same
+        lanes: the register tile that stage stored, never a reload.  Only
+        a read of the lane's OWN row is served so: on every sharded axis
+        the index must be exactly ``k + base`` for the lane's iteration
+        number ``k``, where ``base`` is where the producer wrote lane
+        ``k`` (its write base, which a resident feed's window base
+        equals: row offset 0 after ``halo_base``).  Anything else raises
+        at compile time rather than read another lane's register."""
+        plan, key = self.plan, mem.key
+        dec = plan.vars[key]
+        where = (f"span kernel: stage {plan.name!r} reads {key!r}, which an "
+                 "earlier stage of its span hands over on chip")
+        n_sh = 1 if self.rank == 1 else dec.shard_ndim
+        if dec.in_strategy not in ("shard", "shard_halo") or n_sh != self.rank:
+            raise CompileError(f"{where}, but not as a lane-aligned "
+                               "chunk-sharded read")
+        idx_by_dim = {d: (indices[p] if p < len(indices) else None)
+                      for p, d in enumerate(mem.remaining)}
+        fv, bases = self.fwd_vals[key]
+        for d in range(n_sh):
+            ix = idx_by_dim.get(d)
+            v = self.value(ix) if isinstance(ix, torch.fx.Node) else None
+            loop = plan.nest.axes[d]
+            ok = (d not in mem.fixed and v is not None and v.aff is not None
+                  and v.k is None and v.aff[0] == d
+                  and v.aff[1] * loop.step == 1
+                  and v.aff[1] * loop.start + v.aff[2] == bases[d]
+                  == dec.window(d)[0])
+            if not ok:
+                raise CompileError(
+                    f"{where}: its axis-{d} index is not the lane's own row "
+                    "(offset 0 after the window base), so the tile cannot "
+                    "be forwarded")
+        self.fwd_reads.append((self.si, key))
+        rest = [d for d in range(n_sh, len(mem.shape)) if mem.shape[d] != 1]
+        if not rest:
+            return fv
+        if len(rest) > 1 or fv.k != mem.shape[rest[0]]:
+            raise CompileError(f"{where} with {len(rest)} value axes; the "
+                               "template forwards one")
+        d = rest[0]
+        ix = idx_by_dim.get(d)
+        if d in mem.fixed:
+            pos = mem.fixed[d]
+        elif ix is None:
+            return fv                       # the whole value axis
+        else:
+            c = self.value(ix) if isinstance(ix, torch.fx.Node) else None
+            if c is None or c.const is None or c.lane:
+                raise CompileError(f"{where} at a per-lane value index")
+            pos = int(c.const)
+        pos = pos + fv.k if pos < 0 else pos
+        r, _ = self.kvar(fv.k)
+        return self.emit(f"tl.sum(tl.where({r} == {pos}, {fv.expr}, 0), "
+                         "axis=1)[:, None]", fv.dtype, True, None)
 
     def _offset(self, exprs, shape, n_sh, widths) -> str:
         def lin(es, dims):
@@ -465,8 +584,11 @@ class _Gen:
             eb = self.cast(b, od)
             if alpha != 1:
                 eb = f"({eb} * {_lit(alpha, od)})"
-            self.vals[n] = self.emit(f"({self.cast(a, od)} {self._BIN[t]} {eb})",
-                                     od, lane, k, 1)
+            v = self.emit(f"({self.cast(a, od)} {self._BIN[t]} {eb})",
+                          od, lane, k, 1)
+            if not (od.is_floating_point or od == torch.bool):
+                v.aff = _affine(self._BIN[t], a, b, alpha)
+            self.vals[n] = v
         elif t in self._CMP:
             a, b = self.value(args[0]), self.value(args[1])
             ct = self._result_type([a, b])
@@ -495,8 +617,11 @@ class _Gen:
                 f"tl.where(({r.expr} != 0) & (({r.expr} < 0) != ({eb} < 0)), "
                 f"{r.expr} + {eb}, {r.expr})", od, lane, k, 2)
         elif t is aten.neg.default:
-            self.vals[n] = self.emit(f"(-{self.cast(self.value(args[0]), od)})",
-                                     od, lane, k, 1)
+            x = self.value(args[0])
+            v = self.emit(f"(-{self.cast(x, od)})", od, lane, k, 1)
+            if x.aff is not None:
+                v.aff = (x.aff[0], -x.aff[1], -x.aff[2])
+            self.vals[n] = v
         elif t is aten.abs.default:
             self.vals[n] = self.emit(
                 f"tl.abs({self.cast(self.value(args[0]), od)})", od, lane, k, 1)
@@ -518,7 +643,10 @@ class _Gen:
                     v = float(v)
                 self.vals[n] = _Val(const=v, dtype=od, lane=lane, k=k)
             else:
-                self.vals[n] = self.emit(self.cast(x, od), od, lane, k)
+                v = self.emit(self.cast(x, od), od, lane, k)
+                if not (od.is_floating_point or od == torch.bool):
+                    v.aff = x.aff
+                self.vals[n] = v
         elif t in ctx_mod.VIEW_OPS:
             x = self.value(args[0])
             if x.k is not None and k != x.k:
@@ -619,6 +747,14 @@ class _Gen:
         elif not v.lane or (vshape and v.k is None):
             # broadcast to the whole tile
             e = f"tl.where({mask}, {e}, {e})"
+        dec = self.plan.vars[key]
+        if dec.out_strategy in ("identity", "partial"):
+            # the tile a later span stage reads in place of this output,
+            # and where this stage wrote lane k on each axis (k + base)
+            tile = self.emit(e, dt, True, vshape[0] if vshape else None)
+            maps = ((dec.write_map,) if self.rank == 1 else dec.write_maps)
+            self.fwd_vals[key] = (tile, tuple(m.b for m in maps))
+            e = tile.expr
         if self.rank == 1:
             c = self.plan.chunks.chunk
             base = f"(slot * {c} + lane)"
@@ -670,14 +806,9 @@ def _out_shape(plan, key) -> tuple:
     return tuple(lead) + vshape
 
 
-def generate(plan, program, device=None) -> SpanSource:
-    """The span kernel of one block, generated from its body's aten graph
-    (``CompileError`` for a body the template cannot express)."""
-    if any(ch.slot_map is not None for ch in plan.chunks_axes):
-        raise CompileError(
-            "span kernel: straggler-weighted chunk plans run on the "
-            "collective lowering only")
-    device = torch.device("cpu") if device is None else device
+def _traces(plan, program, device):
+    """The two traces of a stage's body (lane counts differ, so a graph
+    dim that changes size between them is a lane dim)."""
     specs = {k: ctx_mod.TensorSpec(tuple(plan.context.vars[k].shape),
                                    plan.context.vars[k].dtype)
              for k in plan.context.env_keys}
@@ -688,32 +819,79 @@ def generate(plan, program, device=None) -> SpanSource:
                                      device)
     trace_b = ctx_mod.trace_body(program, specs, plan.rank,
                                  _LANES_B[:plan.rank], device)
-    gen = _Gen(plan, trace_a, trace_b)
-    for node in trace_a.graph.nodes:
-        gen.node(node)
-    updates = trace_a.updates()
+    return trace_a, trace_b
+
+
+def _check_span_geometry(plans) -> None:
+    """Every stage of a span shares one chunk geometry, hence one tile
+    and one grid of live slots: the generated prologue is plan 0's."""
+    plan0 = plans[0]
+    geom0 = [(ch.chunk, ch.num_devices, ch.local_chunks, ch.padded_trip)
+             for ch in plan0.chunks_axes]
+    for plan in plans[1:]:
+        geom = [(ch.chunk, ch.num_devices, ch.local_chunks, ch.padded_trip)
+                for ch in plan.chunks_axes]
+        if (plan.rank != plan0.rank or geom != geom0
+                or plan.nest.trip_counts != plan0.nest.trip_counts
+                or live_slots(plan) != live_slots(plan0)):
+            raise CompileError(
+                f"span kernel: stages {plan0.name!r} and {plan.name!r} do "
+                "not share one chunk geometry and cannot share a launch")
+
+
+def generate(plan, program, device=None) -> SpanSource:
+    """The span kernel of one block (a span of one stage)."""
+    return generate_span([(plan, program, frozenset())], device)
+
+
+def generate_span(stages, device=None) -> SpanSource:
+    """ONE span kernel for a chain of same-geometry stages, generated
+    from their bodies' aten graphs in span order.  ``stages``: ``(plan,
+    program, forwarded keys)`` per stage; a forwarded key is read from
+    the register tile an earlier stage stored for the same lanes.  Every
+    stage's written keys are stored in the global dense layout.
+    ``CompileError`` for a body the template cannot express, or a
+    forwarded read that does not address the lane's own row."""
+    plans = [plan for plan, _, _ in stages]
+    if any(ch.slot_map is not None for plan in plans
+           for ch in plan.chunks_axes):
+        raise CompileError(
+            "span kernel: straggler-weighted chunk plans run on the "
+            "collective lowering only")
+    _check_span_geometry(plans)
+    device = torch.device("cpu") if device is None else device
+    gen = _Gen(plans)
     outputs = []
-    for oi, key in enumerate(plan.written_keys):
-        gen.store(key, updates[key].value, f"o_{oi}")
-        outputs.append((key, _out_shape(plan, key),
-                        plan.context.vars[key].write.value_dtype))
-    params = [f"p_{i}" for i in range(len(gen.inputs))] + \
-        [f"o_{i}" for i in range(len(outputs))]
-    body = _prologue(plan, gen.tiles, gen.wide) + "\n".join(gen.lines) + "\n"
+    for si, (plan, program, forwarded) in enumerate(stages):
+        trace_a, trace_b = _traces(plan, program, device)
+        gen.stage(si, plan, trace_a, trace_b, forwarded)
+        for node in trace_a.graph.nodes:
+            gen.node(node)
+        updates = trace_a.updates()
+        for key in plan.written_keys:
+            gen.store(key, updates[key].value, f"o{si}_{len(outputs)}")
+            outputs.append((si, key, _out_shape(plan, key),
+                            plan.context.vars[key].write.value_dtype))
+    plan0 = plans[0]
+    params = [f"p{si}_{i}" for i, (_, si, _) in enumerate(gen.inputs)] + \
+        [f"o{si}_{i}" for i, (si, _, _, _) in enumerate(outputs)]
+    body = _prologue(plan0, gen.tiles, gen.wide) + "\n".join(gen.lines) + "\n"
     digest = hashlib.sha256(
         (",".join(params) + body).encode()).hexdigest()[:16]
     fn_name = f"span_{digest}"
+    names = "+".join(plan.name for plan in plans)
     text = (
-        f'"""Span kernel of block {plan.name!r}, generated by '
-        "repro_torch.kernels.span_kernel\nfrom the body's aten graph; "
+        f'"""Span kernel of {names!r}, generated by '
+        "repro_torch.kernels.span_kernel\nfrom the bodies' aten graphs; "
         'rebuilt on demand, never edited."""\n'
         "import triton\nimport triton.language as tl\n\n\n"
         f"@triton.jit\ndef {fn_name}({', '.join(params)}):\n{body}")
-    n_prog = math.prod(live_slots(plan)) \
+    n_prog = math.prod(live_slots(plan0)) \
         * math.prod(t.n_tiles for t in gen.tiles)
     return SpanSource(fn_name=fn_name, text=text, inputs=tuple(gen.inputs),
                       outputs=tuple(outputs), n_programs=n_prog,
-                      flops_per_lane=gen.flops)
+                      flops_per_lane=gen.flops,
+                      forwarded=tuple(dict.fromkeys(gen.fwd_reads)))
 
 
 # ---------------------------------------------------------------------------
@@ -746,17 +924,20 @@ def _kernel(source: SpanSource):
     return fn
 
 
-def launch(source: SpanSource, windows: dict, env_repl: dict,
-           device: torch.device) -> dict:
-    """One launch over every rank's chunks; returns the dense values."""
+def launch_span(source: SpanSource, stage_io, device: torch.device) -> list:
+    """One launch over every rank's chunks for a whole span;
+    ``stage_io``: ``(windows, env_repl)`` per stage.  Returns each
+    stage's dense values."""
     global LAUNCHES
     fn = _kernel(source)
-    args = [(windows if kind == "win" else env_repl)[key].contiguous()
-            for kind, key in source.inputs]
-    outs = {key: torch.empty(shape, dtype=dtype, device=device)
-            for key, shape, dtype in source.outputs}
-    fn[(source.n_programs,)](*args, *outs.values(),
-                             num_warps=NUM_WARPS)
+    args = [stage_io[si][0 if kind == "win" else 1][key].contiguous()
+            for kind, si, key in source.inputs]
+    outs = [{} for _ in stage_io]
+    flat = []
+    for si, key, shape, dtype in source.outputs:
+        outs[si][key] = torch.empty(shape, dtype=dtype, device=device)
+        flat.append(outs[si][key])
+    fn[(source.n_programs,)](*args, *flat, num_warps=NUM_WARPS)
     LAUNCHES += 1
     return outs
 
@@ -771,22 +952,48 @@ def span_values_plain(plan, program, windows: dict, env_repl: dict,
     return run(plan, program, env_repl, windows, device)
 
 
-def span_values(plan, program, windows: dict, env_repl: dict,
-                source: SpanSource | None, device) -> dict:
-    """Dense per-lane values of one span.  Tensors on the CPU take the
-    plain version; on CUDA the kernel launches, and anything that keeps
-    it from launching raises."""
+def span_values_plain_stages(stages, device) -> list:
+    """A span of several stages in plain PyTorch: each stage's lane
+    values in order, a forwarded key's window being the dense values the
+    latest earlier stage wrote for it (handed over as a tensor).
+    ``stages``: objects with ``plan``, ``program``, ``ext_windows``,
+    ``env_repl`` and ``forwarded``."""
+    handed: dict = {}
+    outs = []
+    for st in stages:
+        windows = dict(st.ext_windows)
+        windows.update({k: handed[k] for k in st.forwarded})
+        vals = span_values_plain(st.plan, st.program, windows, st.env_repl,
+                                 device)
+        for k, dec in st.plan.vars.items():
+            if dec.out_strategy in ("identity", "partial"):
+                handed[k] = vals[k]
+        outs.append(vals)
+    return outs
+
+
+def _check_device(tensors, device) -> torch.device:
     device = torch.device(device)
-    for t in (*windows.values(), *env_repl.values()):
+    for t in tensors:
         if t.device.type != device.type or (
                 device.index is not None and t.device.index != device.index):
             raise ValueError(
                 f"span inputs lie on {t.device}, the span runs on {device}")
-    if device.type == "cpu":
-        return span_values_plain(plan, program, windows, env_repl, device)
-    if device.type != "cuda":
+    if device.type not in ("cpu", "cuda"):
         raise ValueError(f"the span kernel runs on CUDA, not {device}")
+    return device
+
+
+def span_stage_values(stages, source: SpanSource | None, device) -> list:
+    """Dense per-lane values of every stage of a span, as one launch on
+    CUDA (or the plain version on the CPU); see
+    :func:`span_values_plain_stages` for ``stages``."""
+    device = _check_device([t for st in stages for t in (
+        *st.ext_windows.values(), *st.env_repl.values())], device)
+    if device.type == "cpu":
+        return span_values_plain_stages(stages, device)
     if source is None:
         raise ValueError("no span kernel source for a CUDA span: compile "
                          "with lowering='kernel'")
-    return launch(source, windows, env_repl, device)
+    return launch_span(source, [(st.ext_windows, st.env_repl)
+                                for st in stages], device)

@@ -11,7 +11,9 @@ on ONE device:
   copies;
 * ``psum``/``pmax``/``pmin`` reduce over the rank dimensions and return a
   replicated tensor; ``all_gather`` returns the stack of every rank's
-  value with the gathered axis leading; ``axis_index`` is an ``arange``.
+  value with the gathered axis leading; ``ppermute`` moves each rank's
+  value to the rank its ``(src, dst)`` pair names (a rank no pair
+  targets receives zeros, as in JAX); ``axis_index`` is an ``arange``.
 
 Chunk-cyclic slabs keep the reference's global layout ``(n_loc, P, c,
 ...)``, whose dim 1 is the rank axis (the reference's ``P(None, axis)``
@@ -65,6 +67,7 @@ class Mesh:
         self.device = device
         self.launches: collections.Counter = collections.Counter()
         self.bytes: collections.Counter = collections.Counter()
+        self._perms: dict = {}
 
     def __repr__(self) -> str:
         axes = ", ".join(f"{a}={s}" for a, s in self.shape.items())
@@ -103,10 +106,18 @@ class Mesh:
                 f"got shape {tuple(x.shape)}")
 
     def psum(self, x: torch.Tensor, axis) -> torch.Tensor:
+        """Sum over the rank dims, folded rank by rank in rank order:
+        the same additions in the same order whatever else shares the
+        operand, so fused (concatenated) and per-operand combines agree
+        bit for bit on every device."""
         names = self._axes(axis)
         self._check(x, names)
         self._count("psum", x)
-        return x.sum(dim=tuple(range(len(names))))
+        ranks = x.flatten(0, len(names) - 1) if len(names) > 1 else x
+        out = ranks[0].clone()
+        for r in range(1, ranks.shape[0]):
+            out += ranks[r]
+        return out
 
     def pmax(self, x: torch.Tensor, axis) -> torch.Tensor:
         names = self._axes(axis)
@@ -128,6 +139,45 @@ class Mesh:
         self._check(x, (name,))
         self._count("all_gather", x)
         return x
+
+    def ppermute(self, x: torch.Tensor, axis: str, perm) -> torch.Tensor:
+        """Point-to-point shifts along ONE axis: rank ``dst`` receives
+        rank ``src``'s value for every ``(src, dst)`` pair of ``perm``;
+        a rank no pair targets receives zeros.  ``x`` leads with that
+        axis's rank dim (other mesh axes' rank dims ride in the payload).
+        Counts one launch and the bytes the sending ranks put on the
+        wire."""
+        (name,) = self._axes(axis)
+        self._check(x, (name,))
+        p = self.shape[name]
+        src = [-1] * p
+        for s, d in perm:
+            if not (0 <= s < p and 0 <= d < p) or src[d] != -1:
+                raise ValueError(
+                    f"ppermute over {name!r} (size {p}): bad or repeated "
+                    f"pair ({s}, {d}) in {list(perm)}")
+            src[d] = s
+        self.launches["ppermute"] += 1
+        self.bytes["ppermute"] += len(perm) * (x[0].numel()
+                                                * x.element_size())
+        idx, hit = self._perm_index(tuple(src))
+        out = x.index_select(0, idx)
+        if hit is not None:
+            out = torch.where(hit.reshape((p,) + (1,) * (x.dim() - 1)),
+                              out, torch.zeros((), dtype=out.dtype,
+                                               device=out.device))
+        return out
+
+    def _perm_index(self, src: tuple[int, ...]):
+        """Gather index of a permutation (cached on the device) and,
+        when some rank receives nothing, the 0/1 mask of ranks that do."""
+        got = self._perms.get(src)
+        if got is None:
+            idx = torch.tensor([max(s, 0) for s in src], device=self.device)
+            hit = (None if min(src) >= 0 else torch.tensor(
+                [s >= 0 for s in src], device=self.device))
+            got = self._perms[src] = (idx, hit)
+        return got
 
 
 def make_mesh(axis_shapes: Sequence[int], axis_names: Sequence[str],

@@ -1,10 +1,12 @@
 """Public facade of the PyTorch port: ``from repro_torch import omp``.
 
-Mirrors :mod:`repro.omp` for the single-block slice:
+Mirrors :mod:`repro.omp`:
 
 * ``@omp.parallel_for(stop=N, schedule=omp.dynamic(), reduction={...})``
   annotates a loop body written in PyTorch — the ``#pragma omp parallel
   for target mpi``;
+* ``omp.region(loop1, omp.serial(glue), loop2, ...)`` makes a whole
+  program of loops and serial glue (a ``ParallelRegion``);
 * calling the program runs the *shared-memory* semantics;
 * ``omp.compile(program, mesh, omp.Options(...))`` runs the pass
   pipeline (``analyze → schedule → plan → plan_comm → schedule_comm →
@@ -24,6 +26,23 @@ from repro_torch.core.api import (  # noqa: F401
     clear_compile_cache,
     compile,
     compile_cache_stats,
+)
+from repro_torch.core.comm import (  # noqa: F401
+    ALPHA_LAUNCH_BYTES,
+    BoundaryComm,
+    CommCost,
+    halo_exchange,
+    halo_exchange2,
+    modeled_cost_bytes,
+    plan_boundary,
+    plan_boundary2,
+    plan_comm,
+)
+from repro_torch.core.comm_schedule import (  # noqa: F401
+    CommEvent,
+    CommGroup,
+    CommSchedule,
+    build_comm_schedule,
 )
 from repro_torch.core.context import (  # noqa: F401
     Affine,
@@ -57,6 +76,13 @@ from repro_torch.core.pragma import (  # noqa: F401
     region,
     serial,
     static,
+)
+from repro_torch.core.region import (  # noqa: F401
+    DistributedRegion,
+    RegionPlan,
+    SlabLayout,
+    SlabLayout2,
+    plan_region,
 )
 from repro_torch.core.schedule import (  # noqa: F401
     ChunkPlan,

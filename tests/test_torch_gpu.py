@@ -80,3 +80,35 @@ def test_ssd_scan_kernel_on_the_card_matches_plain():
         chip_smoke.check_k3(torch, ssd, args, chunk,
                             chip_smoke.K3_TOL[chip_smoke.dtname(dtype)],
                             f"{label} {dtype}")
+
+
+@pytest.mark.gpu
+def test_region_spans_on_the_card_match_plain():
+    """Small region programs (one 3-stage span, halo-fed spans, a 2-D
+    mesh, serial glue) under the kernel lowering on the card: outputs
+    equal the shared-memory run, K1 launches once per span per run, and
+    every span equals its multi-stage plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import chip_smoke
+    from repro_torch import omp
+    from repro_torch.core import kernel_lower
+    from repro_torch.kernels import span_kernel
+
+    dev = torch.device("cuda")
+    for make, args in ((chip_smoke.jacobi_chain_region, (4099,)),
+                       (chip_smoke.heat3_region, (4099, 64)),
+                       (chip_smoke.heat2d_region, (70, 8)),
+                       (chip_smoke.pipeline_region, (3001,))):
+        reg, env, shape, axes = make(omp, torch, dev, *args)
+        comp = omp.compile(reg, omp.make_mesh(shape, axes), lowering="kernel")
+        ref = reg(env)
+        comp(env)
+        span_kernel.LAUNCHES = 0
+        out = comp(env)
+        torch.cuda.synchronize()
+        assert span_kernel.LAUNCHES == comp.kernel_plan.n_kernels > 0
+        for k in ref:
+            torch.testing.assert_close(out[k], ref[k], rtol=1e-4, atol=1e-4)
+        chip_smoke.check_region_spans(torch, kernel_lower, span_kernel,
+                                      comp, env, dev, reg.name)

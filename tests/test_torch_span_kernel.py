@@ -118,8 +118,15 @@ def _fake_modules(state):
 
 
 def emulate(source, windows, env_repl, fill=0.0):
-    """Run a generated span kernel on CPU tensors, as ``launch`` would
-    on the card (outputs start as ``fill``)."""
+    """Run a generated one-stage span kernel on CPU tensors, as
+    ``launch`` would on the card (outputs start as ``fill``)."""
+    return emulate_span(source, [(windows, env_repl)], fill)[0]
+
+
+def emulate_span(source, stage_io, fill=0.0):
+    """Run a generated span kernel of any number of stages on CPU
+    tensors, as ``launch_span`` would on the card; ``stage_io`` holds
+    ``(windows, env_repl)`` per stage.  Returns each stage's values."""
     state = {"pid": 0}
     triton, tl = _fake_modules(state)
     saved = {k: sys.modules.get(k) for k in ("triton", "triton.language")}
@@ -133,11 +140,13 @@ def emulate(source, windows, env_repl, fill=0.0):
                 sys.modules.pop(k, None)
             else:
                 sys.modules[k] = v
-    args = [(windows if kind == "win" else env_repl)[key].contiguous()
-            for kind, key in source.inputs]
-    outs = {key: torch.full(shape, fill, dtype=dtype)
-            for key, shape, dtype in source.outputs}
-    ns[source.fn_name][(source.n_programs,)](*args, *outs.values())
+    args = [stage_io[si][0 if kind == "win" else 1][key].contiguous()
+            for kind, si, key in source.inputs]
+    outs = [{} for _ in stage_io]
+    for si, key, shape, dtype in source.outputs:
+        outs[si][key] = torch.full(shape, fill, dtype=dtype)
+    ns[source.fn_name][(source.n_programs,)](
+        *args, *(outs[si][key] for si, key, _, _ in source.outputs))
     return outs
 
 
@@ -316,36 +325,212 @@ def test_unsupported_op_raises_compile_error_naming_it():
 
 
 def test_cuda_tensor_never_reaches_the_plain_version(monkeypatch):
-    """The wrapper picks the plain version only for CPU tensors; any
-    other device launches the kernel or raises."""
+    """The wrapper the executor runs picks the plain version only for CPU
+    tensors; any other device launches the kernel or raises."""
     from repro_torch import omp
+    from repro_torch.core import kernel_lower
     from repro_torch.kernels import span_kernel
 
     mesh = omp.make_mesh((2,), ("data",), device="cpu")
     calls = []
-    monkeypatch.setattr(span_kernel, "span_values_plain",
-                        lambda *a: calls.append("plain") or {})
-    monkeypatch.setattr(span_kernel, "launch",
-                        lambda *a: calls.append("launch") or {})
+    monkeypatch.setattr(span_kernel, "span_values_plain_stages",
+                        lambda *a: calls.append("plain") or [{}])
+    monkeypatch.setattr(span_kernel, "launch_span",
+                        lambda *a: calls.append("launch") or [{}])
+
+    def stages(comp, prog, slabs, repl):
+        return [kernel_lower.SpanStage(plan=comp.plan, program=prog,
+                                       ext_windows=slabs, env_repl=repl)]
 
     prog, env = td.make_case(5, "map")[:2]
     comp = omp.compile(prog, mesh, lowering="kernel", env_like=env)
     source = comp.kernel_plan.spans[0].source
     repl, slabs = _span_inputs(comp, env)
-    span_kernel.span_values(comp.plan, prog, slabs, repl, source, "cpu")
+    one = stages(comp, prog, slabs, repl)
+    span_kernel.span_stage_values(one, source, "cpu")
     assert calls == ["plain"]
     with pytest.raises(ValueError, match="lie on cpu"):
-        span_kernel.span_values(comp.plan, prog, slabs, repl, source, "cuda")
+        span_kernel.span_stage_values(one, source, "cuda")
 
     # the put family reads no env: its span has no input tensors at all
     prog, env = td.make_case(5, "put")[:2]
     comp = omp.compile(prog, mesh, lowering="kernel", env_like=env)
     source = comp.kernel_plan.spans[0].source
     assert source.inputs == ()
-    span_kernel.span_values(comp.plan, prog, {}, {}, source, "cuda")
+    empty = stages(comp, prog, {}, {})
+    span_kernel.span_stage_values(empty, source, "cuda")
     assert calls == ["plain", "launch"]
     with pytest.raises(ValueError, match="CUDA"):
-        span_kernel.span_values(comp.plan, prog, {}, {}, source, "meta")
+        span_kernel.span_stage_values(empty, source, "meta")
     with pytest.raises(ValueError, match="lowering='kernel'"):
-        span_kernel.span_values(comp.plan, prog, {}, {}, None, "cuda")
+        span_kernel.span_stage_values(empty, None, "cuda")
     assert calls == ["plain", "launch"]
+
+
+# ---------------------------------------------------------------------------
+# K1 over a span of several region stages
+# ---------------------------------------------------------------------------
+
+
+def _forwarding_regions():
+    """Regions whose stages fuse into multi-stage spans: a partial-write
+    chain whose stages start at different iterations and forward a
+    per-lane vector (read whole and at a constant index), and a rank-2
+    chain (one span each); plus the region families' twins."""
+    from repro_torch import omp
+
+    n = 23
+
+    @omp.parallel_for(stop=n - 2, name="f1")
+    def f1(i, env):
+        return {"u": omp.at(i + 1, env["x"][i + 1] * 2.0 - 0.5)}
+
+    @omp.parallel_for(start=1, stop=n - 1, name="f2")
+    def f2(i, env):
+        return {"V": omp.at(i, env["u"][i] * env["w"] + env["x"][i])}
+
+    @omp.parallel_for(start=1, stop=n - 1, reduction={"s": "+"}, name="f3")
+    def f3(i, env):
+        v = env["V"][i]
+        return {"y": omp.at(i, v[0] - v.sum() + env["u"][i]),
+                "s": omp.red(v[-1] * env["u"][i])}
+
+    g = np.random.default_rng(5)
+    env1 = {"x": torch.tensor(g.standard_normal(n).astype(np.float32)),
+            "w": torch.tensor([0.5, -1.0, 2.0]), "u": torch.zeros(n),
+            "V": torch.zeros(n, 3), "y": torch.zeros(n),
+            "s": torch.tensor(1.0)}
+
+    @omp.parallel_for(stop=(7, 9), collapse=2, name="r1")
+    def r1(i, j, env):
+        return {"t": omp.at((i, j), env["x"][i, j] * 2.0)}
+
+    @omp.parallel_for(stop=(7, 9), collapse=2, reduction={"m": "max"},
+                      name="r2")
+    def r2(i, j, env):
+        return {"y": omp.at((i, j), env["t"][i, j] + 1.0),
+                "m": omp.red(env["t"][i, j])}
+
+    env2 = {"x": torch.tensor(g.standard_normal((7, 9)).astype(np.float32)),
+            "t": torch.zeros(7, 9), "y": torch.zeros(7, 9)}
+    return [(omp.region(f1, f2, f3, name="fwd"), env1, ("data",)),
+            (omp.region(r1, r2, name="fwd2"), env2, ("i", "j"))]
+
+
+def _span_calls(prog, env, mesh, monkeypatch):
+    """Run ``prog`` under the kernel lowering on the CPU, recording every
+    span's stage feeds as the fused executor hands them over."""
+    from repro_torch import omp
+    from repro_torch.kernels import span_kernel
+
+    calls = []
+    wrapper = span_kernel.span_stage_values
+
+    def spy(stages, source, device):
+        calls.append((list(stages), source))
+        return wrapper(stages, source, device)
+
+    monkeypatch.setattr(span_kernel, "span_stage_values", spy)
+    comp = omp.compile(prog, mesh, lowering="kernel")
+    ref = prog(env)
+    out = comp(env)
+    for k in ref:
+        np.testing.assert_allclose(out[k].numpy(), ref[k].numpy(),
+                                   rtol=1e-4, atol=1e-4)
+    return comp, calls
+
+
+def _check_span_calls(comp, calls):
+    """The generated multi-stage source, emulated, equals the plain
+    multi-stage version on every stage's lanes that hold an iteration."""
+    from repro_torch.core import kernel_lower
+    from repro_torch.kernels import span_kernel
+
+    assert [len(st) for st, _ in calls] == [
+        len(s.stage_indices) for s in comp.kernel_plan.spans]
+    for stages, source in calls:
+        got = emulate_span(source, [(st.ext_windows, st.env_repl)
+                                    for st in stages], fill=float("nan"))
+        want = span_kernel.span_values_plain_stages(stages, "cpu")
+        tol = REDUCING if "tl.sum(" in source.text else POINTWISE
+        for st, g, w in zip(stages, got, want):
+            mask = kernel_lower.lane_mask(st.plan, "cpu")
+            assert set(g) == set(w)
+            for k in w:
+                np.testing.assert_allclose(g[k][mask].numpy(),
+                                           w[k][mask].numpy(), **tol,
+                                           err_msg=f"{st.plan.name} {k}")
+
+
+@pytest.mark.parametrize("p", [1, 3])
+def test_generated_multi_stage_span_matches_plain(p, monkeypatch):
+    """Forwarded tiles (scalar and per-lane vector values, partial
+    writes, stages starting at different iterations, rank 2): one
+    generated kernel per span, equal to the stages' plain values."""
+    from repro_torch import omp
+
+    for prog, env, axes in _forwarding_regions():
+        shape = (p,) if len(axes) == 1 else (p, 2)
+        comp, calls = _span_calls(
+            prog, env, omp.make_mesh(shape, axes, device="cpu"), monkeypatch)
+        (span,) = comp.kernel_plan.spans
+        assert len(span.stage_indices) == len(prog.stages)
+        fwd = {"fwd": {(1, "u"), (2, "V"), (2, "u")},
+               "fwd2": {(1, "t")}}[prog.name]
+        assert set(span.source.forwarded) == fwd
+        _check_span_calls(comp, calls)
+
+
+@pytest.mark.parametrize("family", ["chain", "pingpong", "glue", "heat2d",
+                                    "transpose2"])
+def test_generated_region_family_spans_match_plain(family, monkeypatch):
+    from repro_torch import omp
+    from tests import test_torch_region as tr
+
+    for p in (1, 2):
+        (prog, env, *_), shape, axes = tr._case(family, p, 70 + p)
+        comp, calls = _span_calls(
+            prog, env, omp.make_mesh(shape, axes, device="cpu"), monkeypatch)
+        _check_span_calls(comp, calls)
+
+
+def test_forwarded_read_of_another_lane_raises_compile_error():
+    """A stage that reads a forwarded key one row off its own lane cannot
+    take the register tile: the generator refuses it at compile time."""
+    from repro_torch import omp
+    from repro_torch.core.region import plan_region
+    from repro_torch.kernels import span_kernel
+
+    @omp.parallel_for(stop=9, name="a1")
+    def a1(i, env):
+        return {"tmp": omp.at(i, env["x"][i] * 2.0)}
+
+    @omp.parallel_for(stop=9, name="a2")
+    def a2(i, env):
+        return {"y": omp.at(i, env["tmp"][i + 1])}
+
+    @omp.parallel_for(stop=8, name="a4")
+    def a4(i, env):
+        return {"y": omp.at(i, env["tmp"][i])}
+
+    env = {"x": torch.arange(10.0), "tmp": torch.zeros(10),
+           "y": torch.zeros(10)}
+    rp = plan_region(omp.region(a1, a2), env, 1)
+    plans = [se.plan for se in rp.stages]
+    with pytest.raises(omp.CompileError, match="lane's own row"):
+        span_kernel.generate_span([(plans[0], a1, ()),
+                                   (plans[1], a2, ("tmp",))])
+    # nor do stages of another geometry share a launch
+    plan4 = plan_region(omp.region(a1, a4), env, 1).stages[1].plan
+    with pytest.raises(omp.CompileError, match="chunk geometry"):
+        span_kernel.generate_span([(plans[0], a1, ()),
+                                   (plan4, a4, ("tmp",))])
+    # the lane's own row is forwarded
+    @omp.parallel_for(stop=9, name="a3")
+    def a3(i, env):
+        return {"y": omp.at(i, env["tmp"][i] + 1.0)}
+
+    plan3 = plan_region(omp.region(a1, a3), env, 1).stages[1].plan
+    src = span_kernel.generate_span([(plans[0], a1, ()),
+                                     (plan3, a3, ("tmp",))])
+    assert src.forwarded == ((1, "tmp"),)
