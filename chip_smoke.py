@@ -27,11 +27,13 @@ non-zero (no phase catches an error and carries on):
 
 4. **kernel vs plain** — the span kernel's dense values against
    ``span_values_plain`` on the same inputs, on every lane that holds an
-   iteration, for the 8 block families and a body of every other op the
-   template emits (``ops``) at a small size, and for every span of the
-   three programs: rtol = tol and atol = tol x the largest |plain value|
-   (tol = 1e-5 for pointwise bodies; 1e-4 where the body sums a trailing
-   axis, whose summation order differs).  Each comparison also shows
+   iteration, for the 8 block families, a body of every other op the
+   template emits (``ops``) and matmul2's product as ``torch.dot``
+   (``dot2``: the rank-2 outer tile on ``tl.dot``) at a small size, and
+   for every span of the three programs: rtol = tol and atol = tol x the
+   largest |plain value| (tol = 1e-5 for pointwise bodies; 1e-4 where
+   the body sums a value axis or multiplies matrices, whose summation
+   order differs).  Each comparison also shows
    that the same check rejects the plain values scaled by 1.001 and all
    zeros;
 5. **times** — per program, CUDA events, the median of 10 runs after
@@ -156,6 +158,25 @@ non-zero (no phase catches an error and carries on):
     stage's outputs on the loop's iterations, once; forwarded
     intermediates count as outputs, never as reads); library null (no
     single PyTorch call computes a chain of loop bodies); and
+    ``Compiled.run`` per lowering;
+17. **polybench** — the 10 linear-algebra kernels of
+    ``repro_torch.polybench`` (``gemm``, ``2mm``, ``3mm``, ``atax``,
+    ``bicg``, ``mvt``, ``gesummv``, ``syrk``, ``syr2k``, ``covariance``)
+    at PolyBench/C 4.2.1 EXTRALARGE size, float32, 8 ranks, ``static``
+    schedule, with ``torch.backends.cuda.matmul.allow_tf32`` False
+    (asserted and printed): ``Compiled.run`` under ``collective`` and
+    ``kernel`` against ``run_reference`` (rtol=atol=1e-4); K1 launches
+    once per block (counted around the kernel run); every product block's
+    kernel holds one ``tl.dot`` per ``mm``/``mv`` in IEEE float32; each
+    span against ``span_values_plain`` under ``agree`` (phase 4's tol;
+    1e-5 on a matrix product's span, ``PB_MM_TOL``) and ``agree_rows``
+    (one row per lane, phase 4's tol), both rejecting the plain values x
+    1.001 and zeros, and for the ``mm`` bodies the plain values computed
+    with TF32 allowed; times as in phase 5 (bound: each env array read
+    once and each output written once at 3.35 TB/s, or the flops of the
+    span at 67 TFLOP/s, 2·M·N·K for a product), the library call
+    ``torch.addmm``/``mm``/``mv``/``addmv`` per block where one computes
+    the block's values (null for ``gesummv`` and ``syr2k``), and
     ``Compiled.run`` per lowering.
 
 The last two lines are the kernel table as one JSON object and
@@ -375,6 +396,13 @@ def families(omp, torch, dev):
     out.append((matmul2, {"A": rnd(8, 5), "B": rnd(5, 6),
                           "C": -torch.ones(8, 6, device=dev)}))
 
+    # the same product as torch.dot: the rank-2 outer tile on tl.dot
+    @omp.parallel_for(start=(1, 0), stop=(41, 37), collapse=2, name="dot2")
+    def dot2(i, j, env):
+        return {"C": omp.at((i, j), torch.dot(env["A"][i], env["B"][:, j]))}
+    out.append((dot2, {"A": rnd(42, 70), "B": rnd(70, 37),
+                       "C": -torch.ones(42, 37, device=dev)}))
+
     # every other op the template emits: exp/log/sqrt/abs/neg/reciprocal,
     # where/comparisons/maximum/minimum, a 0-d env scalar, amax/amin, and
     # integer index arithmetic with a negative dividend (Python's %)
@@ -484,9 +512,10 @@ def one_stage(kernel_lower, plan, prog, slabs, repl) -> list:
 
 
 def span_tol(source) -> float:
-    """1e-5 for pointwise bodies; 1e-4 where a body sums a trailing axis,
-    whose summation order differs."""
-    return 1e-4 if "tl.sum(" in source.text else 1e-5
+    """1e-5 for pointwise bodies; 1e-4 where a body sums a value axis or
+    multiplies matrices (``tl.dot``), whose summation order differs."""
+    return 1e-4 if ("tl.sum(" in source.text
+                    or "tl.dot(" in source.text) else 1e-5
 
 
 def hold_lanes(torch, got, want, mask, tol, label, lane_dim=None) -> float:
@@ -1672,6 +1701,257 @@ def region_phase(torch, dev, card):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# PolyBench linear algebra: K1's products on tl.dot
+# ---------------------------------------------------------------------------
+
+PB_RANKS = 8                   # the static schedule: one chunk per rank
+PB_LAUNCHES = {"2mm": 2, "3mm": 3, "atax": 3, "bicg": 2, "mvt": 2,
+               "covariance": 2}            # K1 launches per run (else 1)
+#: tl.dot calls per block: one per aten.mm / aten.mv of its body
+PB_DOTS = {"gemm": (1,), "2mm": (1, 1), "3mm": (1, 1, 1), "atax": (1, 0, 0),
+           "bicg": (1, 0), "mvt": (1, 0), "gesummv": (2,), "syrk": (1,),
+           "syr2k": (2,), "covariance": (0, 1)}
+#: blocks whose product is a matrix's (aten.mm): the check must also tell
+#: their plain values computed in TF32 (cuBLAS's mv takes no TF32)
+PB_MM = {"gemm": (0,), "2mm": (0, 1), "3mm": (0, 1, 2), "syrk": (0,),
+         "syr2k": (0,), "covariance": (1,)}
+#: ``agree``'s tolerance on a matrix product's span: its absolute term
+#: scales with the largest value, which syrk's diagonal (~30, a sum of
+#: squares) makes 40x a row's RMS; at 1e-4 it would pass TF32's ~1.4e-3.
+#: IEEE float32 summed in another order lies within ~1e-5 of it.
+PB_MM_TOL = 1e-5
+PB_LIBRARY_NOTE = {
+    "gemm": "torch.addmm (beta 1.2, alpha 1.5)",
+    "2mm": "torch.mm, then torch.addmm (tmp C + D)",
+    "3mm": "torch.mm per block",
+    "atax": "torch.mv, then torch.mul (A * tmp) and torch.clone (fold's rows)",
+    "bicg": "torch.mv, then torch.mul (A * r)",
+    "mvt": "torch.addmv, then torch.mul (A * y2)",
+    "gesummv": "null: no single call computes 1.5 A x + 1.2 B x",
+    "syrk": "torch.addmm (beta 1.2, alpha 1.5)",
+    "syr2k": "null: no single call computes A B^T + B A^T",
+    "covariance": "torch.addmm (beta 0, alpha 1/(n-1)) for the cov block "
+                  "only: no single call centres the rows",
+}
+
+
+def pb_library(name, torch, env, block):
+    """One PyTorch call computing block ``block``'s values on ``env`` (a
+    yardstick the port never calls), or None."""
+    e = env                     # short: the calls below read many keys
+    calls = {
+        "gemm": [lambda: torch.addmm(e["C"], e["A"], e["B"], beta=1.2,
+                                     alpha=1.5)],
+        "2mm": [lambda: torch.mm(e["A"], e["B"]),
+                lambda: torch.addmm(e["D"], e["tmp"], e["C"])],
+        "3mm": [lambda: torch.mm(e["A"], e["B"]),
+                lambda: torch.mm(e["C"], e["D"]),
+                lambda: torch.mm(e["E"], e["F"])],
+        "atax": [lambda: torch.mv(e["A"], e["x"]),
+                 lambda: torch.mul(e["A"], e["tmp"][:, None]),
+                 lambda: torch.clone(e["partial"])],
+        "bicg": [lambda: torch.mv(e["A"], e["p"]),
+                 lambda: torch.mul(e["A"], e["r"][:, None])],
+        "mvt": [lambda: torch.addmv(e["x1"], e["A"], e["y1"]),
+                lambda: torch.mul(e["A"], e["y2"][:, None])],
+        "syrk": [lambda: torch.addmm(e["C"], e["A"], e["A"].T, beta=1.2,
+                                     alpha=1.5)],
+        "covariance": [None, lambda: torch.addmm(
+            e["C"], e["centered"], e["centered"].T, beta=0.0,
+            alpha=1.0 / (e["centered"].shape[1] - 1))],
+    }.get(name)
+    return None if calls is None else calls[block]
+
+
+def rows_of(values, mask):
+    """The rows ``agree_rows`` holds: one per lane that holds an
+    iteration (its vector of values), or, for one value a lane, the lanes
+    of a chunk."""
+    return values[mask] if values.dim() > mask.dim() else values
+
+
+def check_pb_span(torch, span_kernel, kernel_lower, comp, prog, env, dev,
+                  label, mm) -> tuple[float, float]:
+    """The block's span kernel against its plain version on the same
+    inputs: ``hold_lanes`` (``agree`` and its rejections) and
+    ``hold_rows`` (one row per lane) at ``span_tol``; for a matrix
+    product (``mm``) both checks must also reject the plain values
+    computed with TF32 allowed, and ``agree`` holds it at PB_MM_TOL.
+    Returns (max abs err, worst row-relative err)."""
+    from repro_torch.core import transform
+
+    repl, slabs = transform.stage_inputs(comp.plan, env)
+    (span,) = comp.kernel_plan.spans
+    (got,) = span_kernel.span_stage_values(
+        one_stage(kernel_lower, comp.plan, prog, slabs, repl), span.source,
+        dev)
+    want = span_kernel.span_values_plain(comp.plan, prog, slabs, repl, dev)
+    mask = kernel_lower.lane_mask(comp.plan, dev)
+    tol = span_tol(span.source)
+    err = hold_lanes(torch, got, want, mask, PB_MM_TOL if mm else tol, label)
+    worst = 0.0
+    for k in want:
+        # lanes that hold no iteration take the plain value
+        g = torch.where(mask, got[k], want[k]) if want[k].dim() == \
+            mask.dim() else got[k]
+        worst = max(worst, hold_rows(torch, rows_of(g, mask),
+                                     rows_of(want[k], mask), tol,
+                                     f"{label} {k}"))
+    if mm:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32 = span_kernel.span_values_plain(comp.plan, prog, slabs,
+                                                 repl, dev)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        for k in want:
+            w, t = want[k][mask], tf32[k][mask]
+            if agree(torch, t, w, PB_MM_TOL) or agree_rows(
+                    torch, rows_of(tf32[k], mask), rows_of(want[k], mask),
+                    tol):
+                raise AssertionError(
+                    f"{label} {k}: the checks at tol={PB_MM_TOL}/{tol} "
+                    "cannot tell the plain values computed in TF32 (max abs "
+                    "diff "
+                    f"{(t - w).abs().max().item():.3e})")
+    return err, worst
+
+
+def polybench_phase(torch, dev, card, names=None):
+    """Phase 17: the PolyBench linear-algebra kernels of
+    ``repro_torch.polybench`` (``names``, or all) at EXTRALARGE size
+    through both block lowerings against ``run_reference``, K1's
+    launches per run, each span against its plain version, and times.
+    Returns the kernel-table rows."""
+    from repro_torch import omp
+    from repro_torch import polybench as pb
+    from repro_torch.core import kernel_lower, transform
+    from repro_torch.kernels import span_kernel
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("run_reference and the plain versions must "
+                             "run without TF32")
+    print("polybench: torch.backends.cuda.matmul.allow_tf32 = "
+          f"{torch.backends.cuda.matmul.allow_tf32} (run_reference, the "
+          "collective lowering and the plain versions in IEEE float32)")
+    mesh = omp.make_mesh((PB_RANKS,), ("data",), device=dev)
+    rows = []
+    for name in names or pb.LINEAR_ALGEBRA:
+        t0 = time.perf_counter()
+        kernel = pb.make(name)
+        env = kernel.env_fn(dev, seed=0)
+        torch.cuda.synchronize()
+        t_env = time.perf_counter() - t0
+        progs = kernel.programs
+        ref = run_blocks(progs, env)
+        coll = run_blocks([omp.compile(p, mesh, lowering="collective",
+                                       schedule=omp.static()) for p in progs],
+                          env)
+        comps = [omp.compile(p, mesh, lowering="kernel", schedule=omp.static(),
+                             env_like=env) for p in progs]
+        run_blocks(comps, env)          # first run: Triton builds K1
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0 - t_env
+        span_kernel.LAUNCHES = 0
+        kern = run_blocks(comps, env)
+        torch.cuda.synchronize()
+        launches = span_kernel.LAUNCHES
+        planned = sum(c.kernel_plan.n_kernels for c in comps)
+        if launches != PB_LAUNCHES.get(name, 1) or launches != planned:
+            raise AssertionError(f"polybench {name}: K1 launched {launches} "
+                                 f"times, planned {planned}, want "
+                                 f"{PB_LAUNCHES.get(name, 1)}")
+        for label, got in (("collective", coll), ("kernel", kern)):
+            for k in ref:
+                torch.testing.assert_close(
+                    got[k], ref[k], rtol=1e-4, atol=1e-4,
+                    msg=lambda m: f"polybench {name}/{label} {k}: {m}")
+                if not bool(torch.isfinite(got[k]).all()):
+                    raise AssertionError(f"polybench {name}/{label} {k}: "
+                                         "not finite")
+        for c, dots in zip(comps, PB_DOTS[name]):
+            text = c.kernel_plan.spans[0].source.text
+            if text.count("tl.dot(") != dots or (
+                    dots and 'input_precision="ieee"' not in text):
+                raise AssertionError(f"polybench {name}/{c.plan.name}: "
+                                     f"{text.count('tl.dot(')} tl.dot, want "
+                                     f"{dots} in IEEE float32")
+        print(f"polybench {name} {kernel.dims}: {len(progs)} block(s) on "
+              f"{PB_RANKS} ranks (static), collective and kernel == "
+              f"run_reference (rtol=atol=1e-4); K1 launches per run "
+              f"{launches} (planned {planned}); tl.dot per block "
+              f"{list(PB_DOTS[name])}; spans "
+              + "; ".join(c.kernel_plan.spans[0].describe() for c in comps)
+              + f"; env {t_env:.2f} s, compile+build {t_build:.2f} s")
+
+        # kernel vs plain, then times, block by block on the env it sees
+        err = worst = 0.0
+        ms = plain_ms = bound_s = 0.0
+        lib_ms, lib_any = 0.0, False
+        nbytes = flops = 0
+        benv = env
+        for b, (prog, comp) in enumerate(zip(progs, comps)):
+            label = f"polybench {name}/{prog.name}"
+            e, w = check_pb_span(torch, span_kernel, kernel_lower, comp,
+                                 prog, benv, dev, label,
+                                 b in PB_MM.get(name, ()))
+            err, worst = max(err, e), max(worst, w)
+            repl, slabs = transform.stage_inputs(comp.plan, benv)
+            src = comp.kernel_plan.spans[0].source
+            one = one_stage(kernel_lower, comp.plan, prog, slabs, repl)
+            ms += cuda_ms(torch, lambda: span_kernel.span_stage_values(
+                one, src, dev))
+            plain_ms += cuda_ms(torch, lambda: span_kernel.span_values_plain(
+                comp.plan, prog, slabs, repl, dev), reps=5, inner=5)
+            trip = comp.plan.nest.total_trip
+            keys = dict.fromkeys(key for _, _, key in src.inputs)
+            bb = sum(benv[key].numel() * benv[key].element_size()
+                     for key in keys)
+            bb += sum(trip * math.prod(shape[3:])
+                      * torch.empty((), dtype=dt).element_size()
+                      for _, _, shape, dt in src.outputs)
+            ff = src.flops_per_lane * trip
+            nbytes, flops = nbytes + bb, flops + ff
+            bound_s += max(bb / HBM_BYTES_PER_S, ff / FP32_FLOPS_PER_S)
+            lib = pb_library(name, torch, benv, b)
+            if lib is not None:
+                lib_ms += cuda_ms(torch, lib)
+                lib_any = True
+            benv = comp(benv)
+        bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S
+                    >= flops / FP32_FLOPS_PER_S else "operations")
+        library_ms = lib_ms if lib_any else None
+        print(f"kernel-vs-plain polybench {name}: max_abs_err={err:.3e}, "
+              f"worst row-relative err {worst:.3e}"
+              + (f" (agree at {PB_MM_TOL} on the mm spans), TF32 plain "
+                 "values rejected" if name in PB_MM else ""))
+        lib_s = "null" if library_ms is None else f"{library_ms:.4f} ms"
+        print(f"times polybench {name}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, library {lib_s} "
+              f"({PB_LIBRARY_NOTE[name]}), bound {bound_s * 1e3:.4f} ms "
+              f"({bound_by}: {nbytes} B at {HBM_BYTES_PER_S:.3g} B/s, "
+              f"{flops} flops at {FP32_FLOPS_PER_S:.3g} flop/s) on {card}")
+        run_ms = {low: cuda_ms(torch, lambda: run_blocks(bs, env), reps=3,
+                               inner=2, warmup=1)
+                  for low, bs in (("kernel", comps), ("collective", [
+                      omp.compile(p, mesh, lowering="collective",
+                                  schedule=omp.static()) for p in progs]))}
+        print(f"end-to-end polybench {name}: Compiled.run kernel "
+              f"{run_ms['kernel']:.4f} ms, collective "
+              f"{run_ms['collective']:.4f} ms on {card}")
+        rows.append({
+            "name": f"span_kernel[polybench {name}]", "route": "triton",
+            "source": SOURCE, "replaces": REPLACES, "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+            "library_ms": library_ms,
+            "library_note": PB_LIBRARY_NOTE[name]})
+        del comps, ref, coll, kern, env, benv
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main(device: str = "cuda") -> int:
     sys.stdout.reconfigure(line_buffering=True)
     torch = _setup()
@@ -1836,6 +2116,9 @@ def main(device: str = "cuda") -> int:
 
     # -- regions: whole programs, fused / staged / kernel --------------------
     rows += region_phase(torch, dev, card)
+
+    # -- PolyBench linear algebra: K1's products on tl.dot -------------------
+    rows += polybench_phase(torch, dev, card)
 
     print(card)
     print(json.dumps({"kernels": rows}))

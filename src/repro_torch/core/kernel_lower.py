@@ -51,7 +51,9 @@ class KernelSpan:
     n_tiles)``, or ``(lc_i, lc_j, nt_i, nt_j)`` for rank 2; one launch
     covers all ``ranks`` of the mesh.  It runs ``launch_programs``
     programs: the tiles of the ``slots`` (per axis) that hold an
-    iteration, never the padding slots of the chunk plan."""
+    iteration, never the padding slots of the chunk plan, each tile in
+    ``value_tiles`` programs (a tile of the output's value axis each,
+    when a row-times-matrix product splits it over the grid)."""
 
     stage_names: tuple[str, ...]
     stage_indices: tuple[int, ...]
@@ -62,11 +64,13 @@ class KernelSpan:
     n_outputs: int
     ranks: tuple[int, ...] = ()
     slots: tuple[int, ...] = ()
+    value_tiles: int = 1
     source: Any = dataclasses.field(default=None, repr=False, compare=False)
 
     @property
     def launch_programs(self) -> int:
-        return math.prod(self.slots) * math.prod(t.n_tiles for t in self.tiles)
+        return (math.prod(self.slots) * self.value_tiles
+                * math.prod(t.n_tiles for t in self.tiles))
 
     def describe(self) -> str:
         geo = " x ".join(
@@ -81,6 +85,8 @@ class KernelSpan:
                 f"launch, over the {'x'.join(map(str, self.slots))} of "
                 f"{slots} chunk slots that hold iterations) tile={geo} "
                 "chunk=" + "x".join(str(tl.chunk) for tl in self.tiles))
+        if self.value_tiles > 1:
+            line += f" x {self.value_tiles} value tiles"
         if self.forwarded:
             line += f"  register-forwarded: {', '.join(self.forwarded)}"
         return line
@@ -203,7 +209,8 @@ def _forwarded_per_stage(plans) -> list[tuple]:
 def _span_meta(plans, names, indices, source) -> KernelSpan:
     plan0 = plans[0]
     chs = plan0.chunks_axes
-    tiles = derive_nest_tiles(tuple(ch.chunk for ch in chs))
+    # the generator's tiles: the pointwise rule, or tiles tl.dot takes
+    tiles = source.tiles or derive_nest_tiles(tuple(ch.chunk for ch in chs))
     # one tile and one grid for every stage: generate_span checked it
     slots = span_kernel.live_slots(plan0)
     if plan0.rank == 1:
@@ -219,7 +226,8 @@ def _span_meta(plans, names, indices, source) -> KernelSpan:
                       forwarded=tuple(fwd),
                       n_outputs=sum(len(written_key_set(p)) for p in plans),
                       ranks=tuple(ch.num_devices for ch in chs),
-                      slots=slots, source=source)
+                      slots=slots, value_tiles=source.value_tiles,
+                      source=source)
 
 
 def plan_block_kernel(plan, program, name: str | None = None,

@@ -332,16 +332,23 @@ def derive_axis_tiles(chunk: int, max_tile: int = MAX_TILE_LANES,
                      padded=n_tiles * tile)
 
 
-def derive_nest_tiles(chunks: tuple[int, ...]) -> tuple[AxisTiles, ...]:
+def derive_nest_tiles(chunks: tuple[int, ...],
+                      max_lanes: int = MAX_TILE_LANES,
+                      min_tile: int = MIN_TILE_LANES, min_lead: int = 1,
+                      max_last: int | None = None) -> tuple[AxisTiles, ...]:
     """Tiles of a rank-1 or rank-2 nest: the last axis takes the lane
-    rule; a leading axis fills the rest of a ``MAX_TILE_LANES`` budget
-    (``tile_i * tile_j <= MAX_TILE_LANES``, any power of two >= 1)."""
-    last = derive_axis_tiles(chunks[-1])
+    rule (``[min_tile, max_last or max_lanes]``); a leading axis fills the
+    rest of a ``max_lanes`` budget (``tile_i * tile_j <= max_lanes``, a
+    power of two >= ``min_lead``).  The defaults are the pointwise
+    template's; the span kernel asks for narrower tiles of at least 16
+    lanes an axis where ``tl.dot`` takes the lanes as a matrix dim."""
+    last = derive_axis_tiles(chunks[-1], max_tile=max_last or max_lanes,
+                             min_tile=min_tile)
     if len(chunks) == 1:
         return (last,)
     first = derive_axis_tiles(chunks[0],
-                              max_tile=max(1, MAX_TILE_LANES // last.tile),
-                              min_tile=1)
+                              max_tile=max(min_lead, max_lanes // last.tile),
+                              min_tile=min_lead)
     return (first, last)
 
 

@@ -5,35 +5,51 @@ ONE Triton launch for Hopper (``sm_90a``).
 Replaces ``src/repro/core/pallas_lower.py::execute_span`` (its
 ``pl.pallas_call``), which ran once per device over that device's slab.
 
-Bound: device-memory bytes.  Each lane loads its window taps and
-replicated operands and stores its dense values; the bodies do a few
-flops per byte, far below the H100's float32 ridge (67 TFLOP/s over
-3.35 TB/s, about 20 flops per byte).  So the design keeps every access
-coalesced (lanes of a tile are consecutive iterations, the last nest
-axis fastest) and fuses the whole body into one pass: no intermediate
-ever leaves registers.  A first version makes no attempt at shared-memory
-staging of halo windows: a stencil's neighbouring lanes load overlapping
-taps straight from the slab and the overlap is left to L1/L2.
+Bound: device-memory bytes for pointwise bodies, float32 operations for
+matrix products.  A pointwise body does a few flops per byte, far below
+the H100's float32 ridge (67 TFLOP/s over 3.35 TB/s, about 20 flops per
+byte), so the design keeps every access coalesced (lanes of a tile are
+consecutive iterations, the last nest axis fastest) and fuses the whole
+body into one pass: no intermediate ever leaves registers.  A first
+version makes no attempt at shared-memory staging of halo windows: a
+stencil's neighbouring lanes load overlapping taps straight from the
+slab and the overlap is left to L1/L2.  A row-times-matrix body
+(PolyBench's ``gemm``, ``syrk``, ``covariance``) does 2K flops for each
+value it stores and is bound by operations: its product runs on ``tl.dot`` over
+``[lanes, BK] x [BK, BN]`` tiles, K-looped, accumulating in float32 —
+IEEE float32 products for float32 operands (``input_precision="ieee"``:
+TF32 would keep three digits), the tensor cores for 16-bit ones — and
+its output's value axis is split over the grid so that enough programs
+fill the card.  A matrix the body reads transposed (``A.T``) is handed to
+the kernel as a copy of its transpose (:func:`kernel_args`), since
+Triton's FMA ``tl.dot`` reads a tile transposed on chip 2.9x slower.
 
 The body is user code, so the kernel is a template plus a generator, as
 the Pallas kernel traced the body into its own body:
 
 * :data:`PROLOGUE1` / :data:`PROLOGUE2` (hand-written) decompose the
-  program id into (chunk slot, tile) — one slot per (local chunk, rank),
-  so all virtual ranks share the launch — and compute every lane's
-  iteration, clamped to ``trip - 1`` past the trip count.  The grid
-  covers only the slots that hold an iteration (:func:`live_slots`), so
-  the chunk plan's padding slots are neither launched nor stored; the
-  lanes past the trip in the last slot of an axis compute the clamped
-  iteration and are stored, as in the Pallas kernel (no merge reads
-  them).  A mask on the trip count there cost ``heat2d`` about 30%
-  (PERF.md);
+  program id into (value tile, chunk slot, tile) — one slot per (local
+  chunk, rank), so all virtual ranks share the launch — and compute
+  every lane's iteration, clamped to ``trip - 1`` past the trip count.
+  The grid covers only the slots that hold an iteration
+  (:func:`live_slots`), so the chunk plan's padding slots are neither
+  launched nor stored; the lanes past the trip in the last slot of an
+  axis compute the clamped iteration and are stored, as in the Pallas
+  kernel (no merge reads them).  A mask on the trip count there cost
+  ``heat2d`` about 30% (PERF.md);
 * :class:`_Gen` walks the aten graph of ``vmap(body)``
-  (:func:`repro_torch.core.context.trace_body`) and emits one ``tl``
-  expression per op: affine loads from the slab windows (row
-  ``index - (k0 + halo_base)``) or from replicated arrays, pointwise
-  arithmetic, ``sum``/``amax``/``amin`` over a short trailing value axis
-  padded to a power of two;
+  (:func:`repro_torch.core.context.trace_body`) and emits ``tl`` code per
+  op: affine loads from the slab windows (row ``index - (k0 +
+  halo_base)``) or from replicated arrays, pointwise arithmetic,
+  ``sum``/``mean``/``amax``/``amin`` over a per-lane value axis, and
+  ``aten.mm``/``aten.mv`` of a per-lane operand and a replicated array
+  (either side, transposed or not) as K-loops of ``tl.dot``; a rank-2
+  nest's ``A[i] . B[:, j]`` is the outer tile ``A[tile_i, K] @ B[K,
+  tile_j]``.  Lane scalars are emitted once, in order; a value with a
+  per-lane value axis is emitted per value *tile* where it is consumed
+  (:class:`_Scope`): the whole axis in one register tile when it fits
+  (:data:`_MAX_TILE_ELEMS`), else a loop over tiles (a reduction's first
+  pass, a product's K-loop, a store), or the grid's value tile;
 * the epilogue stores the dense values, masked, in the global slab
   layout ``(n_loc, P, c, *value_shape)``.
 
@@ -65,6 +81,7 @@ or raise.  :data:`LAUNCHES` counts launches, one per span.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import importlib.util
@@ -91,14 +108,47 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 #: between the two traces is a lane dim, one that keeps it a value dim.
 _LANES_B = (11, 13)
 
-#: Largest tile the template holds in registers: lanes x padded value axis.
-_MAX_TILE_ELEMS = 1 << 16
+#: Largest register tile of one value: lanes x value tile.  A per-lane
+#: value axis whose padded length fits is held whole; a longer one is
+#: tiled (loops, or the grid's value axis).
+_MAX_TILE_ELEMS = 1 << 12
+
+#: ``tl.dot`` takes tiles of at least 16 on every dim.
+_DOT_MIN = 16
+#: Lanes of a tile (per axis) in a span with a row-times-matrix product,
+#: and the grid's value tile over its output.
+_DOT_LANES = 64
+#: Lanes of a tile in a span whose products give one value a lane
+#: (matrix-vector): as few as ``tl.dot`` takes, so that many programs
+#: share the rows.
+_MV_LANES = 16
+#: Lanes of a tile in a span without products whose value axes are too
+#: long for the default tile: a few rows a program, each swept in wide
+#: value tiles, so that the grid holds several programs an SM.
+_LONG_LANES = 4
+#: Rank-2 outer tile: lanes per axis at most.
+_DOT2_LANES = 32
+#: K-loop depth of a matrix product, and of a matrix-vector product (a
+#: deeper tile keeps more of the rows' bytes in flight a program).
+_BK = 32
+_BK_MV = 128
+#: Warps a program of a matrix-vector span: its tiles are 16 lanes, and
+#: two warps ran K1's mv 1.5-1.7x faster than four on the H100
+#: (``tools/k1_product_variants.py``).
+_MV_WARPS = 2
 
 #: Element count from which offsets are computed in 64 bits (a margin
 #: below 2^31 for window halos and padded values).
 _WIDE_ELEMS = 1 << 29
 
 NUM_WARPS = 4
+
+_PRODUCTS = (aten.mm.default, aten.mv.default)
+#: Views on a per-lane value: the template keeps one lane-major tile per
+#: value whatever the view (``squeeze_`` comes from vmap's ``@`` rule).
+_VIEWS = ctx_mod.VIEW_OPS | {aten.squeeze_.dims, aten.squeeze_.dim,
+                             aten.unsqueeze_.default}
+_MEM_VIEWS = (aten.t.default, aten.permute.default, aten.transpose.int)
 
 
 _TL = {
@@ -112,7 +162,7 @@ _TL = {
 
 PROLOGUE1 = """\
     pid = tl.program_id(0){wide}
-    slot = pid // {nt}
+{vsplit}    slot = pid // {nt}
     tile = pid - slot * {nt}
     lane = tile * {tile} + tl.arange(0, {tile})[:, None]
     it = slot * {c} + lane
@@ -122,7 +172,7 @@ PROLOGUE1 = """\
 
 PROLOGUE2 = """\
     pid = tl.program_id(0){wide}
-    tj = pid % {ntj}
+{vsplit}    tj = pid % {ntj}
     r = pid // {ntj}
     sj = r % {nsj}
     r = r // {nsj}
@@ -138,6 +188,13 @@ PROLOGUE2 = """\
     j0 = ({startj} + {stepj} * tl.minimum(itj, {tmaxj})).to(tl.int32)
 """
 
+#: The value tile of a program, first in the program id, so that the
+#: programs of one lane tile run side by side and share its rows in L2.
+VSPLIT = """\
+    vt = pid % {nv}
+    pid = pid // {nv}
+"""
+
 
 @dataclasses.dataclass(frozen=True)
 class SpanSource:
@@ -145,11 +202,15 @@ class SpanSource:
 
     fn_name: str
     text: str
-    inputs: tuple            # ("win" | "repl", stage, key) per pointer arg
+    inputs: tuple            # ("win" | "repl" | "replT", stage, key) per
+    #                          pointer arg (see kernel_args)
     outputs: tuple           # (stage, key, global shape, dtype) per output
     n_programs: int
     flops_per_lane: int      # arithmetic ops per real lane (for the bound)
     forwarded: tuple = ()    # (stage, key): reads served from a register
+    tiles: tuple = ()        # AxisTiles per nest axis (the lanes of a tile)
+    value_tiles: int = 1     # programs per lane tile (the grid's value axis)
+    num_warps: int = NUM_WARPS
 
 
 # ---------------------------------------------------------------------------
@@ -159,7 +220,9 @@ class SpanSource:
 
 @dataclasses.dataclass
 class _Mem:
-    """An env buffer, possibly with constant positions selected."""
+    """An env buffer, possibly with constant positions selected;
+    ``remaining`` lists its other dims in the order the body sees them
+    (a transpose reorders it)."""
 
     key: str
     shape: tuple
@@ -176,6 +239,24 @@ class _Val:
     const: Any = None           # a Python number (inline literal)
     mem: _Mem | None = None
     aff: tuple | None = None    # (axis, a, b): exactly a * iterator + b
+    lazy: Any = None            # k-valued: emits one tile in a _Scope
+    loop: bool = False          # its tile is computed by a K-loop
+    scope: Any = None           # the _Scope ``expr`` lies in (None: any)
+    src: tuple | None = None    # a row load: (mem, {dim: index}, value dim)
+
+
+@dataclasses.dataclass
+class _Scope:
+    """A tile of a per-lane value axis of ``length``: positions ``r``
+    (``[1, bt]``, or ``[1, 1]`` for one position) under mask ``m``, and
+    the values already emitted for it (``cache``, by lazy emitter)."""
+
+    length: int
+    r: str
+    m: str
+    bt: int
+    start: str | None = None    # a loop's tile start (its loop variable)
+    cache: dict = dataclasses.field(default_factory=dict)
 
 
 def _lit(v, dtype) -> str:
@@ -215,24 +296,122 @@ def _affine(op: str, a: _Val, b: _Val, alpha) -> tuple | None:
     return None
 
 
+def _roles(ta, tb, name) -> dict:
+    """Per tensor node of trace ``ta``, each dim's role: ``"lane"`` (its
+    size follows the lane count), ``"v"`` (a value axis) or ``"1"``."""
+    na, nb = list(ta.graph.nodes), list(tb.graph.nodes)
+    if len(na) != len(nb) or any(
+            a.op != b.op or a.target != b.target for a, b in zip(na, nb)):
+        raise CompileError(
+            f"span kernel: the body of {name!r} traces to different graphs "
+            "at different lane counts")
+    roles = {}
+    for a, b in zip(na, nb):
+        va, vb = a.meta.get("val"), b.meta.get("val")
+        if not isinstance(va, torch.Tensor):
+            continue
+        sa, sb = tuple(va.shape), tuple(vb.shape)
+        roles[a] = tuple("lane" if x != y else ("v" if x > 1 else "1")
+                         for x, y in zip(sa, sb))
+    return roles
+
+
+@dataclasses.dataclass(frozen=True)
+class _Shape:
+    """What a span's bodies need of the tiling: whether they hold a
+    product (``dot``), the output length of the first row-times-matrix
+    product (``vec``: the grid's value axis), and whether a value axis is
+    too long for the default tile (``long``)."""
+
+    dot: bool
+    vec: int | None
+    outer: bool
+    long: bool
+
+
+def _span_shape(stage_roles, default_block) -> _Shape:
+    dot = outer = long = False
+    vec = None
+    for graph, roles in stage_roles:
+        for n in graph.nodes:
+            r = roles.get(n)
+            if r is None or n.op == "placeholder":
+                continue
+            shape = tuple(n.meta["val"].shape)
+            vdims = [s for s, x in zip(shape, r) if x == "v"]
+            # a per-lane value holds one value axis (an env array seen
+            # whole or transposed holds two, and stays in memory)
+            if len(vdims) == 1 and pow2_at_least(
+                    vdims[0]) * default_block > _MAX_TILE_ELEMS:
+                long = True
+            if n.op != "call_function" or n.target not in _PRODUCTS:
+                continue
+            dot = True
+            if n.target is aten.mm.default and len(vdims) == 1:
+                vec = vdims[0] if vec is None else vec
+            elif n.target is aten.mm.default and r.count("lane") == 2:
+                outer = True
+    return _Shape(dot=dot, vec=vec, outer=outer, long=long)
+
+
+def _span_tiles(chunks, shape: _Shape):
+    """Lane tiles of a span: the default rule (32..1024 lanes) for
+    pointwise bodies; narrow tiles of at least 16 lanes an axis where
+    ``tl.dot`` needs them or a long value axis makes a tile wide."""
+    if shape.outer:
+        return derive_nest_tiles(chunks, max_lanes=_DOT2_LANES * _DOT2_LANES,
+                                 min_tile=_DOT_MIN, min_lead=_DOT_MIN,
+                                 max_last=_DOT2_LANES)
+    if shape.vec is not None:
+        return derive_nest_tiles(chunks, max_lanes=_DOT_LANES,
+                                 min_tile=_DOT_MIN)
+    if shape.dot:
+        return derive_nest_tiles(chunks, max_lanes=_MV_LANES,
+                                 min_tile=_DOT_MIN)
+    if shape.long:
+        return derive_nest_tiles(chunks, max_lanes=_LONG_LANES, min_tile=1)
+    return derive_nest_tiles(chunks)
+
+
 class _Gen:
     """Walks the aten graphs of a span's stages in order, emitting one
     kernel body line by line; :meth:`stage` starts each stage."""
 
-    def __init__(self, plans):
+    def __init__(self, plans, traces):
         plan0 = plans[0]
         self.rank = plan0.rank
         self.lines: list[str] = []
+        self.head: list[str] = []
+        self.ind = ""
         self.n = 0
         self.flops = 0
-        self.kvars: dict[int, tuple[str, str]] = {}
+        self.full_scopes: dict[int, _Scope] = {}
         self.ptrs: dict[tuple, str] = {}
         self.inputs: list = []
-        self.fwd_vals: dict[str, tuple[_Val, tuple]] = {}
+        self.fwd_vals: dict[str, tuple[_Val | None, tuple]] = {}
         self.fwd_reads: list = []
+        self.iter_vecs: dict[tuple, str] = {}
         chs = plan0.chunks_axes
-        self.tiles = derive_nest_tiles(tuple(ch.chunk for ch in chs))
+        chunks = tuple(ch.chunk for ch in chs)
+        self.stage_roles = [_roles(ta, tb, plan.name)
+                            for plan, (ta, tb) in zip(plans, traces)]
+        default = math.prod(t.tile for t in derive_nest_tiles(chunks))
+        self.shape = _span_shape([
+            (ta.graph, r) for (ta, _), r in zip(traces, self.stage_roles)],
+            default)
+        self.tiles = _span_tiles(chunks, self.shape)
         self.block = math.prod(t.tile for t in self.tiles)
+        # the grid's value axis: the output of a row-times-matrix product,
+        # split into tiles of the product's column width
+        self.grid_scope, self.value_tiles = None, 1
+        if self.shape.vec is not None and not self.fits(self.shape.vec):
+            n = self.shape.vec
+            bt = self.vtile(n)
+            self.value_tiles = -(-n // bt)
+            self.grid_scope = _Scope(n, "gr", "gm", bt)
+            self.head.append(f"    gr = vt * {bt} + tl.arange(0, {bt})"
+                             "[None, :]")
+            self.head.append(f"    gm = gr < {n}")
         # 64-bit offsets once an input buffer or a dense output could pass
         # 2^31 elements; 32-bit below
         sizes = [math.prod(plan.context.vars[k].shape)
@@ -242,15 +421,15 @@ class _Gen:
         self.wide = max(sizes, default=0) >= _WIDE_ELEMS
         self.loops0 = plan0.nest.axes
 
-    def stage(self, si, plan, trace_a, trace_b, forwarded) -> None:
+    def stage(self, si, plan, trace_a, forwarded) -> None:
         """Begin stage ``si``: its graph's values, and the keys whose
         reads come from an earlier span stage's register tile."""
         self.si, self.plan = si, plan
         self.forwarded = frozenset(forwarded)
         self.vals = {}
-        self.roles = self._roles(trace_a, trace_b)
+        self.roles = self.stage_roles[si]
         self.constants = ctx_mod.graph_constants(trace_a.graph)
-        self.lines.append(f"    # stage {si}: {plan.name}")
+        self._line(f"# stage {si}: {plan.name}")
         for d, (it, name) in enumerate(zip(trace_a.iter_nodes, ("i0", "j0"))):
             loop, loop0 = plan.nest.axes[d], self.loops0[d]
             if (loop.start, loop.step) != (loop0.start, loop0.step):
@@ -265,25 +444,6 @@ class _Gen:
             self.vals[node] = _Val(mem=_Mem(key, tuple(info.shape), {},
                                             list(range(len(info.shape)))))
 
-    # -- lane/value roles from two traces ---------------------------------
-
-    def _roles(self, ta, tb):
-        na, nb = list(ta.graph.nodes), list(tb.graph.nodes)
-        if len(na) != len(nb) or any(
-                a.op != b.op or a.target != b.target for a, b in zip(na, nb)):
-            raise CompileError(
-                f"span kernel: the body of {self.plan.name!r} traces to "
-                "different graphs at different lane counts")
-        roles = {}
-        for a, b in zip(na, nb):
-            va, vb = a.meta.get("val"), b.meta.get("val")
-            if not isinstance(va, torch.Tensor):
-                continue
-            sa, sb = tuple(va.shape), tuple(vb.shape)
-            roles[a] = tuple("lane" if x != y else ("v" if x > 1 else "1")
-                             for x, y in zip(sa, sb))
-        return roles
-
     def _form(self, node):
         roles = self.roles[node]
         shape = tuple(node.meta["val"].shape)
@@ -292,42 +452,111 @@ class _Gen:
             raise CompileError(
                 f"span kernel: {node.target} in {self.plan.name!r} makes a "
                 f"per-lane value of shape {tuple(vdims)}; the template holds "
-                "at most one value axis per lane (ROADMAP: K1 tl.dot)")
+                "at most one value axis per lane")
         return "lane" in roles, (vdims[0] if vdims else None)
 
     # -- emission helpers ---------------------------------------------------
 
-    def emit(self, expr: str, dtype, lane: bool, k, flops: int = 0) -> _Val:
+    def _line(self, text: str) -> None:
+        self.lines.append(f"    {self.ind}{text}")
+
+    def emit(self, expr: str, dtype, lane: bool, k) -> _Val:
         name = f"v{self.n}"
         self.n += 1
-        self.lines.append(f"    {name} = {expr}")
-        self.flops += flops * (k or 1)
+        self._line(f"{name} = {expr}")
         return _Val(name, dtype, lane=lane, k=k)
 
-    def kvar(self, k: int) -> tuple[str, str]:
-        """(arange, mask) names of a padded value axis of length k."""
-        if k not in self.kvars:
-            kp = pow2_at_least(k)
-            if kp * self.block > _MAX_TILE_ELEMS:
+    def vtile(self, k: int) -> int:
+        """Width of one tile of a value axis of length k: the padded axis
+        if it fits the register budget, else the budget (a power of two
+        of at least 16, as ``tl.dot`` wants)."""
+        kp = pow2_at_least(k)
+        if self.shape.dot:
+            kp = max(kp, _DOT_MIN)
+        return min(kp, max(_DOT_MIN, _MAX_TILE_ELEMS // self.block))
+
+    def fits(self, k: int) -> bool:
+        kp = max(pow2_at_least(k), _DOT_MIN if self.shape.dot else 1)
+        return self.vtile(k) >= kp
+
+    def full_scope(self, k: int) -> _Scope:
+        """The one tile of a value axis that fits: the whole axis."""
+        if k not in self.full_scopes:
+            if not self.fits(k):
                 raise CompileError(
                     f"span kernel: a per-lane value axis of {k} elements in "
-                    f"{self.plan.name!r} does not fit the elementwise "
-                    "template's registers (ROADMAP: K1 tl.dot)")
+                    f"{self.plan.name!r} is needed whole here, and does not "
+                    "fit one register tile")
+            kp = self.vtile(k)
             r, m = f"kr{k}", f"km{k}"
-            self.lines.append(f"    {r} = tl.arange(0, {kp})[None, :]")
-            self.lines.append(f"    {m} = {r} < {k}")
-            self.kvars[k] = (r, m)
-        return self.kvars[k]
+            self.head.append(f"    {r} = tl.arange(0, {kp})[None, :]")
+            self.head.append(f"    {m} = {r} < {k}")
+            self.full_scopes[k] = _Scope(k, r, m, kp)
+        return self.full_scopes[k]
 
-    def cast(self, v: _Val, dtype) -> str:
+    @contextlib.contextmanager
+    def tiles_of(self, k: int, bt: int | None = None):
+        """A loop over the tiles of a value axis of length k; yields each
+        tile's scope (values emitted in it stay inside the loop)."""
+        bt = bt or self.vtile(k)
+        n = self.n
+        self.n += 1
+        self._line(f"for t{n} in range(0, {k}, {bt}):")
+        self.ind += "    "
+        self._line(f"r{n} = t{n} + tl.arange(0, {bt})[None, :]")
+        self._line(f"m{n} = r{n} < {k}")
+        try:
+            yield _Scope(k, f"r{n}", f"m{n}", bt, start=f"t{n}")
+        finally:
+            self.ind = self.ind[:-4]
+
+    def tile(self, v: _Val, scope: _Scope | None) -> str:
+        """``v``'s expression in ``scope`` (lane scalars: everywhere)."""
+        if v.expr is not None:
+            if v.scope is not None and v.scope is not scope:
+                raise CompileError(
+                    f"span kernel: a register tile of a value axis of {v.k} "
+                    f"elements in {self.plan.name!r} is read in another "
+                    "tiling of that axis")
+            return v.expr
+        if v.lazy is None or scope is None:
+            raise CompileError(
+                f"span kernel: a per-lane value of {v.k} elements in "
+                f"{self.plan.name!r} is read outside any tile of its axis")
+        # keyed by the emitter itself (held, so never a reused id)
+        if v.lazy not in scope.cache:
+            scope.cache[v.lazy] = v.lazy(scope)
+        return scope.cache[v.lazy]
+
+    def cast(self, v: _Val, dtype, scope: _Scope | None = None) -> str:
         if v.const is not None:
             return _lit(v.const, dtype)
+        e = self.tile(v, scope)
         if v.dtype == dtype:
-            return v.expr
-        return f"{v.expr}.to({_TL[dtype]})"
+            return e
+        return f"{e}.to({_TL[dtype]})"
+
+    def pointwise(self, fmt, args, od, lane, k, flops=1) -> _Val:
+        """An elementwise op over ``args`` (``(value, type)`` pairs, each
+        cast to its type): emitted now for lane scalars, per tile where
+        consumed for a value with a value axis."""
+        self.flops += flops * (k or 1)
+        if k is None:
+            return self.emit(fmt(*[self.cast(v, dt) for v, dt in args]), od,
+                             lane, None)
+        # operands computed by a K-loop first: the loop then runs before
+        # the others' tiles are loaded, which would stay live across it
+        order = sorted(range(len(args)), key=lambda i: not args[i][0].loop)
+
+        def emit_in(scope):
+            es = {i: self.cast(*args[i], scope) for i in order}
+            return self.emit(fmt(*[es[i] for i in range(len(args))]), od,
+                             lane, k).expr
+        return _Val(dtype=od, lane=lane, k=k, lazy=emit_in,
+                    loop=any(v.loop for v, _ in args))
 
     def ptr(self, kind: str, key: str) -> str:
-        tag = (self.si, key)
+        tag = (self.si, key, kind)
         if tag not in self.ptrs:
             self.ptrs[tag] = f"p{self.si}_{len(self.inputs)}"
             self.inputs.append((kind, self.si, key))
@@ -372,16 +601,16 @@ class _Gen:
             f"tl.minimum(tl.maximum(tl.where({e} < 0, {e} + {size}, {e}), "
             f"0), {size - 1})", torch.int32, v.lane, None).expr
 
-    def load(self, mem: _Mem, indices: list) -> _Val:
-        if mem.key in self.forwarded:
-            return self._forwarded(mem, indices)
-        plan = self.plan
-        key = mem.key
+    def _address(self, mem: _Mem, parts: dict,
+                 kind: str | None = None) -> tuple[str, str]:
+        """Pointer and element offset of ``env[mem.key]`` at ``parts[d]``
+        on each dim not fixed: an index value, or an expression (a token
+        ``@R@``/``@K@`` for a whole axis, filled in per tile).  ``kind``
+        names another form of the array the kernel is handed (``"replT"``:
+        its transpose, of shape ``mem.shape``)."""
+        plan, key = self.plan, mem.key
         dec = plan.vars[key]
-        info = plan.context.vars[key]
         shape = mem.shape
-        idx_by_dim = {d: (indices[p] if p < len(indices) else None)
-                      for p, d in enumerate(mem.remaining)}
         sharded = dec.in_strategy in ("shard", "shard_halo")
         n_sh = (1 if self.rank == 1 else dec.shard_ndim) if sharded else 0
         chs = plan.chunks_axes
@@ -391,49 +620,69 @@ class _Gen:
             slot = "slot" if self.rank == 1 else ("si", "sj")[d]
             offs.append(f"{slot} * {chs[d].chunk} + {halo[0]}")
             widths.append(window_extent(chs[d].chunk, halo))
-        exprs, lane, value_k = [], False, None
+        exprs = []
         for d, size in enumerate(shape):
             if d in mem.fixed:
                 exprs.append(str(mem.fixed[d]))
+            elif isinstance(parts[d], str):
+                exprs.append(parts[d])
+            else:
+                exprs.append(self._index_expr(
+                    parts[d], size, offs[d] if d < n_sh else None,
+                    widths[d] if d < n_sh else None))
+        if self.wide:       # offsets past 2^31 elements: 64-bit indices
+            exprs = [e if e.lstrip("-").isdigit() else f"({e}).to(tl.int64)"
+                     for e in exprs]
+        off = self._offset(exprs, shape, n_sh, widths)
+        return self.ptr(kind or ("win" if sharded else "repl"), key), off
+
+    def load(self, mem: _Mem, indices: list) -> _Val:
+        if mem.key in self.forwarded:
+            return self._forwarded(mem, indices)
+        plan, key = self.plan, mem.key
+        info = plan.context.vars[key]
+        idx_by_dim = {d: (indices[p] if p < len(indices) else None)
+                      for p, d in enumerate(mem.remaining)}
+        parts, lane, whole, index = {}, False, [], {}
+        for d, size in enumerate(mem.shape):
+            if d in mem.fixed:
                 continue
             ix = idx_by_dim.get(d)
             if ix is None:                       # a whole axis
                 if size == 1:
-                    exprs.append("0")
-                    continue
-                if value_k is not None:
-                    raise CompileError(
-                        f"span kernel: env[{key!r}] read with two whole "
-                        f"axes in {plan.name!r}; the template holds one "
-                        "value axis per lane (ROADMAP: K1 tl.dot)")
-                value_k = size
-                exprs.append(self.kvar(size)[0])
+                    parts[d] = "0"
+                else:
+                    whole.append(d)
+                    parts[d] = "@R@"
                 continue
             if not isinstance(ix, torch.fx.Node):
                 raise CompileError(
                     f"span kernel: index {ix!r} of env[{key!r}] is not a "
                     "tensor")
             v = self.value(ix)
-            if v.dtype is not None and not (v.dtype.is_floating_point
-                                            or v.dtype == torch.bool):
-                lane |= v.lane
-                exprs.append(self._index_expr(
-                    v, size, offs[d] if d < n_sh else None,
-                    widths[d] if d < n_sh else None))
-                continue
+            if v.dtype is None or v.dtype.is_floating_point \
+                    or v.dtype == torch.bool:
+                raise CompileError(
+                    f"span kernel: env[{key!r}] indexed by a {v.dtype} value "
+                    f"in {plan.name!r}")
+            lane |= v.lane
+            parts[d] = index[d] = v
+        if len(whole) > 1:
             raise CompileError(
-                f"span kernel: env[{key!r}] indexed by a {v.dtype} value in "
-                f"{plan.name!r}")
-        if self.wide:       # offsets past 2^31 elements: 64-bit indices
-            exprs = [e if e.lstrip("-").isdigit() else f"({e}).to(tl.int64)"
-                     for e in exprs]
-        off = self._offset(exprs, shape, n_sh, widths)
-        p = self.ptr("win" if sharded else "repl", key)
-        if value_k is not None:
-            km = self.kvar(value_k)[1]
-            return self.emit(f"tl.load({p} + {off}, mask={km}, other=0)",
-                             info.dtype, lane, value_k)
-        return self.emit(f"tl.load({p} + {off})", info.dtype, lane, None)
+                f"span kernel: env[{key!r}] read with two whole axes in "
+                f"{plan.name!r} outside a matrix product; the template holds "
+                "one value axis per lane")
+        p, off = self._address(mem, parts)
+        if not whole:
+            return self.emit(f"tl.load({p} + {off})", info.dtype, lane, None)
+        k = mem.shape[whole[0]]
+
+        def emit_in(scope):
+            o = off.replace("@R@", scope.r)
+            return self.emit(f"tl.load({p} + {o}, mask={scope.m}, other=0)",
+                             info.dtype, lane, k).expr
+        return _Val(dtype=info.dtype, lane=lane, k=k, lazy=emit_in,
+                    src=(mem, index, whole[0]))
 
     def _forwarded(self, mem: _Mem, indices: list) -> _Val:
         """A read of a key an earlier span stage wrote for the same
@@ -455,6 +704,9 @@ class _Gen:
         idx_by_dim = {d: (indices[p] if p < len(indices) else None)
                       for p, d in enumerate(mem.remaining)}
         fv, bases = self.fwd_vals[key]
+        if fv is None:
+            raise CompileError(f"{where}, stored tile by tile: no one "
+                               "register tile holds it")
         for d in range(n_sh):
             ix = idx_by_dim.get(d)
             v = self.value(ix) if isinstance(ix, torch.fx.Node) else None
@@ -488,8 +740,8 @@ class _Gen:
                 raise CompileError(f"{where} at a per-lane value index")
             pos = int(c.const)
         pos = pos + fv.k if pos < 0 else pos
-        r, _ = self.kvar(fv.k)
-        return self.emit(f"tl.sum(tl.where({r} == {pos}, {fv.expr}, 0), "
+        sc = self.full_scope(fv.k)
+        return self.emit(f"tl.sum(tl.where({sc.r} == {pos}, {fv.expr}, 0), "
                          "axis=1)[:, None]", fv.dtype, True, None)
 
     def _offset(self, exprs, shape, n_sh, widths) -> str:
@@ -530,6 +782,7 @@ class _Gen:
     _MATH = {aten.exp.default: "tl.exp", aten.log.default: "tl.log",
              aten.sqrt.default: "tl.sqrt"}
     _REDUCE = {aten.sum.dim_IntList: "sum", aten.sum.default: "sum",
+               aten.mean.dim: "mean", aten.mean.default: "mean",
                aten.amax.default: "max", aten.amin.default: "min"}
 
     def _result_type(self, vals) -> torch.dtype:
@@ -568,6 +821,19 @@ class _Gen:
             else:
                 self.vals[n] = self._select(n, self.value(args[0]))
             return
+        if t in _MEM_VIEWS and self.vals[args[0]].mem is not None:
+            # a transposed env array stays unloaded: a product reads it
+            m = self.vals[args[0]].mem
+            rem = list(m.remaining)
+            if t is aten.permute.default:
+                rem = [rem[p] for p in args[1]]
+            elif t is aten.transpose.int:
+                a, b = (x % len(rem) for x in args[1:3])
+                rem[a], rem[b] = rem[b], rem[a]
+            else:
+                rem = rem[::-1]
+            self.vals[n] = _Val(mem=_Mem(m.key, m.shape, m.fixed, rem))
+            return
         if t is aten.index.Tensor:
             src = self.vals[args[0]]
             if src.mem is None:
@@ -576,61 +842,69 @@ class _Gen:
                     f"{self.plan.name!r} is not supported")
             self.vals[n] = self.load(src.mem, list(args[1]))
             return
+        if t in _PRODUCTS:
+            self.vals[n] = self._product(n)
+            return
         od = n.meta["val"].dtype
         lane, k = self._form(n)
         if t in self._BIN:
             a, b = self.value(args[0]), self.value(args[1])
             alpha = n.kwargs.get("alpha", 1)
-            eb = self.cast(b, od)
-            if alpha != 1:
-                eb = f"({eb} * {_lit(alpha, od)})"
-            v = self.emit(f"({self.cast(a, od)} {self._BIN[t]} {eb})",
-                          od, lane, k, 1)
+            op = self._BIN[t]
+            sa = f" * {_lit(alpha, od)}" if alpha != 1 else ""
+            v = self.pointwise(lambda x, y: f"({x} {op} ({y}{sa}))"
+                               if sa else f"({x} {op} {y})",
+                               [(a, od), (b, od)], od, lane, k)
             if not (od.is_floating_point or od == torch.bool):
-                v.aff = _affine(self._BIN[t], a, b, alpha)
+                v.aff = _affine(op, a, b, alpha)
             self.vals[n] = v
         elif t in self._CMP:
             a, b = self.value(args[0]), self.value(args[1])
             ct = self._result_type([a, b])
-            self.vals[n] = self.emit(
-                f"({self.cast(a, ct)} {self._CMP[t]} {self.cast(b, ct)})",
-                od, lane, k, 1)
+            op = self._CMP[t]
+            self.vals[n] = self.pointwise(lambda x, y: f"({x} {op} {y})",
+                                          [(a, ct), (b, ct)], od, lane, k)
         elif t in (aten.maximum.default, aten.minimum.default):
             a, b = self.value(args[0]), self.value(args[1])
             fn = "tl.maximum" if t is aten.maximum.default else "tl.minimum"
-            self.vals[n] = self.emit(
-                f"{fn}({self.cast(a, od)}, {self.cast(b, od)})", od, lane, k, 1)
+            self.vals[n] = self.pointwise(lambda x, y: f"{fn}({x}, {y})",
+                                          [(a, od), (b, od)], od, lane, k)
         elif t in (aten.where.self, aten.where.ScalarSelf,
                    aten.where.ScalarOther, aten.where.Scalar):
             c, a, b = (self.value(x) for x in args[:3])
-            ec = self.cast(c, torch.bool)
-            self.vals[n] = self.emit(
-                f"tl.where({ec}, {self.cast(a, od)}, {self.cast(b, od)})",
-                od, lane, k, 1)
+            self.vals[n] = self.pointwise(
+                lambda x, y, z: f"tl.where({x}, {y}, {z})",
+                [(c, torch.bool), (a, od), (b, od)], od, lane, k)
         elif t in (aten.remainder.Scalar, aten.remainder.Tensor) \
                 and not od.is_floating_point:
             # Python's modulo (sign of the divisor) from C's remainder
             a, b = self.value(args[0]), self.value(args[1])
-            eb = self.cast(b, od)
-            r = self.emit(f"({self.cast(a, od)} % {eb})", od, lane, k, 1)
-            self.vals[n] = self.emit(
-                f"tl.where(({r.expr} != 0) & (({r.expr} < 0) != ({eb} < 0)), "
-                f"{r.expr} + {eb}, {r.expr})", od, lane, k, 2)
+            self.vals[n] = self.pointwise(
+                lambda x, y: (f"tl.where((({x} % {y}) != 0) & ((({x} % {y}) "
+                              f"< 0) != ({y} < 0)), ({x} % {y}) + {y}, "
+                              f"({x} % {y}))"),
+                [(a, od), (b, od)], od, lane, k, 3)
         elif t is aten.neg.default:
             x = self.value(args[0])
-            v = self.emit(f"(-{self.cast(x, od)})", od, lane, k, 1)
+            v = self.pointwise(lambda e: f"(-{e})", [(x, od)], od, lane, k)
             if x.aff is not None:
                 v.aff = (x.aff[0], -x.aff[1], -x.aff[2])
             self.vals[n] = v
         elif t is aten.abs.default:
-            self.vals[n] = self.emit(
-                f"tl.abs({self.cast(self.value(args[0]), od)})", od, lane, k, 1)
+            self.vals[n] = self.pointwise(lambda e: f"tl.abs({e})",
+                                          [(self.value(args[0]), od)], od,
+                                          lane, k)
         elif t is aten.reciprocal.default:
-            self.vals[n] = self.emit(
-                f"(1.0 / {self.cast(self.value(args[0]), od)})", od, lane, k, 1)
+            self.vals[n] = self.pointwise(lambda e: f"(1.0 / {e})",
+                                          [(self.value(args[0]), od)], od,
+                                          lane, k)
         elif t in self._MATH:
-            self.vals[n] = self._math(self._MATH[t], self.value(args[0]), od,
-                                      lane, k)
+            fn = self._MATH[t]
+            wd = od if od in (torch.float32, torch.float64) else torch.float32
+            tail = "" if wd == od else f".to({_TL[od]})"
+            self.vals[n] = self.pointwise(lambda e: f"{fn}({e}){tail}",
+                                          [(self.value(args[0]), wd)], od,
+                                          lane, k)
         elif t is aten._to_copy.default:
             x = self.value(args[0])
             if x.const is not None and not x.lane:
@@ -643,11 +917,11 @@ class _Gen:
                     v = float(v)
                 self.vals[n] = _Val(const=v, dtype=od, lane=lane, k=k)
             else:
-                v = self.emit(self.cast(x, od), od, lane, k)
+                v = self.pointwise(lambda e: e, [(x, od)], od, lane, k, 0)
                 if not (od.is_floating_point or od == torch.bool):
                     v.aff = x.aff
                 self.vals[n] = v
-        elif t in ctx_mod.VIEW_OPS:
+        elif t in _VIEWS:
             x = self.value(args[0])
             if x.k is not None and k != x.k:
                 raise CompileError(
@@ -659,10 +933,11 @@ class _Gen:
             if k is None:
                 self.vals[n] = _Val(const=fill, dtype=od, lane=lane)
             else:
-                kp = pow2_at_least(k)
-                self.vals[n] = self.emit(
-                    f"tl.full([1, {kp}], {_lit(fill, od)}, {_TL[od]})",
-                    od, False, k)
+                def emit_in(scope, fill=fill, od=od, k=k):
+                    return self.emit(f"tl.full([1, {scope.bt}], "
+                                     f"{_lit(fill, od)}, {_TL[od]})",
+                                     od, False, k).expr
+                self.vals[n] = _Val(dtype=od, lane=False, k=k, lazy=emit_in)
         elif t in self._REDUCE:
             self.vals[n] = self._reduce(n, self._REDUCE[t],
                                         self.value(args[0]), od, lane)
@@ -671,14 +946,8 @@ class _Gen:
                 f"span kernel: aten op {t} in the body of {self.plan.name!r} "
                 "is not supported by the Triton template (supported: "
                 "pointwise arithmetic, comparisons, where, exp/log/sqrt/abs, "
-                "affine env reads, sum/amax/amin over a trailing axis)")
-
-    def _math(self, fn, x, od, lane, k) -> _Val:
-        wd = od if od in (torch.float32, torch.float64) else torch.float32
-        e = f"{fn}({self.cast(x, wd)})"
-        if wd != od:
-            e = f"{e}.to({_TL[od]})"
-        return self.emit(e, od, lane, k, 1)
+                "affine env reads, sum/mean/amax/amin over a value axis, "
+                "mm/mv of a per-lane row and a replicated array)")
 
     def _select(self, n, x: _Val) -> _Val:
         roles = self.roles[n.args[0]]
@@ -690,9 +959,16 @@ class _Gen:
             return dataclasses.replace(x)
         k = x.k
         idx = n.args[2] + k if n.args[2] < 0 else n.args[2]
-        r, _ = self.kvar(k)
-        return self.emit(f"tl.sum(tl.where({r} == {idx}, {x.expr}, 0), "
-                         "axis=1)[:, None]", x.dtype, x.lane, None)
+        if self.fits(k):
+            sc = self.full_scope(k)
+            return self.emit(f"tl.sum(tl.where({sc.r} == {idx}, "
+                             f"{self.tile(x, sc)}, 0), axis=1)[:, None]",
+                             x.dtype, x.lane, None)
+        # one position of a tiled axis: a tile of width 1
+        pos = self.emit(f"tl.full([1, 1], {idx}, tl.int32)", torch.int32,
+                        False, None).expr
+        return _Val(self.tile(x, _Scope(k, pos, f"({pos} < {k})", 1)),
+                    x.dtype, lane=x.lane)
 
     def _reduce(self, n, kind, x: _Val, od, lane) -> _Val:
         roles = self.roles[n.args[0]]
@@ -706,24 +982,255 @@ class _Gen:
         vdims = [d for d in dims if roles[d] == "v"]
         if not vdims:
             return self.emit(self.cast(x, od), od, lane, None)
+        size = n.args[0].meta["val"].shape[vdims[0]]
         if x.k is None:     # a lane scalar broadcast along the reduced axis
-            size = n.args[0].meta["val"].shape[vdims[0]]
             e = self.cast(x, od)
             e = f"({e} * {size})" if kind == "sum" else e
             return self.emit(e, od, x.lane, None)
         k = x.k
-        _, m = self.kvar(k)
-        if kind == "sum":
-            e = f"tl.sum(tl.where({m}, {self.cast(x, od)}, 0), axis=1)[:, None]"
+        self.flops += k
+        op = "sum" if kind == "mean" else kind
+        if op == "sum":
+            ident = "0"
         else:
             ident = 'float("inf")' if od.is_floating_point else str(
                 torch.iinfo(od).max)
-            if kind == "max":
+            if op == "max":
                 ident = "-" + ident if od.is_floating_point else str(
                     torch.iinfo(od).min)
-            e = (f"tl.{kind}(tl.where({m}, {self.cast(x, od)}, {ident}), "
-                 "axis=1)[:, None]")
-        return self.emit(e, od, x.lane, None, k)
+
+        def part(sc):
+            return (f"tl.{op}(tl.where({sc.m}, {self.cast(x, od, sc)}, "
+                    f"{ident}), axis=1)[:, None]")
+        if self.fits(k):
+            v = self.emit(part(self.full_scope(k)), od, x.lane, None)
+        else:
+            # the first pass over the axis, tile by tile
+            rows = self.block if x.lane else 1
+            v = self.emit(f"tl.full([{rows}, 1], {ident}, {_TL[od]})", od,
+                          x.lane, None)
+            with self.tiles_of(k) as sc:
+                p = part(sc)
+                self._line(f"{v.expr} = ({v.expr} + {p})" if op == "sum" else
+                           f"{v.expr} = tl.{op}imum({v.expr}, {p})")
+        if kind == "mean":
+            v = self.emit(f"({v.expr} / {_lit(k, od)})", od, x.lane, None)
+        return v
+
+    # -- products -----------------------------------------------------------
+
+    def _dot_type(self, *dts) -> tuple:
+        """The operand type of a product and its ``tl.dot`` options:
+        16-bit operands of one type as they are (tensor cores, float32
+        accumulator); anything else in IEEE float32."""
+        if dts[0] in (torch.float16, torch.bfloat16) and len(set(dts)) == 1:
+            return dts[0], ""
+        for dt in dts:
+            if dt not in (torch.float32, torch.float16, torch.bfloat16):
+                raise CompileError(
+                    f"span kernel: a product of {dt} operands in "
+                    f"{self.plan.name!r}; tl.dot takes float32 and 16-bit "
+                    "floats")
+        return torch.float32, ', input_precision="ieee"'
+
+    def _product(self, n) -> _Val:
+        """``aten.mm``/``aten.mv`` with one per-lane operand (a row of the
+        lane, loaded or computed) and one replicated env array, either
+        side and either orientation; or, in a rank-2 nest, the outer tile
+        of a row per i-lane and a column per j-lane."""
+        t = n.target
+        x, y = (self.vals[a] for a in n.args[:2])
+        od = n.meta["val"].dtype
+        where = (f"span kernel: {t} in {self.plan.name!r}")
+        if t is aten.mv.default:
+            if x.mem is None and x.lane and x.k is not None \
+                    and y.mem is not None and len(y.mem.remaining) == 1:
+                return self._mv(x, y.mem, y.mem.remaining[0], od)
+            raise CompileError(f"{where}: the template multiplies a per-lane "
+                               "row by a replicated vector")
+        if x.mem is None and x.lane and y.mem is not None \
+                and len(y.mem.remaining) == 2:          # rows @ B
+            d_k, d_n = y.mem.remaining
+            return self._mm(x, y.mem, d_k, d_n, od)
+        if y.mem is None and y.lane and x.mem is not None \
+                and len(x.mem.remaining) == 2:          # B @ rows^T
+            d_n, d_k = x.mem.remaining
+            return self._mm(y, x.mem, d_k, d_n, od)
+        if self.rank == 2 and x.mem is None and y.mem is None and x.lane \
+                and y.lane and self.roles[n].count("lane") == 2:
+            return self._outer(x, y, od, where)
+        raise CompileError(
+            f"{where}: the template multiplies a per-lane row by a "
+            "replicated matrix (or, in a rank-2 nest, an i-row by a j-column)")
+
+    def _replicated(self, mem: _Mem, what: str) -> None:
+        dec = self.plan.vars[mem.key]
+        if mem.key in self.forwarded or dec.in_strategy in ("shard",
+                                                            "shard_halo"):
+            raise CompileError(
+                f"span kernel: the {what} operand env[{mem.key!r}] of a "
+                f"product in {self.plan.name!r} is not a replicated array")
+
+    def _k_loop(self, acc: str, k: int, bk: int, body) -> None:
+        """``acc = tl.dot(a, b, acc)`` over the K tiles of length ``k``:
+        ``body(kscope, kcol)`` returns the two operand expressions for a
+        K tile (``kscope``: positions ``[1, bk]``; ``kcol``: the same
+        positions as ``[bk, 1]``)."""
+        with self.tiles_of(k, bk) as ks:
+            kcol = f"{ks.r}c"
+            self._line(f"{kcol} = {ks.start} + tl.arange(0, {bk})[:, None]")
+            a, b, opts = body(ks, kcol)
+            self._line(f"{acc} = tl.dot({a}, {b}, {acc}{opts})")
+
+    @staticmethod
+    def _k_contiguous(mem: _Mem, d_k: int, d_n: int) -> bool:
+        """Whether a product's matrix runs along K in memory."""
+        return math.prod(mem.shape[d_k + 1:]) < math.prod(mem.shape[d_n + 1:])
+
+    def _mm(self, row: _Val, mem: _Mem, d_k: int, d_n: int, od) -> _Val:
+        self._replicated(mem, "matrix")
+        k, nn = mem.shape[d_k], mem.shape[d_n]
+        if row.k != k:
+            raise CompileError(
+                f"span kernel: a product in {self.plan.name!r} contracts a "
+                f"per-lane row of {row.k} with {k} rows of env[{mem.key!r}]")
+        dt, opts = self._dot_type(row.dtype, self.plan.context.vars[
+            mem.key].dtype)
+        bk = min(max(pow2_at_least(k), _DOT_MIN), _BK)
+        self.flops += 2 * k * nn
+        last = len(mem.shape) - 2
+        if self._k_contiguous(mem, d_k, d_n) and {d_k, d_n} == {last,
+                                                               last + 1}:
+            # a matrix that runs along K (A.T in syrk, covariance's rows):
+            # Triton's FMA dot reads such a tile 2.9x slower (its shared
+            # tile is not swizzled for the transposed read;
+            # tools/k1_product_variants.py), so the kernel is handed the
+            # transpose, copied by kernel_args, and reads it along N
+            swap = {last: last + 1, last + 1: last}
+            mem = _Mem(mem.key, mem.shape[:last] + mem.shape[last:][::-1],
+                       mem.fixed, [])
+            d_k, d_n, kind = swap[d_k], swap[d_n], "replT"
+        else:
+            kind = None
+        p, off = self._address(mem, {d_k: "@K@", d_n: "@R@"}, kind)
+        block = self.block
+
+        def emit_in(scope):
+            if scope.bt < _DOT_MIN:
+                raise CompileError(
+                    f"span kernel: one position of a product's output in "
+                    f"{self.plan.name!r}; tl.dot needs 16 columns")
+            acc = f"acc{self.n}"
+            self.n += 1
+            self._line(f"{acc} = tl.zeros([{block}, {scope.bt}], tl.float32)")
+
+            def body(ks, kcol):
+                a = self.cast(row, dt, ks)
+                a = self.emit(f"tl.broadcast_to({a}, [{block}, {bk}])", dt,
+                              True, k).expr
+                o = off.replace("@K@", kcol).replace("@R@", scope.r)
+                b = self.emit(f"tl.load({p} + {o}, mask=({kcol} < {k}) & "
+                              f"{scope.m}, other=0).to({_TL[dt]})", dt, False,
+                              None).expr
+                return a, b, opts
+            self._k_loop(acc, k, bk, body)
+            return self.emit(f"{acc}.to({_TL[od]})", od, True, nn).expr
+        return _Val(dtype=od, lane=True, k=nn, lazy=emit_in, loop=True)
+
+    def _mv(self, row: _Val, mem: _Mem, d_k: int, od) -> _Val:
+        """A per-lane row times a replicated vector: ``tl.dot`` with the
+        vector broadcast over 16 columns, column 0 kept."""
+        self._replicated(mem, "vector")
+        k = mem.shape[d_k]
+        if row.k != k:
+            raise CompileError(
+                f"span kernel: a product in {self.plan.name!r} contracts a "
+                f"per-lane row of {row.k} with env[{mem.key!r}] of {k}")
+        dt, opts = self._dot_type(row.dtype, self.plan.context.vars[
+            mem.key].dtype)
+        bk = min(max(pow2_at_least(k), _DOT_MIN), _BK_MV)
+        self.flops += 2 * k
+        p, off = self._address(mem, {d_k: "@K@"})
+        block, w = self.block, _DOT_MIN
+        acc = f"acc{self.n}"
+        self.n += 1
+        self._line(f"{acc} = tl.zeros([{block}, {w}], tl.float32)")
+
+        def body(ks, kcol):
+            a = self.cast(row, dt, ks)
+            a = self.emit(f"tl.broadcast_to({a}, [{block}, {bk}])", dt, True,
+                          k).expr
+            b = self.emit(f"tl.broadcast_to(tl.load({p} + "
+                          f"{off.replace('@K@', kcol)}, mask={kcol} < {k}, "
+                          f"other=0).to({_TL[dt]}), [{bk}, {w}])", dt, False,
+                          None).expr
+            return a, b, opts
+        self._k_loop(acc, k, bk, body)
+        return self.emit(f"tl.sum(tl.where(tl.arange(0, {w})[None, :] == 0, "
+                         f"{acc}, 0.0), axis=1)[:, None].to({_TL[od]})", od,
+                         True, None)
+
+    def _iter_vec(self, d: int) -> str:
+        """The stage's iterator over the tile's own lanes of axis ``d``
+        alone: ``[tile_i, 1]`` for i, ``[1, tile_j]`` for j."""
+        tag = (self.si, d)
+        if tag not in self.iter_vecs:
+            loop = self.plan.nest.axes[d]
+            ch, tl_ = self.plan.chunks_axes[d], self.tiles[d]
+            s, t = ("si", "ti") if d == 0 else ("sj", "tj")
+            shape = "[:, None]" if d == 0 else "[None, :]"
+            name = f"{'ij'[d]}v{self.si}"
+            self.head.append(
+                f"    {name} = ({loop.start} + {loop.step} * tl.minimum("
+                f"{s} * {ch.chunk} + {t} * {tl_.tile} + tl.arange(0, "
+                f"{tl_.tile}){shape}, {loop.trip_count - 1})).to(tl.int32)")
+            self.iter_vecs[tag] = name
+        return self.iter_vecs[tag]
+
+    def _outer_operand(self, v: _Val, axis: int, where: str):
+        """Pointer, offset (``@K@`` for the contracted axis) and length of
+        a rank-2 product's operand: a row of env read at an index affine
+        in the iterator of nest axis ``axis`` alone."""
+        if v.src is None:
+            raise CompileError(f"{where}: a rank-2 product of a computed "
+                               "operand; the template reads env rows")
+        mem, index, d_k = v.src
+        (d, ix), = index.items() if len(index) == 1 else ((None, None),)
+        if ix is None or ix.aff is None or ix.aff[0] != axis:
+            raise CompileError(f"{where}: an operand's row index is not "
+                               f"affine in nest axis {axis}")
+        _, a, b = ix.aff
+        iv = self._iter_vec(axis)
+        # the index over this tile's lanes of one axis: a * iterator + b
+        e = self.emit(f"({a} * {iv} + {b})", torch.int32, True, None)
+        p, off = self._address(mem, {d: e, d_k: "@K@"})
+        return p, off, mem.shape[d_k], self.plan.context.vars[mem.key].dtype
+
+    def _outer(self, x: _Val, y: _Val, od, where) -> _Val:
+        pa, offa, k, dta = self._outer_operand(x, 0, where)
+        pb, offb, kb, dtb = self._outer_operand(y, 1, where)
+        if k != kb:
+            raise CompileError(f"{where}: operands of {k} and {kb}")
+        dt, opts = self._dot_type(dta, dtb)
+        bk = min(max(pow2_at_least(k), _DOT_MIN), _BK)
+        ti, tj = (t.tile for t in self.tiles)
+        self.flops += 2 * k
+        acc = f"acc{self.n}"
+        self.n += 1
+        self._line(f"{acc} = tl.zeros([{ti}, {tj}], tl.float32)")
+
+        def body(ks, kcol):
+            a = self.emit(f"tl.load({pa} + {offa.replace('@K@', ks.r)}, "
+                          f"mask={ks.m}, other=0).to({_TL[dt]})", dt, True,
+                          k).expr
+            b = self.emit(f"tl.load({pb} + {offb.replace('@K@', kcol)}, "
+                          f"mask={kcol} < {k}, other=0).to({_TL[dt]})", dt,
+                          True, k).expr
+            return a, b, opts
+        self._k_loop(acc, k, bk, body)
+        # [tile_i, tile_j] is the flat block's own order (f = li * tj + lj)
+        return self.emit(f"tl.reshape({acc}, [{self.block}, 1])"
+                         f".to({_TL[od]})", od, True, None)
 
     # -- stores -------------------------------------------------------------
 
@@ -736,25 +1243,10 @@ class _Gen:
                 f"span kernel: {key!r} takes per-iteration values of shape "
                 f"{vshape}; the template stores at most one value axis")
         v = self.value(leaf)
-        kp = pow2_at_least(vshape[0]) if vshape else 1
-        mask = "lmask"
-        if vshape:
-            r, m = self.kvar(vshape[0])
-            mask = f"lmask & {m}"
-        e = self.cast(v, dt)
-        if v.const is not None:
-            e = f"tl.full([{self.block}, {kp}], {e}, {_TL[dt]})"
-        elif not v.lane or (vshape and v.k is None):
-            # broadcast to the whole tile
-            e = f"tl.where({mask}, {e}, {e})"
         dec = self.plan.vars[key]
-        if dec.out_strategy in ("identity", "partial"):
-            # the tile a later span stage reads in place of this output,
-            # and where this stage wrote lane k on each axis (k + base)
-            tile = self.emit(e, dt, True, vshape[0] if vshape else None)
-            maps = ((dec.write_map,) if self.rank == 1 else dec.write_maps)
-            self.fwd_vals[key] = (tile, tuple(m.b for m in maps))
-            e = tile.expr
+        fwd = dec.out_strategy in ("identity", "partial")
+        maps = ((dec.write_map,) if self.rank == 1 else dec.write_maps)
+        bases = tuple(m.b for m in maps) if fwd else ()
         if self.rank == 1:
             c = self.plan.chunks.chunk
             base = f"(slot * {c} + lane)"
@@ -763,24 +1255,72 @@ class _Gen:
             sj = ch_j.local_chunks * ch_j.num_devices
             base = (f"((si * {ch_i.chunk} + li) * {sj * ch_j.chunk} + "
                     f"sj * {ch_j.chunk} + lj)")
-        if vshape:
-            self.lines.append(f"    tl.store({out_ptr} + {base} * "
-                              f"{vshape[0]} + {r}, {e}, mask={mask})")
+        gs = self.grid_scope
+        # a program of the grid's value axis stores its own tile of that
+        # axis; other values once, from value tile 0
+        once = " & (vt == 0)" if gs is not None and not (
+            vshape and vshape[0] == gs.length) else ""
+        if not vshape:
+            e = self.cast(v, dt)
+            if v.const is not None:
+                e = f"tl.full([{self.block}, 1], {e}, {_TL[dt]})"
+            elif not v.lane:
+                e = f"tl.where(lmask, {e}, {e})"
+            if fwd:
+                # the tile a later span stage reads in place of this output,
+                # and where this stage wrote lane k on each axis (k + base)
+                tile = self.emit(e, dt, True, None)
+                self.fwd_vals[key] = (tile, bases)
+                e = tile.expr
+            self._line(f"tl.store({out_ptr} + {base}, {e}, mask=lmask{once})")
+            return
+        k = vshape[0]
+        if gs is not None and k == gs.length:
+            self._store_tile(v, gs, key, dt, fwd, bases, out_ptr, base, "")
+        elif self.fits(k):
+            self._store_tile(v, self.full_scope(k), key, dt, fwd, bases,
+                             out_ptr, base, once)
         else:
-            self.lines.append(f"    tl.store({out_ptr} + {base}, {e}, "
-                              "mask=lmask)")
+            if fwd:
+                self.fwd_vals[key] = (None, bases)
+            with self.tiles_of(k) as sc:
+                self._store_tile(v, sc, key, dt, False, bases, out_ptr, base,
+                                 once)
+
+    def _store_tile(self, v, sc, key, dt, fwd, bases, out_ptr, base,
+                    once) -> None:
+        k = sc.length
+        mask = f"lmask & {sc.m}{once}"
+        e = self.cast(v, dt, sc)
+        if v.const is not None:
+            e = f"tl.full([{self.block}, {sc.bt}], {e}, {_TL[dt]})"
+        elif not v.lane or v.k is None:
+            # broadcast to the whole tile
+            e = f"tl.where({mask}, {e}, {e})"
+        if fwd:
+            if sc is self.full_scopes.get(k):
+                tile = self.emit(e, dt, True, k)
+                tile.scope = sc
+                self.fwd_vals[key] = (tile, bases)
+                e = tile.expr
+            else:
+                self.fwd_vals[key] = (None, bases)
+        self._line(f"tl.store({out_ptr} + {base} * {k} + {sc.r}, {e}, "
+                   f"mask={mask})")
 
 
-def _prologue(plan, tiles, wide: bool) -> str:
+def _prologue(plan, tiles, wide: bool, value_tiles: int) -> str:
     w = ".to(tl.int64)" if wide else ""
+    vsplit = VSPLIT.format(nv=value_tiles) if value_tiles > 1 else ""
     if plan.rank == 1:
         ch, loop = plan.chunks, plan.loop
         return PROLOGUE1.format(
-            wide=w, nt=tiles[0].n_tiles, tile=tiles[0].tile, c=ch.chunk,
-            start=loop.start, step=loop.step, tmax=loop.trip_count - 1)
+            wide=w, vsplit=vsplit, nt=tiles[0].n_tiles, tile=tiles[0].tile,
+            c=ch.chunk, start=loop.start, step=loop.step,
+            tmax=loop.trip_count - 1)
     (ch_i, ch_j), (lp_i, lp_j) = plan.chunks_axes, plan.nest.axes
     return PROLOGUE2.format(
-        wide=w, ntj=tiles[1].n_tiles, nti=tiles[0].n_tiles,
+        wide=w, vsplit=vsplit, ntj=tiles[1].n_tiles, nti=tiles[0].n_tiles,
         nsj=live_slots(plan)[1],
         lanes=tiles[0].tile * tiles[1].tile, ti=tiles[0].tile,
         tj=tiles[1].tile, ci=ch_i.chunk, cj=ch_j.chunk,
@@ -860,11 +1400,12 @@ def generate_span(stages, device=None) -> SpanSource:
             "collective lowering only")
     _check_span_geometry(plans)
     device = torch.device("cpu") if device is None else device
-    gen = _Gen(plans)
+    traces = [_traces(plan, program, device) for plan, program, _ in stages]
+    gen = _Gen(plans, traces)
     outputs = []
-    for si, (plan, program, forwarded) in enumerate(stages):
-        trace_a, trace_b = _traces(plan, program, device)
-        gen.stage(si, plan, trace_a, trace_b, forwarded)
+    for si, ((plan, program, forwarded), (trace_a, _)) in enumerate(
+            zip(stages, traces)):
+        gen.stage(si, plan, trace_a, forwarded)
         for node in trace_a.graph.nodes:
             gen.node(node)
         updates = trace_a.updates()
@@ -875,7 +1416,9 @@ def generate_span(stages, device=None) -> SpanSource:
     plan0 = plans[0]
     params = [f"p{si}_{i}" for i, (_, si, _) in enumerate(gen.inputs)] + \
         [f"o{si}_{i}" for i, (si, _, _, _) in enumerate(outputs)]
-    body = _prologue(plan0, gen.tiles, gen.wide) + "\n".join(gen.lines) + "\n"
+    body = (_prologue(plan0, gen.tiles, gen.wide, gen.value_tiles)
+            + "".join(line + "\n" for line in gen.head)
+            + "\n".join(gen.lines) + "\n")
     digest = hashlib.sha256(
         (",".join(params) + body).encode()).hexdigest()[:16]
     fn_name = f"span_{digest}"
@@ -887,11 +1430,14 @@ def generate_span(stages, device=None) -> SpanSource:
         "import triton\nimport triton.language as tl\n\n\n"
         f"@triton.jit\ndef {fn_name}({', '.join(params)}):\n{body}")
     n_prog = math.prod(live_slots(plan0)) \
-        * math.prod(t.n_tiles for t in gen.tiles)
+        * math.prod(t.n_tiles for t in gen.tiles) * gen.value_tiles
     return SpanSource(fn_name=fn_name, text=text, inputs=tuple(gen.inputs),
                       outputs=tuple(outputs), n_programs=n_prog,
                       flops_per_lane=gen.flops,
-                      forwarded=tuple(dict.fromkeys(gen.fwd_reads)))
+                      forwarded=tuple(dict.fromkeys(gen.fwd_reads)),
+                      tiles=gen.tiles, value_tiles=gen.value_tiles,
+                      num_warps=_MV_WARPS if gen.shape.dot and not (
+                          gen.shape.vec or gen.shape.outer) else NUM_WARPS)
 
 
 # ---------------------------------------------------------------------------
@@ -924,20 +1470,33 @@ def _kernel(source: SpanSource):
     return fn
 
 
+def kernel_args(source: SpanSource, stage_io) -> list:
+    """The kernel's pointer arguments from ``stage_io`` (``(windows,
+    env_repl)`` per stage): each input contiguous, and a matrix that a
+    product reads transposed (kind ``"replT"``) as a contiguous copy with
+    its last two dims swapped, so that the kernel's tiles of it run
+    along N."""
+    args = []
+    for kind, si, key in source.inputs:
+        t = stage_io[si][0 if kind == "win" else 1][key]
+        args.append(t.transpose(-2, -1).contiguous() if kind == "replT"
+                    else t.contiguous())
+    return args
+
+
 def launch_span(source: SpanSource, stage_io, device: torch.device) -> list:
     """One launch over every rank's chunks for a whole span;
     ``stage_io``: ``(windows, env_repl)`` per stage.  Returns each
     stage's dense values."""
     global LAUNCHES
     fn = _kernel(source)
-    args = [stage_io[si][0 if kind == "win" else 1][key].contiguous()
-            for kind, si, key in source.inputs]
+    args = kernel_args(source, stage_io)
     outs = [{} for _ in stage_io]
     flat = []
     for si, key, shape, dtype in source.outputs:
         outs[si][key] = torch.empty(shape, dtype=dtype, device=device)
         flat.append(outs[si][key])
-    fn[(source.n_programs,)](*args, *flat, num_warps=NUM_WARPS)
+    fn[(source.n_programs,)](*args, *flat, num_warps=source.num_warps)
     LAUNCHES += 1
     return outs
 

@@ -519,7 +519,8 @@ def test_port_imports_neither_jax_nor_the_reference():
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]
-            assert top not in ("jax", "jaxlib", "repro", "flax", "optax"), (
+            assert top not in ("jax", "jaxlib", "repro", "flax", "optax",
+                               "benchmarks"), (
                 f"{path.relative_to(REPO)} imports {name}")
 
 

@@ -153,7 +153,7 @@ def make_case2(seed: int, family: str | None = None, device="cpu"):
         def prog(i, j, env):
             return {"s": omp.red(env["x"][i, j])}
 
-    else:  # matmul2: dot(A[i], B[:, j]) as a product and a trailing sum
+    else:  # matmul2
         n = rng.randint(3, 9)
         m = rng.randint(3, 9)
         rng.randint(2, 6)
@@ -162,7 +162,7 @@ def make_case2(seed: int, family: str | None = None, device="cpu"):
                           name=f"mm_{seed}")
         def prog(i, j, env):
             return {"C": omp.at((i, j),
-                                (env["A"][i] * env["B"][:, j]).sum())}
+                                torch.dot(env["A"][i], env["B"][:, j]))}
 
     assert prog.bounds == jprog.bounds, (prog.bounds, jprog.bounds)
     assert prog.name == jprog.name and prog.reduction == jprog.reduction

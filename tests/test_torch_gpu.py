@@ -1,6 +1,7 @@
 """The port's kernels on the card against their plain PyTorch versions:
-the span kernel (K1, Triton) on every block family, flash attention
-(K2, CUDA C++) and the SSD scan (K3, CUDA C++) on their test cases.
+the span kernel (K1, Triton) on every block family and on PolyBench's
+products, flash attention (K2, CUDA C++) and the SSD scan (K3, CUDA C++)
+on their test cases.
 
 Marked ``gpu``: it skips without a CUDA card.  Run it on the machine with
 the card (it needs neither JAX nor the reference package)::
@@ -27,6 +28,22 @@ def test_span_kernel_on_the_card_matches_plain():
                                  span_kernel, prog, env, mesh, "slice",
                                  f"family {prog.name}")
 
+
+
+@pytest.mark.gpu
+def test_polybench_products_on_the_card():
+    """``chip_smoke.py``'s polybench phase on four kernels at EXTRALARGE
+    size (a row-times-matrix, a matrix-vector, a transposed matrix and a
+    two-pass centring): both lowerings == ``run_reference``, K1's
+    launches, each span against its plain version (which also rejects
+    TF32 products)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import chip_smoke
+
+    rows = chip_smoke.polybench_phase(torch, torch.device("cuda"), "test",
+                                      ("gemm", "atax", "syrk", "covariance"))
+    assert [r["launches"] for r in rows] == [1, 3, 1, 2]
 
 
 @pytest.mark.gpu

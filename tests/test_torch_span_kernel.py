@@ -78,6 +78,20 @@ def _fake_modules(state):
     tl.sum = lambda x, axis: _arr(np.sum(x, axis=axis, dtype=np.asarray(x).dtype))
     tl.max = lambda x, axis: _arr(np.max(x, axis=axis))
     tl.min = lambda x, axis: _arr(np.min(x, axis=axis))
+    tl.zeros = lambda shape, dt: _arr(np.zeros(shape, dtype=dt))
+    tl.reshape = lambda x, shape: _arr(np.reshape(np.asarray(x), shape))
+    tl.broadcast_to = lambda x, shape: _arr(np.broadcast_to(x, shape))
+
+    def dot(a, b, acc=None, input_precision=None):
+        # tl.dot's shape rules, and a float32 accumulator
+        assert np.ndim(a) == np.ndim(b) == 2 and min(*np.shape(a),
+                                                     *np.shape(b)) >= 16
+        assert input_precision == "ieee" or np.asarray(a).dtype in (
+            np.float16,)
+        out = np.matmul(np.asarray(a, np.float32), np.asarray(b, np.float32))
+        return _arr(out if acc is None else np.asarray(acc) + out)
+
+    tl.dot = dot
 
     def load(ptr, mask=None, other=0):
         off = np.asarray(ptr.off)
@@ -140,8 +154,9 @@ def emulate_span(source, stage_io, fill=0.0):
                 sys.modules.pop(k, None)
             else:
                 sys.modules[k] = v
-    args = [stage_io[si][0 if kind == "win" else 1][key].contiguous()
-            for kind, si, key in source.inputs]
+    from repro_torch.kernels import span_kernel
+
+    args = span_kernel.kernel_args(source, stage_io)
     outs = [{} for _ in stage_io]
     for si, key, shape, dtype in source.outputs:
         outs[si][key] = torch.full(shape, fill, dtype=dtype)
@@ -306,9 +321,11 @@ def test_chip_smoke_check_rejects_a_wrong_kernel_at_any_scale():
 
 
 def test_unsupported_op_raises_compile_error_naming_it():
-    """A row-times-matrix body (``torch.dot`` vmaps to ``aten.mm``) needs
-    tl.dot: the kernel lowering refuses it at compile time, naming the op;
-    the collective lowering still runs it."""
+    """A rank-2 ``torch.dot(A[i], B[:, j])`` body (``aten.mm`` of an
+    i-row and a j-column) is no longer outside the template: the kernel
+    lowering compiles it to the outer tile ``A[tile_i, K] @ B[K, tile_j]``
+    on ``tl.dot``, equal to the collective lowering; the generated
+    kernel equals the plain version on 1x1 and 2x2 meshes."""
     from repro_torch import omp
 
     @omp.parallel_for(stop=(3, 4), collapse=2)
@@ -318,10 +335,77 @@ def test_unsupported_op_raises_compile_error_naming_it():
     env = {"A": torch.ones(3, 5), "B": torch.ones(5, 4),
            "C": torch.zeros(3, 4)}
     mesh = omp.make_mesh((1, 1), ("i", "j"), device="cpu")
-    with pytest.raises(omp.CompileError, match="aten.mm"):
-        omp.compile(mm, mesh, lowering="kernel", env_like=env)
+    comp = omp.compile(mm, mesh, lowering="kernel", env_like=env)
+    assert "tl.dot(" in comp.kernel_plan.spans[0].source.text
     out = omp.compile(mm, mesh, lowering="collective")(env)
     np.testing.assert_allclose(out["C"].numpy(), np.full((3, 4), 5.0))
+    np.testing.assert_allclose(comp(env)["C"].numpy(), out["C"].numpy())
+
+    @omp.parallel_for(start=(1, 0), stop=(21, 19), collapse=2)
+    def mm2(i, j, env):
+        return {"C": omp.at((i, j), torch.dot(env["A"][i], env["B"][:, j]))}
+
+    g = np.random.default_rng(3)
+    env = {"A": torch.tensor(g.standard_normal((22, 37), np.float32)),
+           "B": torch.tensor(g.standard_normal((37, 19), np.float32)),
+           "C": torch.zeros(22, 19)}
+    for shape in ((1, 1), (2, 2)):
+        _check_family((mm2, env), shape, ("i", "j"), "slice")
+
+
+def test_generated_product_forms(monkeypatch):
+    """Products the generator lays out otherwise than PolyBench's: a
+    computed per-lane row times a slice ``W[1]`` of a 3-D array read
+    transposed (handed over as a copy with its last two dims swapped), a
+    matrix times the row (``M @ row``), a product reduced over its own
+    output (the K-loop inside the sum's loop), a mean, and one position
+    of a computed row — each equal to the plain version, with the
+    register-tile cap at its default and lowered to 16."""
+    from repro_torch import omp
+    from repro_torch.kernels import span_kernel
+
+    @omp.parallel_for(stop=23, reduction={"s": "+"})
+    def forms(i, env):
+        row = 2.0 * env["A"][i] + 1.0
+        v = row @ env["W"][1].T + env["M"] @ env["A"][i]
+        return {"y": omp.at(i, v - torch.mean(v)),
+                "s": omp.red((env["A"][i] @ env["B"]).sum() + row[3])}
+
+    g = np.random.default_rng(4)
+    env = {"A": torch.tensor(g.standard_normal((23, 37), np.float32)),
+           "W": torch.tensor(g.standard_normal((2, 29, 37), np.float32)),
+           "M": torch.tensor(g.standard_normal((29, 37), np.float32)),
+           "B": torch.tensor(g.standard_normal((37, 19), np.float32)),
+           "y": torch.zeros(23, 29), "s": torch.zeros(())}
+    for cap in (span_kernel._MAX_TILE_ELEMS, 16):
+        monkeypatch.setattr(span_kernel, "_MAX_TILE_ELEMS", cap)
+        comp = omp.compile(forms, omp.make_mesh((2,), ("data",),
+                                                device="cpu"),
+                           lowering="kernel", env_like=env)
+        source = comp.kernel_plan.spans[0].source
+        assert source.text.count("tl.dot(") == 3
+        assert ("replT", 0, "W") in source.inputs
+        for p in (1, 3):
+            _check_family((forms, env), (p,), ("data",), "replicate")
+
+
+def test_op_outside_the_template_raises_compile_error_naming_it():
+    """An op the template cannot express (a scan along the row) is
+    refused at compile time by the kernel lowering, naming the op; the
+    collective lowering still runs it."""
+    from repro_torch import omp
+
+    @omp.parallel_for(stop=6)
+    def scan(i, env):
+        return {"Y": omp.at(i, torch.cumsum(env["X"][i], 0))}
+
+    env = {"X": torch.ones(6, 5), "Y": torch.zeros(6, 5)}
+    mesh = omp.make_mesh((2,), ("data",), device="cpu")
+    with pytest.raises(omp.CompileError, match="aten.cumsum"):
+        omp.compile(scan, mesh, lowering="kernel", env_like=env)
+    out = omp.compile(scan, mesh, lowering="collective")(env)
+    np.testing.assert_allclose(out["Y"].numpy(),
+                               np.tile(np.arange(1.0, 6.0), (6, 1)))
 
 
 def test_cuda_tensor_never_reaches_the_plain_version(monkeypatch):
