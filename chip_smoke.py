@@ -54,6 +54,8 @@ non-zero (no phase catches an error and carries on):
    types, register-tiled FMAs for float32) against their plain version on
    the card: the 7 cases of ``tests/test_kernels.py`` in their own types
    and again in bfloat16, a head_dim of 72 in bfloat16 and float32, a
+   head_dim of 100 (not a multiple of 8: the wrapper zero-pads q, k, v to
+   104 and cuts the output back) in bfloat16 and float32, a
    ragged head_dim of 256 (B=1, H=2, KV=1, S=300) in bfloat16 and
    float16, and gemma3-1b's two attention shapes (H=4, KV=1, hd=256,
    S=4096, causal, window 512 and none) at B=1 and B=2 in bfloat16 and
@@ -162,22 +164,32 @@ non-zero (no phase catches an error and carries on):
 17. **polybench** — the 10 linear-algebra kernels of
     ``repro_torch.polybench`` (``gemm``, ``2mm``, ``3mm``, ``atax``,
     ``bicg``, ``mvt``, ``gesummv``, ``syrk``, ``syr2k``, ``covariance``)
-    at PolyBench/C 4.2.1 EXTRALARGE size, float32, 8 ranks, ``static``
-    schedule, with ``torch.backends.cuda.matmul.allow_tf32`` False
-    (asserted and printed): ``Compiled.run`` under ``collective`` and
-    ``kernel`` against ``run_reference`` (rtol=atol=1e-4); K1 launches
-    once per block (counted around the kernel run); every product block's
-    kernel holds one ``tl.dot`` per ``mm``/``mv`` in IEEE float32; each
-    span against ``span_values_plain`` under ``agree`` (phase 4's tol;
-    1e-5 on a matrix product's span, ``PB_MM_TOL``) and ``agree_rows``
-    (one row per lane, phase 4's tol), both rejecting the plain values x
-    1.001 and zeros, and for the ``mm`` bodies the plain values computed
-    with TF32 allowed; times as in phase 5 (bound: each env array read
-    once and each output written once at 3.35 TB/s, or the flops of the
-    span at 67 TFLOP/s, 2·M·N·K for a product), the library call
-    ``torch.addmm``/``mm``/``mv``/``addmv`` per block where one computes
-    the block's values (null for ``gesummv`` and ``syr2k``), and
-    ``Compiled.run`` per lowering.
+    and the stencil ``jacobi2d`` (N = 2800, one sweep, its rows' columns
+    wrapped by ``torch.roll``) at PolyBench/C 4.2.1 EXTRALARGE size,
+    float32, 8 ranks, ``static`` schedule, with
+    ``torch.backends.cuda.matmul.allow_tf32`` False (asserted and
+    printed): ``Compiled.run`` under ``collective`` and ``kernel``
+    against ``run_reference`` (rtol=atol=1e-4); K1 launches once per
+    block (counted around the kernel run); every block's kernel holds one
+    ``tl.dot`` per ``mm``, each stating its float32 precision (3xTF32 or
+    IEEE, never a bare TF32), and one row-sum K loop per ``mv`` (no
+    ``tl.dot``); each span against ``span_values_plain`` under ``agree``
+    (phase 4's tol; 1e-5 on a matrix product's span, ``PB_MM_TOL``) and
+    ``agree_rows`` (one row per lane, phase 4's tol), both rejecting the
+    plain values x 1.001 and zeros, for the ``mm`` bodies the plain
+    values computed with TF32 allowed, and for jacobi2d the plain values
+    moved by one lane; each span launched twice on the same input, equal
+    bit for bit; per block the kernel (its calls back to back, which a
+    short span's host launch sets, and its device time alone,
+    ``device_ms``), its plain version, the library call
+    ``torch.addmm``/``mm``/``mv``/``addmv`` where one computes the
+    block's values (null for ``gesummv``, ``syr2k`` and ``jacobi2d``;
+    timed both ways too) and
+    the bound: each env array read once and each output written once at
+    3.35 TB/s, or the span's operations — a product's 2·M·N·K three times
+    over at 495 TFLOP/s (TF32, dense) where it runs 3xTF32, else at the
+    67 TFLOP/s float32 rate (both printed); the kernel's sums of these
+    over its blocks, and ``Compiled.run`` per lowering.
 
 The last two lines are the kernel table as one JSON object and
 ``{"ok": true, "device": {...}}``.
@@ -187,6 +199,7 @@ from __future__ import annotations
 import collections
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -196,6 +209,7 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 FP32_FLOPS_PER_S = 67e12       # H100 SXM float32 rate outside tensor cores
+TF32_FLOPS_PER_S = 495e12      # H100 SXM TF32 tensor-core rate, dense
 N1 = 1 << 24                   # rank-1 programs (EXTRALARGE jacobi-1d: 2000000)
 N2 = 4096                      # heat2d side (EXTRALARGE heat-3d: 200^3 cells)
 REPS = 10                      # timed runs per number (the median is kept)
@@ -564,7 +578,8 @@ def k2_cases(torch):
     """(label, b, h, kv, sq, sk, hd, causal, window, dtype, tol): the 7
     cases of tests/test_kernels.py in their own types (float32, the
     ragged case float16) and each again in bfloat16; a head_dim of 72 (a
-    multiple of 8, not of 16) in bfloat16 and float32; a ragged head_dim
+    multiple of 8, not of 16) in bfloat16 and float32; a head_dim of 100
+    (padded to 104 by the wrapper) in bfloat16 and float32; a ragged head_dim
     of 256 (the 16-bit kernel's 3-stage ring) in bfloat16 and float16;
     gemma3-1b's two
     attention shapes (from its config) at B=1 and at B=2 (what its
@@ -586,6 +601,10 @@ def k2_cases(torch):
             cases.append((label, *shape, dt, tols[dt]))
     for dt in (bf16, f32):
         cases.append(("hd72", 1, 4, 2, 130, 150, 72, True, None, dt,
+                      tols[dt]))
+    for dt in (bf16, f32):
+        # not a multiple of 8: the wrapper pads it with zero columns
+        cases.append(("hd100", 1, 4, 2, 130, 150, 100, True, 64, dt,
                       tols[dt]))
     for dt in (bf16, f16):
         cases.append(("hd256", 1, 2, 1, 300, 300, 256, True, None, dt,
@@ -718,6 +737,38 @@ def kernel_device_ms(torch, fn, name, calls=INNER) -> tuple[float, float]:
     if not count:
         raise AssertionError(f"the profiler saw no launch of {name}")
     return sum(e.self_device_time_total for e in mine) / 1e3 / count, host_ms
+
+
+def device_ms(torch, fn, reps=REPS, inner=INNER) -> tuple[float, float]:
+    """Milliseconds of device time per call of ``fn`` (every kernel, copy
+    and fill it runs), and the host's milliseconds per call to enqueue
+    it.  Each of ``reps`` runs holds the card in ``torch.cuda._sleep``
+    for twice the host's time to enqueue ``inner`` calls, so that the
+    calls and the two events around them queue up behind it and then run
+    back to back: the events then time the card, not the host's launch
+    rate (which sets ``cuda_ms`` for a short kernel).  The median run."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(inner):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / inner
+    torch.cuda.synchronize()
+    # at most 2 GHz: 2e6 cycles a millisecond lasts at least that long
+    cycles = int(2 * host_ms * inner * 2e6) + 100_000
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times), host_ms
 
 
 def k2_times(torch, dev, card, errs, launches):
@@ -1708,10 +1759,12 @@ def region_phase(torch, dev, card):
 PB_RANKS = 8                   # the static schedule: one chunk per rank
 PB_LAUNCHES = {"2mm": 2, "3mm": 3, "atax": 3, "bicg": 2, "mvt": 2,
                "covariance": 2}            # K1 launches per run (else 1)
-#: tl.dot calls per block: one per aten.mm / aten.mv of its body
-PB_DOTS = {"gemm": (1,), "2mm": (1, 1), "3mm": (1, 1, 1), "atax": (1, 0, 0),
-           "bicg": (1, 0), "mvt": (1, 0), "gesummv": (2,), "syrk": (1,),
-           "syr2k": (2,), "covariance": (0, 1)}
+#: tl.dot calls per block: one per aten.mm of its body
+PB_DOTS = {"gemm": (1,), "2mm": (1, 1), "3mm": (1, 1, 1), "atax": (0, 0, 0),
+           "bicg": (0, 0), "mvt": (0, 0), "gesummv": (0,), "syrk": (1,),
+           "syr2k": (2,), "covariance": (0, 1), "jacobi2d": (0,)}
+#: row-sum K loops per block: one per aten.mv (no tl.dot)
+PB_MVS = {"atax": (1, 0, 0), "bicg": (1, 0), "mvt": (1, 0), "gesummv": (2,)}
 #: blocks whose product is a matrix's (aten.mm): the check must also tell
 #: their plain values computed in TF32 (cuBLAS's mv takes no TF32)
 PB_MM = {"gemm": (0,), "2mm": (0, 1), "3mm": (0, 1, 2), "syrk": (0,),
@@ -1733,6 +1786,8 @@ PB_LIBRARY_NOTE = {
     "syr2k": "null: no single call computes A B^T + B A^T",
     "covariance": "torch.addmm (beta 0, alpha 1/(n-1)) for the cov block "
                   "only: no single call centres the rows",
+    "jacobi2d": "null: no single call rolls a row's columns and adds the "
+                "neighbouring rows",
 }
 
 
@@ -1772,9 +1827,10 @@ def rows_of(values, mask):
 
 
 def check_pb_span(torch, span_kernel, kernel_lower, comp, prog, env, dev,
-                  label, mm) -> tuple[float, float]:
+                  label, mm, lane_dim=None) -> tuple[float, float]:
     """The block's span kernel against its plain version on the same
-    inputs: ``hold_lanes`` (``agree`` and its rejections) and
+    inputs: ``hold_lanes`` (``agree`` and its rejections, given
+    ``lane_dim`` the plain values moved by one lane too) and
     ``hold_rows`` (one row per lane) at ``span_tol``; for a matrix
     product (``mm``) both checks must also reject the plain values
     computed with TF32 allowed, and ``agree`` holds it at PB_MM_TOL.
@@ -1789,7 +1845,8 @@ def check_pb_span(torch, span_kernel, kernel_lower, comp, prog, env, dev,
     want = span_kernel.span_values_plain(comp.plan, prog, slabs, repl, dev)
     mask = kernel_lower.lane_mask(comp.plan, dev)
     tol = span_tol(span.source)
-    err = hold_lanes(torch, got, want, mask, PB_MM_TOL if mm else tol, label)
+    err = hold_lanes(torch, got, want, mask, PB_MM_TOL if mm else tol, label,
+                     lane_dim)
     worst = 0.0
     for k in want:
         # lanes that hold no iteration take the plain value
@@ -1818,12 +1875,35 @@ def check_pb_span(torch, span_kernel, kernel_lower, comp, prog, env, dev,
     return err, worst
 
 
+def pb_bound(torch, env, src, trip) -> tuple[int, int, int]:
+    """(bytes, flops, flops on ``tl.dot``) of one PolyBench span: each
+    env array it reads once, each output's values on the loop's
+    iterations once; its flops on the loop's iterations."""
+    keys = dict.fromkeys(key for _, _, key in src.inputs)
+    nbytes = sum(env[key].numel() * env[key].element_size() for key in keys)
+    nbytes += sum(trip * math.prod(shape[3:])
+                  * torch.empty((), dtype=dt).element_size()
+                  for _, _, shape, dt in src.outputs)
+    return nbytes, src.flops_per_lane * trip, src.dot_flops_per_lane * trip
+
+
+def pb_ops_s(flops, dot_flops, tf32x3) -> float:
+    """The least time for a span's operations at the accuracy its
+    precision keeps: its ``tl.dot`` flops three times over (3xTF32) at
+    the TF32 tensor-core rate, or all its flops at the float32 rate."""
+    if tf32x3:
+        return ((flops - dot_flops) / FP32_FLOPS_PER_S
+                + 3 * dot_flops / TF32_FLOPS_PER_S)
+    return flops / FP32_FLOPS_PER_S
+
+
 def polybench_phase(torch, dev, card, names=None):
-    """Phase 17: the PolyBench linear-algebra kernels of
-    ``repro_torch.polybench`` (``names``, or all) at EXTRALARGE size
-    through both block lowerings against ``run_reference``, K1's
-    launches per run, each span against its plain version, and times.
-    Returns the kernel-table rows."""
+    """Phase 17: the PolyBench kernels of ``repro_torch.polybench``
+    (``names``, or the linear-algebra kernels and the stencils) at
+    EXTRALARGE size through both block lowerings against
+    ``run_reference``, K1's launches per run, each span against its plain
+    version and twice against itself, and times per block.  Returns the
+    kernel-table rows."""
     from repro_torch import omp
     from repro_torch import polybench as pb
     from repro_torch.core import kernel_lower, transform
@@ -1837,7 +1917,7 @@ def polybench_phase(torch, dev, card, names=None):
           "collective lowering and the plain versions in IEEE float32)")
     mesh = omp.make_mesh((PB_RANKS,), ("data",), device=dev)
     rows = []
-    for name in names or pb.LINEAR_ALGEBRA:
+    for name in names or pb.LINEAR_ALGEBRA + pb.STENCILS:
         t0 = time.perf_counter()
         kernel = pb.make(name)
         env = kernel.env_fn(dev, seed=0)
@@ -1870,68 +1950,110 @@ def polybench_phase(torch, dev, card, names=None):
                 if not bool(torch.isfinite(got[k]).all()):
                     raise AssertionError(f"polybench {name}/{label} {k}: "
                                          "not finite")
-        for c, dots in zip(comps, PB_DOTS[name]):
+        mvs = PB_MVS.get(name, (0,) * len(progs))
+        precisions = []
+        for c, dots, mv in zip(comps, PB_DOTS[name], mvs):
             text = c.kernel_plan.spans[0].source.text
-            if text.count("tl.dot(") != dots or (
-                    dots and 'input_precision="ieee"' not in text):
-                raise AssertionError(f"polybench {name}/{c.plan.name}: "
-                                     f"{text.count('tl.dot(')} tl.dot, want "
-                                     f"{dots} in IEEE float32")
+            stated = re.findall(r'input_precision="(\w+)"', text)
+            if text.count("tl.dot(") != dots or len(stated) != dots or (
+                    text.count("tl.range(") != mv) or not set(stated) <= {
+                    "tf32x3", "ieee"}:
+                raise AssertionError(
+                    f"polybench {name}/{c.plan.name}: "
+                    f"{text.count('tl.dot(')} tl.dot ({stated}) and "
+                    f"{text.count('tl.range(')} row-sum loops, want {dots} "
+                    f"float32 tl.dot each stating its precision and {mv}")
+            precisions += stated
         print(f"polybench {name} {kernel.dims}: {len(progs)} block(s) on "
               f"{PB_RANKS} ranks (static), collective and kernel == "
               f"run_reference (rtol=atol=1e-4); K1 launches per run "
               f"{launches} (planned {planned}); tl.dot per block "
-              f"{list(PB_DOTS[name])}; spans "
+              f"{list(PB_DOTS[name])} at {sorted(set(precisions))}, "
+              f"row-sum loops per block {list(mvs)}; spans "
               + "; ".join(c.kernel_plan.spans[0].describe() for c in comps)
               + f"; env {t_env:.2f} s, compile+build {t_build:.2f} s")
 
-        # kernel vs plain, then times, block by block on the env it sees
+        # kernel vs plain, twice against itself, then times, block by
+        # block on the env it sees
         err = worst = 0.0
-        ms = plain_ms = bound_s = 0.0
-        lib_ms, lib_any = 0.0, False
-        nbytes = flops = 0
+        ms = plain_ms = bound_s = dev_ms = host_ms = 0.0
+        lib_ms = lib_dev_ms = 0.0
+        lib_any = False
+        nbytes = ops_s = 0
         benv = env
         for b, (prog, comp) in enumerate(zip(progs, comps)):
             label = f"polybench {name}/{prog.name}"
             e, w = check_pb_span(torch, span_kernel, kernel_lower, comp,
                                  prog, benv, dev, label,
-                                 b in PB_MM.get(name, ()))
+                                 b in PB_MM.get(name, ()),
+                                 2 if name in pb.STENCILS else None)
             err, worst = max(err, e), max(worst, w)
             repl, slabs = transform.stage_inputs(comp.plan, benv)
             src = comp.kernel_plan.spans[0].source
             one = one_stage(kernel_lower, comp.plan, prog, slabs, repl)
-            ms += cuda_ms(torch, lambda: span_kernel.span_stage_values(
+            # on the lanes that hold an iteration (the kernel writes no
+            # other)
+            mask = kernel_lower.lane_mask(comp.plan, dev)
+            first, again = (span_kernel.span_stage_values(one, src, dev)[0]
+                            for _ in range(2))
+            if not all(torch.equal(first[k][mask], again[k][mask])
+                       for k in first):
+                raise AssertionError(f"{label}: two launches on the same "
+                                     "input differ")
+            print(f"bits {label}: two launches on the same input equal bit "
+                  f"for bit ({', '.join(sorted(first))})")
+            b_ms = cuda_ms(torch, lambda: span_kernel.span_stage_values(
                 one, src, dev))
-            plain_ms += cuda_ms(torch, lambda: span_kernel.span_values_plain(
+            b_dev, b_host = device_ms(torch, lambda: span_kernel.
+                                      span_stage_values(one, src, dev))
+            b_plain = cuda_ms(torch, lambda: span_kernel.span_values_plain(
                 comp.plan, prog, slabs, repl, dev), reps=5, inner=5)
-            trip = comp.plan.nest.total_trip
-            keys = dict.fromkeys(key for _, _, key in src.inputs)
-            bb = sum(benv[key].numel() * benv[key].element_size()
-                     for key in keys)
-            bb += sum(trip * math.prod(shape[3:])
-                      * torch.empty((), dtype=dt).element_size()
-                      for _, _, shape, dt in src.outputs)
-            ff = src.flops_per_lane * trip
-            nbytes, flops = nbytes + bb, flops + ff
-            bound_s += max(bb / HBM_BYTES_PER_S, ff / FP32_FLOPS_PER_S)
+            bb, ff, df = pb_bound(torch, benv, src, comp.plan.nest.total_trip)
+            tf32x3 = 'input_precision="tf32x3"' in src.text
+            b_ops = pb_ops_s(ff, df, tf32x3)
+            b_bound = max(bb / HBM_BYTES_PER_S, b_ops)
             lib = pb_library(name, torch, benv, b)
-            if lib is not None:
-                lib_ms += cuda_ms(torch, lib)
+            b_lib = cuda_ms(torch, lib) if lib is not None else None
+            b_lib_dev = device_ms(torch, lib)[0] if lib is not None else None
+            print(f"block {label}: kernel {b_ms:.4f} ms (device "
+                  f"{b_dev:.4f} ms a call, {b_bound * 1e3 / b_dev:.0%} of "
+                  f"the bound; the host enqueues one in {b_host:.4f} ms), "
+                  f"plain {b_plain:.4f} ms, library "
+                  + ("null" if b_lib is None else
+                     f"{b_lib:.4f} ms (device {b_lib_dev:.4f} ms)")
+                  + f", bound {b_bound * 1e3:.4f} ms ("
+                  + ("bytes" if bb / HBM_BYTES_PER_S >= b_ops
+                     else "operations")
+                  + f": {bb} B at {HBM_BYTES_PER_S:.3g} B/s; {ff} flops, "
+                  f"{df} on tl.dot: {pb_ops_s(ff, df, True) * 1e3:.4f} ms "
+                  f"at 3xTF32 ({TF32_FLOPS_PER_S:.3g} flop/s x 3), "
+                  f"{pb_ops_s(ff, df, False) * 1e3:.4f} ms in IEEE float32 "
+                  f"({FP32_FLOPS_PER_S:.3g} flop/s); the span runs "
+                  + ("3xTF32" if tf32x3 else "no TF32") + f") on {card}")
+            ms, plain_ms, bound_s = ms + b_ms, plain_ms + b_plain, \
+                bound_s + b_bound
+            dev_ms, host_ms = dev_ms + b_dev, host_ms + b_host
+            nbytes, ops_s = nbytes + bb, ops_s + b_ops
+            if b_lib is not None:
+                lib_ms, lib_dev_ms = lib_ms + b_lib, lib_dev_ms + b_lib_dev
                 lib_any = True
             benv = comp(benv)
-        bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S
-                    >= flops / FP32_FLOPS_PER_S else "operations")
+        bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S >= ops_s
+                    else "operations")
         library_ms = lib_ms if lib_any else None
         print(f"kernel-vs-plain polybench {name}: max_abs_err={err:.3e}, "
               f"worst row-relative err {worst:.3e}"
               + (f" (agree at {PB_MM_TOL} on the mm spans), TF32 plain "
                  "values rejected" if name in PB_MM else ""))
         lib_s = "null" if library_ms is None else f"{library_ms:.4f} ms"
-        print(f"times polybench {name}: kernel {ms:.4f} ms, plain "
+        print(f"times polybench {name}: kernel {ms:.4f} ms (device "
+              f"{dev_ms:.4f} ms, host enqueue {host_ms:.4f} ms), plain "
               f"{plain_ms:.4f} ms, library {lib_s} "
-              f"({PB_LIBRARY_NOTE[name]}), bound {bound_s * 1e3:.4f} ms "
-              f"({bound_by}: {nbytes} B at {HBM_BYTES_PER_S:.3g} B/s, "
-              f"{flops} flops at {FP32_FLOPS_PER_S:.3g} flop/s) on {card}")
+              + (f"(device {lib_dev_ms:.4f} ms) " if lib_any else "")
+              + f"({PB_LIBRARY_NOTE[name]}), bound {bound_s * 1e3:.4f} ms "
+              f"(the sum of its blocks' bounds; {bound_by}: {nbytes} B at "
+              f"{HBM_BYTES_PER_S:.3g} B/s, operations "
+              f"{ops_s * 1e3:.4f} ms) on {card}")
         run_ms = {low: cuda_ms(torch, lambda: run_blocks(bs, env), reps=3,
                                inner=2, warmup=1)
                   for low, bs in (("kernel", comps), ("collective", [
@@ -1945,7 +2067,8 @@ def polybench_phase(torch, dev, card, names=None):
             "source": SOURCE, "replaces": REPLACES, "launches": launches,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_s * 1e3, "bound_by": bound_by,
-            "library_ms": library_ms,
+            "library_ms": library_ms, "device_ms": dev_ms, "host_ms": host_ms,
+            "library_device_ms": lib_dev_ms if lib_any else None,
             "library_note": PB_LIBRARY_NOTE[name]})
         del comps, ref, coll, kern, env, benv
         torch.cuda.empty_cache()

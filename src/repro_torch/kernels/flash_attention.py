@@ -166,16 +166,19 @@ def _check(q, k, v):
 
 def check_kernel_inputs(q, k, v):
     """What the CUDA kernels take beyond :func:`_check`'s shapes: float32,
-    bfloat16 or float16; hd <= 256 and a multiple of 8 (a 16-bit row is
-    then a multiple of the 16 bytes TMA moves, as is a float32 row for
-    ``cp.async``); contiguous tensors starting 16-byte aligned."""
+    bfloat16 or float16; hd <= 256 (the q, k and v tiles of a block must
+    fit the SM's shared memory) and a multiple of 8 (a 16-bit row is then
+    a multiple of the 16 bytes TMA moves, as is a float32 row for
+    ``cp.async``; :func:`flash_attention` pads any other head_dim up to
+    one); contiguous tensors starting 16-byte aligned."""
     if q.dtype not in _DTYPES:
         raise ValueError(f"K2 takes float32, bfloat16 or float16, not "
                          f"{q.dtype}")
     hd = q.shape[3]
     if hd > 256 or hd % 8:
-        raise ValueError(f"K2 takes a head_dim <= 256 that is a multiple "
-                         f"of 8, not {hd}")
+        raise ValueError(f"K2 takes a head_dim <= 256 (its q, k and v tiles "
+                         f"must fit shared memory) that is a multiple of 8, "
+                         f"not {hd}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("K2 takes contiguous q, k, v")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
@@ -183,21 +186,37 @@ def check_kernel_inputs(q, k, v):
                          "cp.async): they must start 16-byte aligned")
 
 
+def pad_head_dim(q, k, v):
+    """q, k, v zero-padded along the head dim up to a multiple of 8 (as
+    they are where it is one).  The zero columns add nothing to Q K^T and
+    give zero output columns, so attention over the padded tensors at the
+    true head_dim's softmax scale, cut back to the true head_dim, is
+    attention over q, k, v exactly."""
+    pad = -q.shape[3] % 8
+    if not pad:
+        return q, k, v
+    return tuple(torch.nn.functional.pad(t, (0, pad)) for t in (q, k, v))
+
+
 def flash_attention(q, k, v, *, causal=True, window=None):
     """q: (B, H, Sq, hd); k, v: (B, KV, Sk, hd) -> (B, H, Sq, hd), in q's
     type.  CPU tensors take :func:`flash_attention_plain`; CUDA tensors
-    launch K2 (what :func:`check_kernel_inputs` lets through) or raise."""
+    launch K2 (on q, k, v padded by :func:`pad_head_dim`, then what
+    :func:`check_kernel_inputs` lets through) or raise."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"K2 runs on CUDA, not {q.device}")
+    true_hd = q.shape[3]
+    if true_hd <= 256:
+        q, k, v = pad_head_dim(q, k, v)
     check_kernel_inputs(q, k, v)
     b, h, sq, hd = q.shape
     kv, sk = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     if out.numel() == 0:
-        return out
+        return out[..., :true_hd]
     lib = build()
     items = _work_list(q.device, b, h, sq, sk, TILE[q.dtype], bool(causal),
                        window)
@@ -209,9 +228,9 @@ def flash_attention(q, k, v, *, causal=True, window=None):
             items.data_ptr(), taken.data_ptr(), items.numel(),
             _DTYPES[q.dtype], b, h, kv, sq, sk, hd, int(causal),
             int(window is not None), int(window or 0),
-            1.0 / math.sqrt(hd), stream)
+            1.0 / math.sqrt(true_hd), stream)
     if err:
         raise RuntimeError(f"K2 launch failed: "
                            f"{lib.k2_error_string(err).decode()}")
     LAUNCHES[window] += 1
-    return out
+    return out if hd == true_hd else out[..., :true_hd]

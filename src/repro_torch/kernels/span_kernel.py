@@ -15,14 +15,20 @@ version makes no attempt at shared-memory staging of halo windows: a
 stencil's neighbouring lanes load overlapping taps straight from the
 slab and the overlap is left to L1/L2.  A row-times-matrix body
 (PolyBench's ``gemm``, ``syrk``, ``covariance``) does 2K flops for each
-value it stores and is bound by operations: its product runs on ``tl.dot`` over
-``[lanes, BK] x [BK, BN]`` tiles, K-looped, accumulating in float32 —
-IEEE float32 products for float32 operands (``input_precision="ieee"``:
-TF32 would keep three digits), the tensor cores for 16-bit ones — and
-its output's value axis is split over the grid so that enough programs
-fill the card.  A matrix the body reads transposed (``A.T``) is handed to
-the kernel as a copy of its transpose (:func:`kernel_args`), since
-Triton's FMA ``tl.dot`` reads a tile transposed on chip 2.9x slower.
+value it stores and is bound by operations: its product runs on
+``tl.dot`` over ``[lanes, BK] x [BK, BN]`` tiles, K-looped, accumulating
+in float32, on the tensor cores — three TF32 products for float32
+operands (``input_precision="tf32x3"``: within a few float32 roundings,
+where one TF32 product keeps three digits), 16-bit ones as they are —
+and its output's value axis is split over the grid so that enough
+programs fill the card.  A matrix whose tiles run the other way than the
+dot reads them fastest is handed to the kernel as a copy of its
+transpose (:func:`kernel_args`): the tensor cores take a float32 B tile
+K-major.  A matrix-vector body (``atax``, ``bicg``, ``mvt``,
+``gesummv``) does 2 flops for each matrix value it reads and is bound by
+bytes: its rows are multiplied by the vector and summed in float32 over
+wide K tiles, a few rows a program, so that every SM keeps many tiles in
+flight.
 
 The body is user code, so the kernel is a template plus a generator, as
 the Pallas kernel traced the body into its own body:
@@ -41,9 +47,11 @@ the Pallas kernel traced the body into its own body:
   (:func:`repro_torch.core.context.trace_body`) and emits ``tl`` code per
   op: affine loads from the slab windows (row ``index - (k0 +
   halo_base)``) or from replicated arrays, pointwise arithmetic,
-  ``sum``/``mean``/``amax``/``amin`` over a per-lane value axis, and
-  ``aten.mm``/``aten.mv`` of a per-lane operand and a replicated array
-  (either side, transposed or not) as K-loops of ``tl.dot``; a rank-2
+  ``sum``/``mean``/``amax``/``amin`` over a per-lane value axis, a
+  ``roll`` along it (the rolled value emitted again at the wrapped
+  positions), ``aten.mm`` of a per-lane operand and a replicated array
+  (either side, transposed or not) as K-loops of ``tl.dot`` and
+  ``aten.mv`` as K-loops of row sums; a rank-2
   nest's ``A[i] . B[:, j]`` is the outer tile ``A[tile_i, K] @ B[K,
   tile_j]``.  Lane scalars are emitted once, in order; a value with a
   per-lane value axis is emitted per value *tile* where it is consumed
@@ -115,27 +123,42 @@ _MAX_TILE_ELEMS = 1 << 12
 
 #: ``tl.dot`` takes tiles of at least 16 on every dim.
 _DOT_MIN = 16
-#: Lanes of a tile (per axis) in a span with a row-times-matrix product,
-#: and the grid's value tile over its output.
-_DOT_LANES = 64
+#: Lanes of a tile (per axis) in a span with a row-times-matrix product;
+#: the grid's value tile over its output takes ``_DOT_TILE_SCALE`` x
+#: :data:`_MAX_TILE_ELEMS` accumulators a tile: a 128 x 128 ``wgmma``
+#: output tile a program, 8 warps, a 3-stage operand ring.
+_DOT_LANES = 128
+_DOT_TILE_SCALE = 4
+_DOT_WARPS = 8
+_DOT_STAGES = 3
+#: Precision of a ``tl.dot`` of float32 operands: three TF32 products
+#: (``a_hi b_hi + a_hi b_lo + a_lo b_hi``) on the tensor cores, within a
+#: few float32 roundings of the IEEE product.  Every float32 ``tl.dot``
+#: states it, so a bare (one-product) TF32 dot never occurs.
+_F32_PRECISION = "tf32x3"
 #: Lanes of a tile in a span whose products give one value a lane
-#: (matrix-vector): as few as ``tl.dot`` takes, so that many programs
-#: share the rows.
-_MV_LANES = 16
+#: (matrix-vector): a product is a multiply and a row sum over K tiles of
+#: ``_BK_MV`` values (no ``tl.dot``, whose 16-column minimum would
+#: multiply the work by 16), the vector tile loaded once a K step for
+#: all the program's lanes; few lanes, so that several programs share
+#: each SM, and a K loop whose loads Triton pipelines ``_MV_STAGES``
+#: deep (``tl.range``), so that each keeps tiles in flight.
+_MV_LANES = 4
+_BK_MV = 1024
+_MV_WARPS = 4
+_MV_STAGES = 3
 #: Lanes of a tile in a span without products whose value axes are too
 #: long for the default tile: a few rows a program, each swept in wide
 #: value tiles, so that the grid holds several programs an SM.
 _LONG_LANES = 4
 #: Rank-2 outer tile: lanes per axis at most.
 _DOT2_LANES = 32
-#: K-loop depth of a matrix product, and of a matrix-vector product (a
-#: deeper tile keeps more of the rows' bytes in flight a program).
+#: K-loop depth of a matrix product: ``_BK_ONE`` where the span holds one
+#: product, ``_BK`` where it holds more (syr2k's two products ran 1.18x
+#: slower at 64; one product 1.03-1.15x faster at 64 than at 32 on the
+#: H100, ``tools/k1_product_variants.py``).
+_BK_ONE = 64
 _BK = 32
-_BK_MV = 128
-#: Warps a program of a matrix-vector span: its tiles are 16 lanes, and
-#: two warps ran K1's mv 1.5-1.7x faster than four on the H100
-#: (``tools/k1_product_variants.py``).
-_MV_WARPS = 2
 
 #: Element count from which offsets are computed in 64 bits (a margin
 #: below 2^31 for window halos and padded values).
@@ -207,10 +230,12 @@ class SpanSource:
     outputs: tuple           # (stage, key, global shape, dtype) per output
     n_programs: int
     flops_per_lane: int      # arithmetic ops per real lane (for the bound)
+    dot_flops_per_lane: int = 0  # of which on ``tl.dot`` (matrix products)
     forwarded: tuple = ()    # (stage, key): reads served from a register
     tiles: tuple = ()        # AxisTiles per nest axis (the lanes of a tile)
     value_tiles: int = 1     # programs per lane tile (the grid's value axis)
     num_warps: int = NUM_WARPS
+    num_stages: int = 3      # the launch's software-pipelining depth
 
 
 # ---------------------------------------------------------------------------
@@ -319,19 +344,22 @@ def _roles(ta, tb, name) -> dict:
 @dataclasses.dataclass(frozen=True)
 class _Shape:
     """What a span's bodies need of the tiling: whether they hold a
-    product (``dot``), the output length of the first row-times-matrix
-    product (``vec``: the grid's value axis), and whether a value axis is
-    too long for the default tile (``long``)."""
+    matrix product on ``tl.dot`` (``dot``) or a matrix-vector product
+    (``mv``), the output length of the first row-times-matrix product
+    (``vec``: the grid's value axis), and whether a value axis is too
+    long for the default tile (``long``)."""
 
     dot: bool
     vec: int | None
     outer: bool
     long: bool
+    mv: bool = False
+    products: int = 0       # matrix products on tl.dot, over all stages
 
 
 def _span_shape(stage_roles, default_block) -> _Shape:
-    dot = outer = long = False
-    vec = None
+    dot = outer = long = mv = False
+    vec, products = None, 0
     for graph, roles in stage_roles:
         for n in graph.nodes:
             r = roles.get(n)
@@ -346,18 +374,24 @@ def _span_shape(stage_roles, default_block) -> _Shape:
                 long = True
             if n.op != "call_function" or n.target not in _PRODUCTS:
                 continue
+            if n.target is aten.mv.default:
+                mv = True
+                continue
             dot = True
+            products += 1
             if n.target is aten.mm.default and len(vdims) == 1:
                 vec = vdims[0] if vec is None else vec
             elif n.target is aten.mm.default and r.count("lane") == 2:
                 outer = True
-    return _Shape(dot=dot, vec=vec, outer=outer, long=long)
+    return _Shape(dot=dot, vec=vec, outer=outer, long=long, mv=mv,
+                  products=products)
 
 
 def _span_tiles(chunks, shape: _Shape):
     """Lane tiles of a span: the default rule (32..1024 lanes) for
-    pointwise bodies; narrow tiles of at least 16 lanes an axis where
-    ``tl.dot`` needs them or a long value axis makes a tile wide."""
+    pointwise bodies; tiles of 16-128 lanes an axis where ``tl.dot``
+    takes them as a matrix dim; a few lanes where a matrix-vector product
+    or a long value axis makes each lane's row wide."""
     if shape.outer:
         return derive_nest_tiles(chunks, max_lanes=_DOT2_LANES * _DOT2_LANES,
                                  min_tile=_DOT_MIN, min_lead=_DOT_MIN,
@@ -366,8 +400,10 @@ def _span_tiles(chunks, shape: _Shape):
         return derive_nest_tiles(chunks, max_lanes=_DOT_LANES,
                                  min_tile=_DOT_MIN)
     if shape.dot:
-        return derive_nest_tiles(chunks, max_lanes=_MV_LANES,
+        return derive_nest_tiles(chunks, max_lanes=_DOT_MIN,
                                  min_tile=_DOT_MIN)
+    if shape.mv:
+        return derive_nest_tiles(chunks, max_lanes=_MV_LANES, min_tile=1)
     if shape.long:
         return derive_nest_tiles(chunks, max_lanes=_LONG_LANES, min_tile=1)
     return derive_nest_tiles(chunks)
@@ -385,6 +421,7 @@ class _Gen:
         self.ind = ""
         self.n = 0
         self.flops = 0
+        self.dot_flops = 0
         self.full_scopes: dict[int, _Scope] = {}
         self.ptrs: dict[tuple, str] = {}
         self.inputs: list = []
@@ -406,7 +443,8 @@ class _Gen:
         self.grid_scope, self.value_tiles = None, 1
         if self.shape.vec is not None and not self.fits(self.shape.vec):
             n = self.shape.vec
-            bt = self.vtile(n)
+            bt = min(max(pow2_at_least(n), _DOT_MIN), max(
+                _DOT_MIN, _DOT_TILE_SCALE * _MAX_TILE_ELEMS // self.block))
             self.value_tiles = -(-n // bt)
             self.grid_scope = _Scope(n, "gr", "gm", bt)
             self.head.append(f"    gr = vt * {bt} + tl.arange(0, {bt})"
@@ -495,13 +533,17 @@ class _Gen:
         return self.full_scopes[k]
 
     @contextlib.contextmanager
-    def tiles_of(self, k: int, bt: int | None = None):
+    def tiles_of(self, k: int, bt: int | None = None, stages: int = 0):
         """A loop over the tiles of a value axis of length k; yields each
-        tile's scope (values emitted in it stay inside the loop)."""
+        tile's scope (values emitted in it stay inside the loop).  Given
+        ``stages``, Triton pipelines the loop's loads that deep, whether or
+        not they feed a ``tl.dot``."""
         bt = bt or self.vtile(k)
         n = self.n
         self.n += 1
-        self._line(f"for t{n} in range(0, {k}, {bt}):")
+        rng = (f"tl.range(0, {k}, {bt}, num_stages={stages})" if stages
+               else f"range(0, {k}, {bt})")
+        self._line(f"for t{n} in {rng}:")
         self.ind += "    "
         self._line(f"r{n} = t{n} + tl.arange(0, {bt})[None, :]")
         self._line(f"m{n} = r{n} < {k}")
@@ -941,13 +983,61 @@ class _Gen:
         elif t in self._REDUCE:
             self.vals[n] = self._reduce(n, self._REDUCE[t],
                                         self.value(args[0]), od, lane)
+        elif t is aten.roll.default:
+            self.vals[n] = self._roll(n, self.value(args[0]))
         else:
             raise CompileError(
                 f"span kernel: aten op {t} in the body of {self.plan.name!r} "
                 "is not supported by the Triton template (supported: "
                 "pointwise arithmetic, comparisons, where, exp/log/sqrt/abs, "
-                "affine env reads, sum/mean/amax/amin over a value axis, "
-                "mm/mv of a per-lane row and a replicated array)")
+                "affine env reads, sum/mean/amax/amin and roll along a "
+                "value axis, mm/mv of a per-lane row and a replicated "
+                "array)")
+
+    def _roll(self, n, x: _Val) -> _Val:
+        """``roll(x, s)`` along a per-lane value axis of length ``k``:
+        position ``r`` holds ``x`` at ``(r - s) mod k``, so the result is
+        ``x`` emitted again in a scope whose positions are shifted (a
+        load reads the wrapped positions, a product the wrapped columns
+        of its matrix).  A roll across lanes, or of a value held in one
+        register tile (which cannot be emitted elsewhere), raises."""
+        roles = self.roles[n.args[0]]
+        shifts = list(n.args[1])
+        dims = list(n.args[2]) if len(n.args) > 2 else []
+        where = f"span kernel: aten.roll in {self.plan.name!r}"
+        if not dims:                # a flattened roll: one axis of size > 1
+            if len(shifts) != 1 or sum(r != "1" for r in roles) > 1:
+                raise CompileError(f"{where} over a flattened value of "
+                                   "several axes")
+            dims = [next((d for d, r in enumerate(roles) if r != "1"), 0)]
+        shift = 0
+        for s, d in zip(shifts, dims):
+            role = roles[d % len(roles)] if roles else "1"
+            if role == "lane":
+                raise CompileError(f"{where} rolls across lanes; the template "
+                                   "rolls a per-lane value axis only")
+            if role == "v":
+                shift += s
+        if x.k is None:
+            return x
+        k = x.k
+        shift %= k
+        if shift == 0:
+            return x
+        if x.lazy is None:
+            raise CompileError(f"{where} of a value held in one register "
+                               "tile; the template re-emits a rolled value "
+                               "at the wrapped positions")
+
+        def emit_in(scope):
+            rolled = scope.cache.get(("roll", shift))
+            if rolled is None:
+                rolled = scope.cache[("roll", shift)] = _Scope(
+                    k, f"(({scope.r} + {k - shift}) % {k})", scope.m,
+                    scope.bt, scope.start)
+            return self.tile(x, rolled)
+        return _Val(dtype=x.dtype, lane=x.lane, k=k, lazy=emit_in,
+                    loop=x.loop)
 
     def _select(self, n, x: _Val) -> _Val:
         roles = self.roles[n.args[0]]
@@ -1022,7 +1112,8 @@ class _Gen:
     def _dot_type(self, *dts) -> tuple:
         """The operand type of a product and its ``tl.dot`` options:
         16-bit operands of one type as they are (tensor cores, float32
-        accumulator); anything else in IEEE float32."""
+        accumulator); anything else in float32 at
+        :data:`_F32_PRECISION`, stated on every such dot."""
         if dts[0] in (torch.float16, torch.bfloat16) and len(set(dts)) == 1:
             return dts[0], ""
         for dt in dts:
@@ -1031,7 +1122,7 @@ class _Gen:
                     f"span kernel: a product of {dt} operands in "
                     f"{self.plan.name!r}; tl.dot takes float32 and 16-bit "
                     "floats")
-        return torch.float32, ', input_precision="ieee"'
+        return torch.float32, f', input_precision="{_F32_PRECISION}"'
 
     def _product(self, n) -> _Val:
         """``aten.mm``/``aten.mv`` with one per-lane operand (a row of the
@@ -1087,6 +1178,16 @@ class _Gen:
         """Whether a product's matrix runs along K in memory."""
         return math.prod(mem.shape[d_k + 1:]) < math.prod(mem.shape[d_n + 1:])
 
+    @staticmethod
+    def _wants_k_major(dt) -> bool:
+        """Whether a product's ``tl.dot`` reads its matrix's tiles fastest
+        along K: float32 on the tensor cores (TF32 ``wgmma`` takes a
+        K-major B tile; Triton turns an N-major one into a slower path,
+        2.2-2.4x on the H100, ``tools/k1_product_variants.py``); else
+        along N (the FMA ``tl.dot``'s shared tile is not swizzled for a
+        K-major read: 2.9x slower; 16-bit operands keep that rule)."""
+        return dt == torch.float32 and _F32_PRECISION != "ieee"
+
     def _mm(self, row: _Val, mem: _Mem, d_k: int, d_n: int, od) -> _Val:
         self._replicated(mem, "matrix")
         k, nn = mem.shape[d_k], mem.shape[d_n]
@@ -1096,16 +1197,17 @@ class _Gen:
                 f"per-lane row of {row.k} with {k} rows of env[{mem.key!r}]")
         dt, opts = self._dot_type(row.dtype, self.plan.context.vars[
             mem.key].dtype)
-        bk = min(max(pow2_at_least(k), _DOT_MIN), _BK)
+        bk = min(max(pow2_at_least(k), _DOT_MIN),
+                 _BK_ONE if self.shape.products == 1 else _BK)
         self.flops += 2 * k * nn
+        self.dot_flops += 2 * k * nn
         last = len(mem.shape) - 2
-        if self._k_contiguous(mem, d_k, d_n) and {d_k, d_n} == {last,
-                                                               last + 1}:
-            # a matrix that runs along K (A.T in syrk, covariance's rows):
-            # Triton's FMA dot reads such a tile 2.9x slower (its shared
-            # tile is not swizzled for the transposed read;
-            # tools/k1_product_variants.py), so the kernel is handed the
-            # transpose, copied by kernel_args, and reads it along N
+        if self._k_contiguous(mem, d_k, d_n) != self._wants_k_major(dt) \
+                and {d_k, d_n} == {last, last + 1}:
+            # a matrix whose tiles run the other way than the dot reads
+            # them fastest (under 3xTF32 gemm's B; in IEEE, A.T in syrk
+            # and covariance's rows): the kernel is handed its transpose,
+            # copied by kernel_args, and reads that the fast way
             swap = {last: last + 1, last + 1: last}
             mem = _Mem(mem.key, mem.shape[:last] + mem.shape[last:][::-1],
                        mem.fixed, [])
@@ -1138,36 +1240,33 @@ class _Gen:
         return _Val(dtype=od, lane=True, k=nn, lazy=emit_in, loop=True)
 
     def _mv(self, row: _Val, mem: _Mem, d_k: int, od) -> _Val:
-        """A per-lane row times a replicated vector: ``tl.dot`` with the
-        vector broadcast over 16 columns, column 0 kept."""
+        """A per-lane row times a replicated vector: the rows' K tiles
+        times the vector's (``[lanes, bk] * [1, bk]``, the vector tile
+        loaded once a K step for every lane), summed over K in float32
+        per position, then over the tile's positions once; the loop's
+        loads pipelined ``_MV_STAGES`` deep.  The order of the sums is
+        fixed, so repeated launches give the same bits."""
         self._replicated(mem, "vector")
         k = mem.shape[d_k]
         if row.k != k:
             raise CompileError(
                 f"span kernel: a product in {self.plan.name!r} contracts a "
                 f"per-lane row of {row.k} with env[{mem.key!r}] of {k}")
-        dt, opts = self._dot_type(row.dtype, self.plan.context.vars[
-            mem.key].dtype)
-        bk = min(max(pow2_at_least(k), _DOT_MIN), _BK_MV)
+        self._dot_type(row.dtype, self.plan.context.vars[mem.key].dtype)
+        bk = min(pow2_at_least(k), _BK_MV)
         self.flops += 2 * k
         p, off = self._address(mem, {d_k: "@K@"})
-        block, w = self.block, _DOT_MIN
+        f32 = _TL[torch.float32]
         acc = f"acc{self.n}"
         self.n += 1
-        self._line(f"{acc} = tl.zeros([{block}, {w}], tl.float32)")
-
-        def body(ks, kcol):
-            a = self.cast(row, dt, ks)
-            a = self.emit(f"tl.broadcast_to({a}, [{block}, {bk}])", dt, True,
-                          k).expr
-            b = self.emit(f"tl.broadcast_to(tl.load({p} + "
-                          f"{off.replace('@K@', kcol)}, mask={kcol} < {k}, "
-                          f"other=0).to({_TL[dt]}), [{bk}, {w}])", dt, False,
-                          None).expr
-            return a, b, opts
-        self._k_loop(acc, k, bk, body)
-        return self.emit(f"tl.sum(tl.where(tl.arange(0, {w})[None, :] == 0, "
-                         f"{acc}, 0.0), axis=1)[:, None].to({_TL[od]})", od,
+        self._line(f"{acc} = tl.zeros([{self.block}, {bk}], {f32})")
+        with self.tiles_of(k, bk, _MV_STAGES) as ks:
+            a = self.cast(row, torch.float32, ks)
+            b = self.emit(f"tl.load({p} + {off.replace('@K@', ks.r)}, "
+                          f"mask={ks.m}, other=0).to({f32})", torch.float32,
+                          False, None).expr
+            self._line(f"{acc} += {a} * {b}")
+        return self.emit(f"tl.sum({acc}, axis=1)[:, None].to({_TL[od]})", od,
                          True, None)
 
     def _iter_vec(self, d: int) -> str:
@@ -1215,6 +1314,7 @@ class _Gen:
         bk = min(max(pow2_at_least(k), _DOT_MIN), _BK)
         ti, tj = (t.tile for t in self.tiles)
         self.flops += 2 * k
+        self.dot_flops += 2 * k
         acc = f"acc{self.n}"
         self.n += 1
         self._line(f"{acc} = tl.zeros([{ti}, {tj}], tl.float32)")
@@ -1379,6 +1479,18 @@ def _check_span_geometry(plans) -> None:
                 "not share one chunk geometry and cannot share a launch")
 
 
+def _launch_shape(shape: _Shape) -> dict:
+    """Warps and pipelining depth of a span's launch: 8 warps and a
+    ``_DOT_STAGES``-deep operand ring for a row-times-matrix product;
+    ``_MV_WARPS`` for a matrix-vector span (its K loop states its own
+    depth); Triton's defaults otherwise."""
+    if shape.vec is not None:
+        return dict(num_warps=_DOT_WARPS, num_stages=_DOT_STAGES)
+    if shape.mv and not (shape.dot or shape.outer):
+        return dict(num_warps=_MV_WARPS)
+    return {}
+
+
 def generate(plan, program, device=None) -> SpanSource:
     """The span kernel of one block (a span of one stage)."""
     return generate_span([(plan, program, frozenset())], device)
@@ -1434,10 +1546,10 @@ def generate_span(stages, device=None) -> SpanSource:
     return SpanSource(fn_name=fn_name, text=text, inputs=tuple(gen.inputs),
                       outputs=tuple(outputs), n_programs=n_prog,
                       flops_per_lane=gen.flops,
+                      dot_flops_per_lane=gen.dot_flops,
                       forwarded=tuple(dict.fromkeys(gen.fwd_reads)),
                       tiles=gen.tiles, value_tiles=gen.value_tiles,
-                      num_warps=_MV_WARPS if gen.shape.dot and not (
-                          gen.shape.vec or gen.shape.outer) else NUM_WARPS)
+                      **_launch_shape(gen.shape))
 
 
 # ---------------------------------------------------------------------------
@@ -1496,7 +1608,8 @@ def launch_span(source: SpanSource, stage_io, device: torch.device) -> list:
     for si, key, shape, dtype in source.outputs:
         outs[si][key] = torch.empty(shape, dtype=dtype, device=device)
         flat.append(outs[si][key])
-    fn[(source.n_programs,)](*args, *flat, num_warps=source.num_warps)
+    fn[(source.n_programs,)](*args, *flat, num_warps=source.num_warps,
+                             num_stages=source.num_stages)
     LAUNCHES += 1
     return outs
 

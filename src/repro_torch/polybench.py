@@ -1,13 +1,14 @@
 """PolyBench kernels as OMP2MPI pragma programs with PyTorch bodies (the
 paper's §4 / Fig. 6 set): the twin of ``benchmarks/polybench.py``.
 
-The same 11 kernels in the same programs, names and bodies, written
-against :mod:`repro_torch.omp`: the paper's Table 1 ``pi`` example and
-the PolyBench/C 4.2.1 linear-algebra kernels ``gemm``, ``2mm``, ``3mm``,
+The same 12 kernels in the same programs, names and bodies, written
+against :mod:`repro_torch.omp`: the paper's Table 1 ``pi`` example, the
+PolyBench/C 4.2.1 linear-algebra kernels ``gemm``, ``2mm``, ``3mm``,
 ``atax``, ``bicg``, ``mvt``, ``gesummv``, ``syrk``, ``syr2k`` and
-``covariance``.  Each builder returns a :class:`PolyKernel`; its env is
-made with numpy from a seed (:meth:`PolyKernel.numpy_env`), so the JAX
-package's programs can be fed the very same arrays.
+``covariance``, and the stencil ``jacobi2d``.  Each builder returns a
+:class:`PolyKernel`; its env is made with numpy from a seed
+(:meth:`PolyKernel.numpy_env`), so the JAX package's programs can be fed
+the very same arrays.
 
 Sizes.  A builder's defaults are the reference's square ``n``;
 :func:`make` with ``size="extralarge"`` gives the EXTRALARGE_DATASET
@@ -25,11 +26,12 @@ body allows it:
 * ``covariance`` ``data`` holds the M = 2600 attributes as rows of N =
   3000 points (PolyBench's data[N][M] transposed, as the reference's
   body centres a row); C[M, M];
-* ``mvt`` and ``gesummv`` are square in PolyBench too.
-
-``jacobi2d``, the reference's twelfth kernel, is left out: it is a
-stencil, not linear algebra, and its body rolls a row (``jnp.roll``,
-``aten.roll`` here), which the span kernel's template does not express.
+* ``mvt`` and ``gesummv`` are square in PolyBench too;
+* ``jacobi2d`` B[i] = (A[i-1] + A[i+1] + roll(A[i], 1) + roll(A[i], -1))
+  / 4 on the rows 1..N-2 of A[N, N] (``A`` read whole, so replicated):
+  one sweep, where PolyBench runs TSTEPS = 1000 (the reference's builder
+  runs one too), with its columns wrapped as the reference's body wraps
+  them.
 """
 from __future__ import annotations
 
@@ -73,6 +75,7 @@ EXTRALARGE = {
     "syrk": dict(m=2000, n=2600),
     "syr2k": dict(m=2000, n=2600),
     "covariance": dict(m=2600, n=3000),
+    "jacobi2d": dict(n=2800),       # TSTEPS 1000 -> 1 sweep
 }
 
 
@@ -285,15 +288,35 @@ def make_covariance(m=192, n=None):
                       dict(m=m, n=n))
 
 
+def make_jacobi2d(n=256):
+    """Stencil: reads rows i-1, i, i+1 of A whole (the replicate path),
+    the row's columns wrapped by ``torch.roll``."""
+
+    @omp.parallel_for(start=1, stop=n - 1, name="jacobi")
+    def jac(i, env):
+        a = env["A"]
+        row = 0.25 * (a[i - 1] + a[i + 1] + torch.roll(a[i], 1)
+                      + torch.roll(a[i], -1))
+        return {"B": omp.at(i, row)}
+
+    def arrays(rng):
+        return {"A": _rng(rng, n, n), "B": _zeros(n, n)}
+
+    return PolyKernel("jacobi2d", [jac], arrays, ("B",), dict(n=n))
+
+
 ALL_KERNELS = [
     make_pi, make_gemm, make_2mm, make_3mm, make_atax, make_bicg,
     make_mvt, make_gesummv, make_syrk, make_syr2k, make_covariance,
+    make_jacobi2d,
 ]
 
 BUILDERS = {build.__name__[len("make_"):]: build for build in ALL_KERNELS}
 
-#: The linear-algebra kernels (every kernel but ``pi``).
-LINEAR_ALGEBRA = tuple(EXTRALARGE)
+#: The stencils (PolyBench's ``stencils`` directory).
+STENCILS = ("jacobi2d",)
+#: The linear-algebra kernels (every kernel but ``pi`` and the stencils).
+LINEAR_ALGEBRA = tuple(k for k in EXTRALARGE if k not in STENCILS)
 
 
 def make(name: str, size="extralarge") -> PolyKernel:

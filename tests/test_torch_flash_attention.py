@@ -20,6 +20,7 @@ come from seeded numpy and go through both packages:
 """
 import functools
 import heapq
+import math
 
 import jax
 import jax.numpy as jnp
@@ -229,6 +230,42 @@ def test_kernel_input_checks():
         assert shifted.is_contiguous()
         with pytest.raises(ValueError, match="16-byte aligned"):
             fa.check_kernel_inputs(q, shifted, v)
+
+
+def test_head_dim_padding_is_exact_and_over_256_is_refused():
+    """The wrapper pads a head_dim that is not a multiple of 8 with zero
+    columns before K2 (which takes multiples of 8) and keeps the true
+    head_dim's softmax scale: attention over the padded tensors at that
+    scale, cut back, equals attention over the originals, and the padded
+    output columns are zero.  A head_dim over 256 stays refused, with the
+    shared-memory reason."""
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator().manual_seed(5)
+    for hd, dtype in ((100, torch.float32), (100, torch.bfloat16),
+                      (36, torch.float32)):
+        q, k, v = (torch.randn(shape, generator=g).to(dtype) for shape in
+                   ((1, 4, 24, hd), (1, 2, 30, hd), (1, 2, 30, hd)))
+        qp, kp, vp = fa.pad_head_dim(q, k, v)
+        hp = -(-hd // 8) * 8
+        assert qp.shape[3] == kp.shape[3] == vp.shape[3] == hp
+        fa.check_kernel_inputs(qp, kp, vp)
+        assert all(bool((t[..., hd:] == 0).all()) for t in (qp, kp, vp))
+        # the plain version scales by 1/sqrt(hp): fold sqrt(hp / hd) into q
+        # so that both see the true head_dim's scale
+        qs = (qp.float() * math.sqrt(hp / hd)).to(dtype)
+        got = fa.flash_attention_plain(qs, kp, vp, causal=True, window=8)
+        want = fa.flash_attention_plain(q, k, v, causal=True, window=8)
+        tol = 1e-6 if dtype == torch.float32 else 1e-2
+        torch.testing.assert_close(got[..., :hd].float(), want.float(),
+                                   rtol=tol, atol=tol)
+        assert bool((got[..., hd:] == 0).all())
+    q = torch.zeros(1, 2, 4, 64)
+    assert fa.pad_head_dim(q, q, q)[0] is q
+    big = torch.zeros(1, 2, 4, 264, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=r"<= 256 \(its q, k and v tiles "
+                       r"must fit shared memory\)"):
+        fa.check_kernel_inputs(big, big, big)
 
 
 def test_work_list_tiles_match_the_kernels():

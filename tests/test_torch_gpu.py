@@ -32,18 +32,19 @@ def test_span_kernel_on_the_card_matches_plain():
 
 @pytest.mark.gpu
 def test_polybench_products_on_the_card():
-    """``chip_smoke.py``'s polybench phase on four kernels at EXTRALARGE
-    size (a row-times-matrix, a matrix-vector, a transposed matrix and a
-    two-pass centring): both lowerings == ``run_reference``, K1's
-    launches, each span against its plain version (which also rejects
-    TF32 products)."""
+    """``chip_smoke.py``'s polybench phase on five kernels at EXTRALARGE
+    size (a row-times-matrix, a matrix-vector, a transposed matrix, a
+    two-pass centring and jacobi2d's rolled rows): both lowerings ==
+    ``run_reference``, K1's launches, each span against its plain version
+    (which also rejects TF32 products) and twice against itself."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     import chip_smoke
 
-    rows = chip_smoke.polybench_phase(torch, torch.device("cuda"), "test",
-                                      ("gemm", "atax", "syrk", "covariance"))
-    assert [r["launches"] for r in rows] == [1, 3, 1, 2]
+    rows = chip_smoke.polybench_phase(
+        torch, torch.device("cuda"), "test",
+        ("gemm", "atax", "syrk", "covariance", "jacobi2d"))
+    assert [r["launches"] for r in rows] == [1, 3, 1, 2, 1]
 
 
 @pytest.mark.gpu

@@ -83,15 +83,22 @@ def _fake_modules(state):
     tl.broadcast_to = lambda x, shape: _arr(np.broadcast_to(x, shape))
 
     def dot(a, b, acc=None, input_precision=None):
-        # tl.dot's shape rules, and a float32 accumulator
+        # tl.dot's shape rules, and a float32 accumulator; float32
+        # operands state their precision (3xTF32 computed here in float32)
         assert np.ndim(a) == np.ndim(b) == 2 and min(*np.shape(a),
                                                      *np.shape(b)) >= 16
-        assert input_precision == "ieee" or np.asarray(a).dtype in (
-            np.float16,)
+        assert input_precision in ("ieee", "tf32x3") or np.asarray(
+            a).dtype in (np.float16,)
         out = np.matmul(np.asarray(a, np.float32), np.asarray(b, np.float32))
         return _arr(out if acc is None else np.asarray(acc) + out)
 
     tl.dot = dot
+
+    def range_(lo, hi, step=1, num_stages=None):
+        assert num_stages is None or num_stages >= 1
+        return range(lo, hi, step)
+
+    tl.range = range_
 
     def load(ptr, mask=None, other=0):
         off = np.asarray(ptr.off)
@@ -118,7 +125,7 @@ def _fake_modules(state):
             self.fn = fn
 
         def __getitem__(self, grid):
-            def run(*args, num_warps=4):
+            def run(*args, num_warps=4, num_stages=3):
                 ptrs = [_Ptr(t.numpy().reshape(-1)) for t in args]
                 for pid in range(grid[0]):
                     state["pid"] = pid
@@ -356,11 +363,15 @@ def test_unsupported_op_raises_compile_error_naming_it():
 def test_generated_product_forms(monkeypatch):
     """Products the generator lays out otherwise than PolyBench's: a
     computed per-lane row times a slice ``W[1]`` of a 3-D array read
-    transposed (handed over as a copy with its last two dims swapped), a
-    matrix times the row (``M @ row``), a product reduced over its own
-    output (the K-loop inside the sum's loop), a mean, and one position
-    of a computed row — each equal to the plain version, with the
-    register-tile cap at its default and lowered to 16."""
+    transposed, a matrix times the row (``M @ row``), a product reduced
+    over its own output (the K-loop inside the sum's loop), a mean, and
+    one position of a computed row — each equal to the plain version,
+    with the register-tile cap at its default and lowered to 16, and
+    under 3xTF32 and IEEE float32.  A matrix whose tiles run the other
+    way than the dot reads them fastest is handed over as a copy with its
+    last two dims swapped: under 3xTF32 (K-major tiles) ``B``, which runs
+    along N; in IEEE (N-major tiles) ``W[1].T`` and ``M``, which run along
+    K."""
     from repro_torch import omp
     from repro_torch.kernels import span_kernel
 
@@ -377,14 +388,20 @@ def test_generated_product_forms(monkeypatch):
            "M": torch.tensor(g.standard_normal((29, 37), np.float32)),
            "B": torch.tensor(g.standard_normal((37, 19), np.float32)),
            "y": torch.zeros(23, 29), "s": torch.zeros(())}
-    for cap in (span_kernel._MAX_TILE_ELEMS, 16):
+    cap0 = span_kernel._MAX_TILE_ELEMS
+    for cap, precision in ((cap0, "tf32x3"), (16, "tf32x3"), (16, "ieee")):
         monkeypatch.setattr(span_kernel, "_MAX_TILE_ELEMS", cap)
+        monkeypatch.setattr(span_kernel, "_F32_PRECISION", precision)
+        omp.clear_compile_cache()       # compiles are cached by structure
         comp = omp.compile(forms, omp.make_mesh((2,), ("data",),
                                                 device="cpu"),
                            lowering="kernel", env_like=env)
         source = comp.kernel_plan.spans[0].source
-        assert source.text.count("tl.dot(") == 3
-        assert ("replT", 0, "W") in source.inputs
+        # one dot per product, emitted again in each tiling that reads it
+        assert source.text.count("tl.dot(") == source.text.count(
+            f'input_precision="{precision}"') >= 3
+        copied = {key for kind, _, key in source.inputs if kind == "replT"}
+        assert copied == ({"B"} if precision == "tf32x3" else {"W", "M"})
         for p in (1, 3):
             _check_family((forms, env), (p,), ("data",), "replicate")
 
@@ -406,6 +423,108 @@ def test_op_outside_the_template_raises_compile_error_naming_it():
     out = omp.compile(scan, mesh, lowering="collective")(env)
     np.testing.assert_allclose(out["Y"].numpy(),
                                np.tile(np.arange(1.0, 6.0), (6, 1)))
+
+
+def _roll_bodies(s):
+    """Rank-1 and rank-2 bodies that roll per-lane rows by ``s``: a row
+    load, a computed row, a product's output (its matrix's columns
+    wrapped), a replicated vector, a reduction and one position of a
+    rolled row."""
+    from repro_torch import omp
+
+    @omp.parallel_for(start=1, stop=22, reduction={"s": "+"}, name="roll1")
+    def roll1(i, env):
+        row = env["A"][i]
+        v = (torch.roll(row, s) + torch.roll(2.0 * row - env["w"], s)
+             * torch.roll(env["w"], s))
+        p = torch.roll(row @ env["M"], s)
+        return {"Y": omp.at(i, v), "P": omp.at(i, p - torch.roll(row, s)[0]),
+                "s": omp.red(torch.roll(row, s).sum() * torch.roll(row, s)[3])}
+
+    @omp.parallel_for(stop=(5, 6), collapse=2, name="roll2")
+    def roll2(i, j, env):
+        v = torch.roll(env["A"][i] * env["B"][j], s)
+        return {"Z": omp.at((i, j), v + torch.roll(env["A"][j], s)),
+                "T": omp.at((i, j), (v * env["w"]).sum())}
+
+    g = np.random.default_rng(6)
+
+    def t(*shape):
+        return torch.tensor(g.standard_normal(shape).astype(np.float32))
+
+    n = 19
+    env1 = {"A": t(23, n), "w": t(n), "M": t(n, n), "Y": torch.zeros(23, n),
+            "P": torch.zeros(23, n), "s": torch.zeros(())}
+    env2 = {"A": t(6, n), "B": t(6, n), "w": t(n), "Z": torch.zeros(5, 6, n),
+            "T": torch.zeros(5, 6)}
+    return n, (roll1, env1), (roll2, env2)
+
+
+@pytest.mark.parametrize("shift", [-1, 1, 0, "n+2"])
+def test_generated_roll_matches_plain(shift, monkeypatch):
+    """``torch.roll`` along a per-lane value axis (``aten.roll``): the
+    rolled value is emitted again at the wrapped positions ``(r - s) mod
+    n``, on rank-1 and rank-2 nests, with the value axis whole and in
+    tiles (register-tile cap 16); the generated source, emulated, equals
+    the plain version, and the kernel lowering equals ``prog(env)``."""
+    from repro_torch import omp
+    from repro_torch.kernels import span_kernel
+
+    n = _roll_bodies(0)[0]
+    s = n + 2 if shift == "n+2" else shift
+    _, case1, case2 = _roll_bodies(s)
+    for cap in (span_kernel._MAX_TILE_ELEMS, 16):
+        monkeypatch.setattr(span_kernel, "_MAX_TILE_ELEMS", cap)
+        omp.clear_compile_cache()       # compiles are cached by structure
+        for p in (1, 3):
+            _check_family(case1, (p,), ("data",), "replicate")
+        _check_family(case2, (2, 2), ("i", "j"), "replicate")
+    for (prog, env), shape, axes in ((case1, (2,), ("data",)),
+                                     (case2, (2, 1), ("i", "j"))):
+        mesh = omp.make_mesh(shape, axes, device="cpu")
+        comp = omp.compile(prog, mesh, lowering="kernel", env_like=env)
+        text = comp.kernel_plan.spans[0].source.text
+        assert (f"+ {n - s % n}) % {n})" in text) == (s % n != 0), text
+        out, ref = comp(env), prog(env)
+        for k in ref:
+            np.testing.assert_allclose(out[k].numpy(), ref[k].numpy(),
+                                       **REDUCING)
+
+
+def test_roll_across_lanes_or_of_a_register_tile_raises_naming_it():
+    """A roll the template cannot re-emit is refused at compile time,
+    naming ``aten.roll``: a lane scalar's roll (vmap rolls it across the
+    lanes) and the roll of a row an earlier span stage hands over in a
+    register tile; the collective lowering still runs the first."""
+    from repro_torch import omp
+    from repro_torch.core.region import plan_region
+    from repro_torch.kernels import span_kernel
+
+    @omp.parallel_for(stop=6)
+    def lanes(i, env):
+        return {"y": omp.at(i, torch.roll(env["x"][i], 1))}
+
+    env = {"x": torch.arange(6.0), "y": torch.zeros(6)}
+    mesh = omp.make_mesh((2,), ("data",), device="cpu")
+    with pytest.raises(omp.CompileError, match="aten.roll.*across lanes"):
+        omp.compile(lanes, mesh, lowering="kernel", env_like=env)
+    omp.compile(lanes, mesh, lowering="collective")(env)
+
+    @omp.parallel_for(stop=9, name="w1")
+    def w1(i, env):
+        return {"V": omp.at(i, env["X"][i] * 2.0)}
+
+    @omp.parallel_for(stop=9, name="w2")
+    def w2(i, env):
+        return {"y": omp.at(i, torch.roll(env["V"][i], 1).sum())}
+
+    env = {"X": torch.ones(9, 4), "V": torch.zeros(9, 4),
+           "y": torch.zeros(9)}
+    plans = [se.plan for se in plan_region(omp.region(w1, w2), env,
+                                           1).stages]
+    with pytest.raises(omp.CompileError, match="aten.roll.*register tile"):
+        span_kernel.generate_span([(plans[0], w1, ()),
+                                   (plans[1], w2, ("V",))])
 
 
 def test_cuda_tensor_never_reaches_the_plain_version(monkeypatch):
