@@ -189,7 +189,30 @@ non-zero (no phase catches an error and carries on):
     3.35 TB/s, or the span's operations — a product's 2·M·N·K three times
     over at 495 TFLOP/s (TF32, dense) where it runs 3xTF32, else at the
     67 TFLOP/s float32 rate (both printed); the kernel's sums of these
-    over its blocks, and ``Compiled.run`` per lowering.
+    over its blocks, and ``Compiled.run`` per lowering.  Per block it
+    also prints K1's launch (``span_kernel.launch_span``: one C call into
+    the compiled kernel) beside Triton's own launch path
+    (``launch_span_triton``): host enqueue, back to back and device;
+18. **repairs** — programs K1 and K2 once refused, at EXTRALARGE-scale
+    rows, float32, seeded normal data: ``cumsum`` along a row on rank 1
+    (8 ranks: 2000 rows of 2600, consumed whole, rolled, by a product
+    with a 2600 x 2600 matrix, reduced and at one position) and rank 2
+    (a 4x2 mesh: 200 x 200 rows of 512), ``roll`` of a lane scalar on
+    rank 1 (N = 2^24) and rank 2 (4096 x 4096), and a region whose two
+    later stages roll a row of 1000 that its first stage forwards in a
+    register tile (16384 rows, one span of 3 stages): each under
+    ``lowering="kernel"`` against its shared-memory run (``agree`` at
+    1e-4: a scan of 2600 normal values reaches ~100, where two float32
+    sums in another order differ by more than a fixed 1e-4),
+    K1's launches per run, its spans against their plain versions
+    (``agree``/``agree_rows`` and their rejections; the region's on
+    seeded normal data, rejecting a one-lane move) and times; then K2 at
+    head_dim 288 and 512 (the wide kernel), B=1, H=4, KV=1, S=4096,
+    causal, bfloat16 and float32, against its plain version (phase 6's
+    checks), its launches, times, SDPA and the bound.
+
+In phases 4, 15, 17 and 18 every span is also launched by K1's launcher
+and by Triton's launch path on the same feeds, equal bit for bit.
 
 The last two lines are the kernel table as one JSON object and
 ``{"ok": true, "device": {...}}``.
@@ -513,8 +536,12 @@ def compare_spans(torch, omp, transform, kernel_lower, span_kernel, prog,
                                              mesh.device)
         err = max(err, hold_lanes(torch, got, want, mask,
                                   span_tol(span.source), label))
+        hold_launch_bits(torch, kernel_lower, span_kernel, span.source,
+                         one_stage(kernel_lower, comp.plan, prog, slabs,
+                                   repl), mesh.device, label)
     print(f"kernel-vs-plain {label}: {len(comp.kernel_plan.spans)} span(s) "
-          f"max_abs_err={err:.3e}")
+          f"max_abs_err={err:.3e}; K1's launcher == Triton's launch path "
+          "bit for bit")
     return err
 
 
@@ -526,10 +553,33 @@ def one_stage(kernel_lower, plan, prog, slabs, repl) -> list:
 
 
 def span_tol(source) -> float:
-    """1e-5 for pointwise bodies; 1e-4 where a body sums a value axis or
-    multiplies matrices (``tl.dot``), whose summation order differs."""
-    return 1e-4 if ("tl.sum(" in source.text
-                    or "tl.dot(" in source.text) else 1e-5
+    """1e-5 for pointwise bodies; 1e-4 where a body sums a value axis
+    (``tl.sum``, a scan's ``tl.cumsum``) or multiplies matrices
+    (``tl.dot``), whose summation order differs."""
+    return 1e-4 if any(op in source.text for op in (
+        "tl.sum(", "tl.dot(", "tl.cumsum(")) else 1e-5
+
+
+def hold_launch_bits(torch, kernel_lower, span_kernel, source, stages, dev,
+                     label) -> int:
+    """The span launched by K1's launcher (``launch_span``: one C call
+    into the compiled kernel) and by Triton's own launch path
+    (``launch_span_triton``) on the same feeds: every output equal bit
+    for bit on the lanes that hold an iteration (the same cubin runs).
+    Returns the number of arrays compared."""
+    io = [(st.ext_windows, st.env_repl) for st in stages]
+    new = span_kernel.launch_span(source, io, dev)
+    old = span_kernel.launch_span_triton(source, io, dev)
+    n = 0
+    for st, a, b in zip(stages, new, old):
+        mask = kernel_lower.lane_mask(st.plan, dev)
+        for k in b:
+            if not torch.equal(a[k][mask], b[k][mask]):
+                raise AssertionError(
+                    f"{label} {k}: K1's launcher != Triton's launch path "
+                    "bit for bit")
+            n += 1
+    return n
 
 
 def hold_lanes(torch, got, want, mask, tol, label, lane_dim=None) -> float:
@@ -865,6 +915,29 @@ def k3_cases(torch):
     return cases
 
 
+def launch_turns(torch, ways, turns=2) -> dict:
+    """Each way of launching one span timed in turns (the first way, the
+    second, the first, ...): back to back (:func:`cuda_ms`), then device
+    time and host enqueue (:func:`device_ms`); per way the median of its
+    turns, as ``{way: (back_to_back_ms, device_ms, host_ms)}``."""
+    got = {w: ([], [], []) for w in ways}
+    for _ in range(turns):
+        for w, fn in ways.items():
+            got[w][0].append(cuda_ms(torch, fn))
+            for v, m in zip(device_ms(torch, fn), got[w][1:]):
+                m.append(v)
+    return {w: tuple(statistics.median(v) for v in m)
+            for w, m in got.items()}
+
+
+def k3_long_chunk_cases(torch):
+    """(label, b, s, h, p, n, chunk, dtype): a chunk over the kernel's
+    256 (``ssd_scan.MAX_CHUNK``), which runs as 256 and must still equal
+    the plain version, in float32 and bfloat16."""
+    return [("chunk512", 1, 1100, 2, 32, 16, 512, dtype)
+            for dtype in (torch.float32, torch.bfloat16)]
+
+
 def k3_inputs(torch, dev, b, s, h, p, n, dtype, seed):
     """x, dt, A, Bm, Cm drawn as tests/test_kernels.py draws them."""
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -904,7 +977,7 @@ def k3_phase(torch, dev):
 
     errs = {}
     for i, (label, b, s, h, p, n, chunk, dtype) in enumerate(
-            k3_cases(torch)):
+            k3_cases(torch) + k3_long_chunk_cases(torch)):
         args = k3_inputs(torch, dev, b, s, h, p, n, dtype, i)
         tname = dtname(dtype)
         tol = K3_TOL[tname]
@@ -1110,7 +1183,7 @@ def k3_times(torch, dev, card, errs, launches):
             "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
             "bound_by": bound_by, "library_ms": None})
         print(f"times K3 {tname}: kernel {ms:.4f} ms ({per_call} launch "
-              f"per call: 4 CUDA grids; chunk {chunk}), plain "
+              f"per call: 5 CUDA grids; chunk {chunk}), plain "
               f"{plain_ms:.4f} ms, library none (no single PyTorch call "
               f"computes the scan), bound {bound_s * 1e3:.4f} ms ("
               f"{bound_by}: {flops} flops, the chunked scan's at its best "
@@ -1578,6 +1651,8 @@ def compare_region_spans(torch, kernel_lower, span_kernel, calls, dev,
                 torch, g, w, kernel_lower.lane_mask(st.plan, dev),
                 span_tol(source), f"{label} span {source.fn_name} stage "
                 f"{st.plan.name}", lane_dim=3 * st.plan.rank - 1))
+        hold_launch_bits(torch, kernel_lower, span_kernel, source, stages,
+                         dev, f"{label} span {source.fn_name}")
     return err
 
 
@@ -1847,6 +1922,9 @@ def check_pb_span(torch, span_kernel, kernel_lower, comp, prog, env, dev,
     tol = span_tol(span.source)
     err = hold_lanes(torch, got, want, mask, PB_MM_TOL if mm else tol, label,
                      lane_dim)
+    hold_launch_bits(torch, kernel_lower, span_kernel, span.source,
+                     one_stage(kernel_lower, comp.plan, prog, slabs, repl),
+                     dev, label)
     worst = 0.0
     for k in want:
         # lanes that hold no iteration take the plain value
@@ -1977,6 +2055,7 @@ def polybench_phase(torch, dev, card, names=None):
         # block on the env it sees
         err = worst = 0.0
         ms = plain_ms = bound_s = dev_ms = host_ms = 0.0
+        ms_old = host_old = 0.0
         lib_ms = lib_dev_ms = 0.0
         lib_any = False
         nbytes = ops_s = 0
@@ -2002,10 +2081,18 @@ def polybench_phase(torch, dev, card, names=None):
                                      "input differ")
             print(f"bits {label}: two launches on the same input equal bit "
                   f"for bit ({', '.join(sorted(first))})")
-            b_ms = cuda_ms(torch, lambda: span_kernel.span_stage_values(
-                one, src, dev))
-            b_dev, b_host = device_ms(torch, lambda: span_kernel.
-                                      span_stage_values(one, src, dev))
+            io = [(slabs, repl)]
+            turns = launch_turns(torch, {
+                "launcher": lambda: span_kernel.span_stage_values(
+                    one, src, dev),
+                "triton": lambda: span_kernel.launch_span_triton(
+                    src, io, dev)})
+            b_ms, b_dev, b_host = turns["launcher"]
+            b_ms_old, b_dev_old, b_host_old = turns["triton"]
+            print(f"launch {label}: host enqueue {b_host:.4f} ms (K1's "
+                  f"launcher) vs {b_host_old:.4f} ms (Triton's launch path); "
+                  f"back to back {b_ms:.4f} vs {b_ms_old:.4f} ms; device "
+                  f"{b_dev:.4f} vs {b_dev_old:.4f} ms on {card}")
             b_plain = cuda_ms(torch, lambda: span_kernel.span_values_plain(
                 comp.plan, prog, slabs, repl, dev), reps=5, inner=5)
             bb, ff, df = pb_bound(torch, benv, src, comp.plan.nest.total_trip)
@@ -2033,6 +2120,7 @@ def polybench_phase(torch, dev, card, names=None):
             ms, plain_ms, bound_s = ms + b_ms, plain_ms + b_plain, \
                 bound_s + b_bound
             dev_ms, host_ms = dev_ms + b_dev, host_ms + b_host
+            ms_old, host_old = ms_old + b_ms_old, host_old + b_host_old
             nbytes, ops_s = nbytes + bb, ops_s + b_ops
             if b_lib is not None:
                 lib_ms, lib_dev_ms = lib_ms + b_lib, lib_dev_ms + b_lib_dev
@@ -2047,7 +2135,9 @@ def polybench_phase(torch, dev, card, names=None):
                  "values rejected" if name in PB_MM else ""))
         lib_s = "null" if library_ms is None else f"{library_ms:.4f} ms"
         print(f"times polybench {name}: kernel {ms:.4f} ms (device "
-              f"{dev_ms:.4f} ms, host enqueue {host_ms:.4f} ms), plain "
+              f"{dev_ms:.4f} ms, host enqueue {host_ms:.4f} ms; Triton's "
+              f"launch path {ms_old:.4f} ms, enqueue {host_old:.4f} ms), "
+              "plain "
               f"{plain_ms:.4f} ms, library {lib_s} "
               + (f"(device {lib_dev_ms:.4f} ms) " if lib_any else "")
               + f"({PB_LIBRARY_NOTE[name]}), bound {bound_s * 1e3:.4f} ms "
@@ -2068,10 +2158,280 @@ def polybench_phase(torch, dev, card, names=None):
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_s * 1e3, "bound_by": bound_by,
             "library_ms": library_ms, "device_ms": dev_ms, "host_ms": host_ms,
+            "ms_triton_launch": ms_old, "host_ms_triton_launch": host_old,
             "library_device_ms": lib_dev_ms if lib_any else None,
             "library_note": PB_LIBRARY_NOTE[name]})
         del comps, ref, coll, kern, env, benv
         torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Repairs: programs the reference runs that K1 and K2 once refused
+# ---------------------------------------------------------------------------
+
+REPAIR_ROWS = 2000             # lanes of the rank-1 cumsum block
+REPAIR_WIDTH = 2600            # its rows (PolyBench EXTRALARGE: 2000-4000)
+REPAIR2 = (200, 200, 512)      # the rank-2 cumsum block: i, j, row
+REPAIR_FWD = (16384, 1000)     # the forwarded-roll region: lanes, row
+K2_WIDE_HD = (288, 512)        # head dims over 256 (the wide kernel)
+
+
+def repair_programs(omp, torch, dev):
+    """Phase 18's programs, ``name -> (program, env, mesh shape, axes,
+    library call or None, note)``: (a) ``cumsum`` along a per-lane row on
+    rank 1 (a loaded row and a computed one; consumed whole, rolled, by
+    a product with a 2600 x 2600 matrix, reduced and at one position),
+    a rolled scan in a span with no product (its row swept tile by tile,
+    both segments carried) and rank 2; (b) ``roll`` of a lane scalar (the identity) on rank 1 (N =
+    2^24) and rank 2 (4096 x 4096); (c) a region whose later stages roll
+    a row the first stage forwards in a register tile.  Seeded normal
+    data."""
+    g = torch.Generator(device=dev).manual_seed(18)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    def zeros(*shape):
+        return torch.zeros(shape, device=dev)
+
+    n, w = REPAIR_ROWS, REPAIR_WIDTH
+
+    @omp.parallel_for(start=1, stop=n, reduction={"s": "+"},
+                      name="cumsum1")
+    def cumsum1(i, env):
+        row = env["A"][i]
+        c = torch.cumsum(row, 0)
+        d = torch.cumsum(2.0 * row - env["w"], 0)
+        return {"Y": omp.at(i, c - torch.roll(d, 2)),
+                "P": omp.at(i, c @ env["M"]),
+                "s": omp.red(c[3] + d.sum())}
+
+    @omp.parallel_for(stop=n, reduction={"s": "+"}, name="roll_scan")
+    def roll_scan(i, env):
+        row = env["A"][i]
+        c = torch.cumsum(row, 0)
+        return {"Y": omp.at(i, torch.roll(c, 3)
+                            - torch.roll(torch.cumsum(row * env["w"], 0),
+                                         -1)),
+                "s": omp.red(torch.roll(c, 2)[0])}
+
+    ni, nj, k = REPAIR2
+
+    @omp.parallel_for(stop=(ni, nj), collapse=2, name="cumsum2")
+    def cumsum2(i, j, env):
+        v = torch.cumsum(env["A"][i] * env["B"][j], 0)
+        return {"Z": omp.at((i, j), v + torch.cumsum(env["A"][j], 0)),
+                "T": omp.at((i, j), (v * env["w"]).sum())}
+
+    @omp.parallel_for(stop=N1, name="lane_roll1")
+    def lane_roll1(i, env):
+        return {"y": omp.at(i, torch.roll(env["x"][i], 1) * 2.0)}
+
+    @omp.parallel_for(stop=(N2, N2), collapse=2, name="lane_roll2")
+    def lane_roll2(i, j, env):
+        return {"z": omp.at((i, j), torch.roll(env["X"][i, j], 1)
+                            + env["X"][i, j])}
+
+    lanes, width = REPAIR_FWD
+
+    @omp.parallel_for(stop=lanes, name="w1")
+    def w1(i, env):
+        return {"V": omp.at(i, env["X"][i] * 2.0)}
+
+    @omp.parallel_for(stop=lanes, name="w2")
+    def w2(i, env):
+        return {"y": omp.at(i, torch.roll(env["V"][i], 1).sum())}
+
+    @omp.parallel_for(stop=lanes, name="w3")
+    def w3(i, env):
+        return {"Z": omp.at(i, torch.roll(env["V"][i], 2)
+                            - env["V"][i] * env["w"])}
+
+    x1, x2 = rnd(N1), rnd(N2, N2)
+    return {
+        "cumsum1": (cumsum1, {"A": rnd(n, w), "w": rnd(w), "M": rnd(w, w),
+                              "Y": zeros(n, w), "P": zeros(n, w),
+                              "s": zeros()},
+                    (PB_RANKS,), ("data",), None,
+                    "null: no single call computes cumsum, roll and mm"),
+        "roll_scan": (roll_scan, {"A": rnd(n, w), "w": rnd(w),
+                                  "Y": zeros(n, w), "s": zeros()},
+                      (PB_RANKS,), ("data",), None,
+                      "null: no single call computes a rolled scan"),
+        "cumsum2": (cumsum2, {"A": rnd(nj, k), "B": rnd(nj, k), "w": rnd(k),
+                              "Z": zeros(ni, nj, k), "T": zeros(ni, nj)},
+                    (4, 2), ("i", "j"), None,
+                    "null: no single call computes two scans of rows"),
+        "lane_roll1": (lane_roll1, {"x": x1, "y": zeros(N1)}, (PB_RANKS,),
+                       ("data",), lambda: torch.mul(x1, 2.0),
+                       "torch.mul (y = 2 x)"),
+        "lane_roll2": (lane_roll2, {"X": x2, "z": zeros(N2, N2)}, (4, 2),
+                       ("i", "j"), lambda: torch.add(x2, x2),
+                       "torch.add (z = X + X)"),
+        "roll_fwd": (omp.region(w1, w2, w3, name="roll_fwd"),
+                     {"X": rnd(lanes, width), "V": zeros(lanes, width),
+                      "y": zeros(lanes), "Z": zeros(lanes, width),
+                      "w": rnd(width)}, (PB_RANKS,), ("data",), None,
+                     REGION_LIBRARY_NOTE),
+    }
+
+
+def span_shared(span_kernel, spans) -> list:
+    """Bytes of shared memory of each compiled kernel K1's launcher holds
+    for these spans (none where the spans ran no kernel)."""
+    got = []
+    for sp in spans:
+        launcher = span_kernel._LAUNCHERS.get(
+            span_kernel.launcher_key(sp.source))
+        if launcher is not None:
+            got += sorted({e.shared for e in launcher.kernels.values()})
+    return got
+
+
+def repair_phase(torch, dev, card):
+    """Phase 18: the repaired programs (``repair_programs``) under
+    ``lowering="kernel"`` against their shared-memory run (``agree`` at
+    1e-4), K1's launches per run, every span against its plain
+    version (``agree``/``agree_rows`` and their rejections; the region's
+    on seeded normal data with the one-lane move rejected) and against
+    Triton's launch path bit for bit, and times.  Returns the
+    kernel-table rows."""
+    from repro_torch import omp
+    from repro_torch.core import kernel_lower, transform
+    from repro_torch.kernels import span_kernel
+
+    rows = []
+    for name, (prog, env, shape, axes, lib, note) in repair_programs(
+            omp, torch, dev).items():
+        t0 = time.perf_counter()
+        mesh = omp.make_mesh(shape, axes, device=dev)
+        ref = prog(env)
+        comp = omp.compile(prog, mesh, lowering="kernel", env_like=env)
+        comp(env)                       # first run: Triton builds K1
+        torch.cuda.synchronize()
+        span_kernel.LAUNCHES = 0
+        out = comp(env)
+        torch.cuda.synchronize()
+        launches = span_kernel.LAUNCHES
+        planned = comp.kernel_plan.n_kernels
+        if launches != planned or planned == 0:
+            raise AssertionError(f"repair {name}: K1 launched {launches} "
+                                 f"times, planned {planned}")
+        # agree at 1e-4: atol scales with the largest value, since a scan
+        # of 2600 normal values reaches ~100, where two float32 sums in
+        # another order differ by more than a fixed 1e-4
+        for k in ref:
+            if not agree(torch, out[k], ref[k], 1e-4):
+                raise AssertionError(
+                    f"repair {name} {k}: kernel != prog(env), max abs err "
+                    f"{(out[k] - ref[k]).abs().max().item():.3e} (max "
+                    f"|value| {ref[k].abs().max().item():.3e})")
+            if not bool(torch.isfinite(out[k]).all()):
+                raise AssertionError(f"repair {name} {k}: not finite")
+        texts = [sp.source.text for sp in comp.kernel_plan.spans]
+        region = hasattr(prog, "stages")
+        if region:
+            calls, err = check_region_spans(torch, kernel_lower, span_kernel,
+                                            comp, env, dev, f"repair {name}")
+            fwd = [list(src.forwarded) for _, src in calls]
+            if not any((1, "V") in f and (2, "V") in f for f in fwd):
+                raise AssertionError(f"repair {name}: V not forwarded to "
+                                     f"both rolling stages: {fwd}")
+        else:
+            err, worst = check_pb_span(torch, span_kernel, kernel_lower,
+                                       comp, prog, env, dev,
+                                       f"repair {name}", False)
+            repl, slabs = transform.stage_inputs(comp.plan, env)
+            calls = [(one_stage(kernel_lower, comp.plan, prog, slabs, repl),
+                      comp.kernel_plan.spans[0].source)]
+        worst_s = "n/a (region: per stage above)" if region else f"{worst:.3e}"
+        print(f"repair {name}: {prog.name} on a "
+              f"{'x'.join(map(str, shape))} mesh: kernel == prog(env) "
+              f"(agree at 1e-4), K1 launches per run {launches} (planned "
+              f"{planned}); spans vs plain max_abs_err={err:.3e}, worst "
+              f"row-relative err {worst_s}, K1's launcher == Triton's "
+              f"launch path bit for bit; tl.cumsum "
+              f"{sum(t.count('tl.cumsum(') for t in texts)}, rolled reads "
+              f"{sum(t.count(') % ') for t in texts)}; shared memory "
+              f"{span_shared(span_kernel, comp.kernel_plan.spans)} B at "
+              f"{[sp.source.num_stages for sp in comp.kernel_plan.spans]} "
+              f"stages; {time.perf_counter() - t0:.2f} s")
+        ms = plain_ms = bound_s = 0.0
+        nbytes = flops = 0
+        for stages, source in calls:
+            ms += cuda_ms(torch, lambda: span_kernel.span_stage_values(
+                stages, source, dev))
+            plain_ms += cuda_ms(torch, lambda: span_kernel.
+                                span_values_plain_stages(stages, dev),
+                                reps=3, inner=2, warmup=1)
+            b, f = span_bound(torch, stages, source)
+            nbytes, flops = nbytes + b, flops + f
+            bound_s += max(b / HBM_BYTES_PER_S, f / FP32_FLOPS_PER_S)
+        library_ms = cuda_ms(torch, lib) if lib is not None else None
+        bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S
+                    >= flops / FP32_FLOPS_PER_S else "operations")
+        print(f"times repair {name}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, library "
+              + ("null" if library_ms is None else f"{library_ms:.4f} ms")
+              + f" ({note}), bound {bound_s * 1e3:.4f} ms ({bound_by}: "
+              f"{nbytes} B, {flops} flops) on {card}")
+        rows.append({
+            "name": f"span_kernel[repair {name}]", "route": "triton",
+            "source": SOURCE, "replaces": REPLACES, "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+            "library_ms": library_ms, "library_note": note})
+        del comp, out, ref, env, calls
+        torch.cuda.empty_cache()
+    return rows
+
+
+def k2_wide_phase(torch, dev, card):
+    """Phase 18, K2 at a head_dim over 256 (the wide kernel): at B=1,
+    H=4, KV=1, S=4096, causal, in bfloat16 and float32, the kernel held
+    against its plain version (``hold``/``hold_rows`` at phase 6's tols;
+    its launches counted around that call), then timed beside the plain
+    version, SDPA and the bound.  Returns the kernel-table rows."""
+    from repro_torch.kernels import flash_attention as fa
+
+    rows = []
+    tols = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+    b, h, kv, sq, sk = 1, 4, 1, PREFILL_LEN, PREFILL_LEN
+    for hd in K2_WIDE_HD:
+        for dtype in (torch.bfloat16, torch.float32):
+            tname = dtname(dtype)
+            q, k, v = k2_inputs(torch, dev, b, h, kv, sq, sk, hd, dtype, hd)
+            before = sum(fa.LAUNCHES.values())
+            err, row_err = check_k2(torch, fa, q, k, v, True, None,
+                                    tols[dtype], f"hd{hd} S={sq} {tname}")
+            launches = sum(fa.LAUNCHES.values()) - before
+            if launches != 1:
+                raise AssertionError(f"K2 hd{hd}: {launches} launches")
+            ms = cuda_ms(torch, lambda: fa.flash_attention(
+                q, k, v, causal=True), reps=5, inner=5)
+            plain_ms = cuda_ms(torch, lambda: fa.flash_attention_plain(
+                q, k, v, causal=True), reps=3, inner=2, warmup=1)
+            library_ms = cuda_ms(torch, sdpa_call(torch, q, k, v, None),
+                                 reps=5, inner=5)
+            bound_s, bound_by, flops, nbytes, _ = k2_bound(
+                torch, b, h, kv, sq, sk, hd, None, dtype)
+            rows.append({
+                "name": f"flash_attention[hd{hd} S={sq} {tname}]",
+                "route": "cuda", "source": K2_SOURCE,
+                "replaces": K2_REPLACES, "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+                "library_ms": library_ms})
+            print(f"K2 hd{hd} {tname} B={b} H={h} KV={kv} S={sq} causal "
+                  f"(the wide kernel): kernel == plain (max_abs_err "
+                  f"{err:.3e}, worst row-relative {row_err:.3e}, tol "
+                  f"{tols[dtype]}); kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound "
+                  f"{bound_s * 1e3:.4f} ms ({bound_by}: {flops} flops, "
+                  f"{nbytes} B) on {card}")
+            del q, k, v
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -2242,6 +2602,10 @@ def main(device: str = "cuda") -> int:
 
     # -- PolyBench linear algebra: K1's products on tl.dot -------------------
     rows += polybench_phase(torch, dev, card)
+
+    # -- repairs: K1's scans and rolls, K2 past head_dim 256 -----------------
+    rows += repair_phase(torch, dev, card)
+    rows += k2_wide_phase(torch, dev, card)
 
     print(card)
     print(json.dumps({"kernels": rows}))

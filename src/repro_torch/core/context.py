@@ -152,14 +152,29 @@ def lane_body(program, rank: int):
     return fn
 
 
+class _ZeroDimRoll(torch.overrides.TorchFunctionMode):
+    """``torch.roll`` of a 0-d value is that value, as it is outside vmap
+    and as ``jnp.roll`` of a 0-d array is; vmap's batching rule for it
+    rolls the value across the batch (the lanes) instead."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func in (torch.roll, torch.Tensor.roll) and args \
+                and isinstance(args[0], torch.Tensor) and args[0].dim() == 0:
+            return args[0]
+        return func(*args, **(kwargs or {}))
+
+
 def vmap_lanes(fn, rank: int, ivecs, env):
     """Evaluate ``fn(i[, j], env)`` on every lane: one vmap over ``i``
-    for rank 1, the cross product (i outer, j inner) for rank 2."""
+    for rank 1, the cross product (i outer, j inner) for rank 2; a lane
+    scalar's roll is the identity (:class:`_ZeroDimRoll`)."""
     from torch.func import vmap
 
-    if rank == 1:
-        return vmap(lambda i: fn(i, env))(ivecs[0])
-    return vmap(lambda i: vmap(lambda j: fn(i, j, env))(ivecs[1]))(ivecs[0])
+    with _ZeroDimRoll():
+        if rank == 1:
+            return vmap(lambda i: fn(i, env))(ivecs[0])
+        return vmap(lambda i: vmap(lambda j: fn(i, j, env))(ivecs[1]))(
+            ivecs[0])
 
 
 @dataclasses.dataclass

@@ -18,8 +18,9 @@
 // Layout: q, o (B, H, Sq, hd); k, v (B, KV, Sk, hd), contiguous; the KV
 // head of query head h is h / (H / KV), so GQA reads the KV head in
 // place and never replicates it.  Types: float, bfloat16, float16; any
-// hd <= 256 that is a multiple of 8 (so a 16-bit row is a multiple of
-// 16 bytes, as TMA wants); 16-bit tensors 16-byte aligned.
+// hd that is a multiple of 8 (so a 16-bit row is a multiple of 16 bytes,
+// as TMA wants); 16-bit tensors 16-byte aligned.  hd <= 256 runs the two
+// kernels below; hd > 256 the wide kernel (last).
 //
 // Bound on the H100 SXM: operations.  At gemma3-1b's global layer (B=1,
 // H=4, S=4096, hd=256, causal) the band holds ~8.4M allowed (q, k) pairs
@@ -101,6 +102,16 @@
 //         cycles however many lanes share the address, Q K^T needs more
 //         of them than FMA issue slots), then the half block that idles
 //         in the softmax.
+//   * head_dim > 256, any type (flash_fwd_wide_kernel): a block's q, k
+//     and v tiles at such a head dim no longer fit the SM's shared memory
+//     beside a ring of K/V stages, so each block owns a slice of at most
+//     256 of the output's columns (hd 288: 256 + 32; 512: 256 + 256) for
+//     32 query rows, and forms S = Q K^T over the whole head dim from
+//     64-column slices of Q and K staged through shared memory (widened
+//     to float32), then O += P V on its own columns, register-tiled FMAs
+//     (128 threads, 8 S values and 64 O columns a thread; ~50 KB of
+//     shared memory).  Each slice recomputes S: at hd 512 that is twice
+//     the Q K^T work.  Right first; not tuned.
 //
 // Built by nvcc (-gencode arch=compute_90a,code=sm_90a) into a shared
 // library with a plain C entry, loaded with ctypes by
@@ -1089,6 +1100,162 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// head_dim > 256, any type: register-tiled FMAs over head-dim slices
+// ---------------------------------------------------------------------------
+
+namespace widek {
+
+constexpr int BQ = 32;        // query rows of a block
+constexpr int BK = 32;        // keys per tile
+constexpr int DS = 64;        // head-dim slice of Q and K staged for S
+constexpr int DV = 256;       // output columns a block owns
+constexpr int THREADS = 128;  // thread t: row t / 4, quarter t % 4
+constexpr int LDS = DS + 1;   // padded row of a Q or K slice (floats)
+constexpr int LDP = BK + 1;   // padded row of P
+
+constexpr size_t smem_bytes() {
+  return sizeof(float) * ((size_t)BQ * LDS + BK * LDS + BK * DV + BQ * LDP);
+}
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+__device__ __forceinline__ void store(__half* p, float x) {
+  *p = __float2half(x);
+}
+
+}  // namespace widek
+
+// One block per (32-row q tile, 256-column slice of the output's head
+// dim, b * H + h).  Per key tile of its band: S = Q K^T over the whole
+// head dim, staged through shared memory 64 columns at a time (float32,
+// 16-bit inputs widened as they load); the online softmax in registers
+// (a row's 4 threads meet by shuffles); P through shared memory; O += P V
+// on the block's own columns.  Thread t holds S at row t / 4, keys
+// 8 (t % 4) .. + 7, and O at that row, columns 16 g + 4 (t % 4) .. + 3
+// (g < 16).
+template <typename T>
+__global__ void __launch_bounds__(widek::THREADS)
+flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, T* __restrict__ o, int H,
+                      int group, int Sq, int Sk, int hd, int causal,
+                      int use_window, int window, float scale) {
+  using namespace widek;
+  extern __shared__ __align__(16) float wsm[];
+  float* Qs = wsm;                   // (row, d) of one slice
+  float* Ks = Qs + BQ * LDS;         // (key, d) of one slice
+  float* Vs = Ks + BK * LDS;         // (key, column) of the block's columns
+  float* Ps = Vs + BK * DV;          // (row, key)
+  const int tid = threadIdx.x, r = tid >> 2, quarter = tid & 3;
+  const int q0 = blockIdx.x * BQ, d0 = blockIdx.y * DV;
+  const int bh = blockIdx.z, h = bh % H, b = bh / H;
+  const long kvh = (long)b * (H / group) + h / group;
+  const T* qp = q + (long)bh * Sq * hd;
+  const T* kp = k + kvh * Sk * hd;
+  const T* vp = v + kvh * Sk * hd;
+  const int rows = min(BQ, Sq - q0);
+  const int dv = min(DV, hd - d0);
+  const int qpos = q0 + r + Sk - Sq;    // this thread's row, in key order
+
+  float acc[DV / 4];
+#pragma unroll
+  for (int i = 0; i < DV / 4; ++i) acc[i] = 0.f;
+  float m = NEG_INF, l = 0.f;
+  const Band bd = band(q0, rows, Sq, Sk, BK, causal, use_window, window);
+  for (int t = bd.lo; t < bd.hi; ++t) {
+    const int k0 = t * BK;
+    float s[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[j] = 0.f;
+    for (int ds = 0; ds < hd; ds += DS) {
+      for (int e = tid; e < BQ * DS; e += THREADS) {
+        const int rr = e / DS, dd = e % DS, d = ds + dd;
+        Qs[rr * LDS + dd] = (rr < rows && d < hd)
+                                ? to_f32(qp[(long)(q0 + rr) * hd + d])
+                                : 0.f;
+        Ks[rr * LDS + dd] = (k0 + rr < Sk && d < hd)
+                                ? to_f32(kp[(long)(k0 + rr) * hd + d])
+                                : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int dd = 0; dd < DS; ++dd) {
+        const float a = Qs[r * LDS + dd];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          s[j] = fmaf(a, Ks[(quarter * 8 + j) * LDS + dd], s[j]);
+      }
+      __syncthreads();
+    }
+    // the online softmax: masked keys get probability 0
+    bool ok[8];
+    float mt = NEG_INF;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int kk = k0 + quarter * 8 + j;
+      ok[j] = r < rows && kk < Sk && (!causal || kk <= qpos) &&
+              (!use_window || kk > qpos - window);
+      s[j] *= scale;
+      if (ok[j]) mt = fmaxf(mt, s[j]);
+    }
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+    const float m_new = fmaxf(m, mt);
+    const float corr = expf(m - m_new);
+    float ps = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float p = ok[j] ? expf(s[j] - m_new) : 0.f;
+      Ps[r * LDP + quarter * 8 + j] = p;
+      ps += p;
+    }
+    ps += __shfl_xor_sync(0xffffffffu, ps, 1);
+    ps += __shfl_xor_sync(0xffffffffu, ps, 2);
+    l = l * corr + ps;
+    m = m_new;
+#pragma unroll
+    for (int i = 0; i < DV / 4; ++i) acc[i] *= corr;
+    // V's rows of this tile, the block's columns
+    for (int e = tid; e < BK * DV; e += THREADS) {
+      const int kk = e / DV, c = e % DV;
+      Vs[e] = (k0 + kk < Sk && c < dv)
+                  ? to_f32(vp[(long)(k0 + kk) * hd + d0 + c])
+                  : 0.f;
+    }
+    __syncthreads();
+    for (int kk = 0; kk < BK; ++kk) {
+      const float p = Ps[r * LDP + kk];
+#pragma unroll
+      for (int g = 0; g < DV / 16; ++g) {
+        const float4 vv = *reinterpret_cast<const float4*>(
+            Vs + kk * DV + g * 16 + quarter * 4);
+        acc[g * 4 + 0] = fmaf(p, vv.x, acc[g * 4 + 0]);
+        acc[g * 4 + 1] = fmaf(p, vv.y, acc[g * 4 + 1]);
+        acc[g * 4 + 2] = fmaf(p, vv.z, acc[g * 4 + 2]);
+        acc[g * 4 + 3] = fmaf(p, vv.w, acc[g * 4 + 3]);
+      }
+    }
+    __syncthreads();
+  }
+  if (r >= rows) return;
+  const float inv = 1.f / fmaxf(l, 1e-30f);
+  T* out = o + ((long)bh * Sq + q0 + r) * hd + d0;
+#pragma unroll
+  for (int g = 0; g < DV / 16; ++g)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = g * 16 + quarter * 4 + e;
+      if (c < dv) store(out + c, acc[g * 4 + e] * inv);
+    }
+}
+
+// ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
 
@@ -1231,6 +1398,32 @@ cudaError_t launch_f32(const Args& a) {
   return cudaGetLastError();
 }
 
+// head_dim > 256: one block per (q tile, 256-column slice, b * H + h)
+template <typename T>
+cudaError_t launch_wide(const Args& a) {
+  static bool attr[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  auto kern = flash_fwd_wide_kernel<T>;
+  const size_t smem = widek::smem_bytes();
+  if (!attr[dev]) {
+    if ((err = cudaFuncSetAttribute(
+             kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
+        cudaSuccess)
+      return err;
+    attr[dev] = true;
+  }
+  const dim3 grid((a.Sq + widek::BQ - 1) / widek::BQ,
+                  (a.hd + widek::DV - 1) / widek::DV, a.B * a.H);
+  kern<<<grid, widek::THREADS, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<T*>(a.o), a.H, a.H / a.KV,
+      a.Sq, a.Sk, a.hd, a.causal, a.use_window, a.window, a.scale);
+  return cudaGetLastError();
+}
+
 // hd rounded up to 64, 128 or 256 picks the kernel's tile width
 template <typename T>
 cudaError_t dispatch_hd(const Args& a) {
@@ -1276,6 +1469,29 @@ int k2_flash_attention_fwd(const void* q, const void* k, const void* v,
       return (int)dispatch_hd<__nv_bfloat16>(a);
     default:
       return (int)dispatch_hd<__half>(a);
+  }
+}
+
+// head_dim > 256 (a multiple of 8): the wide kernel, on a grid of its own
+// (no work list).  dtype as above.  Returns a cudaError_t.
+int k2_flash_attention_wide_fwd(const void* q, const void* k, const void* v,
+                                void* o, int dtype, int B, int H, int KV,
+                                int Sq, int Sk, int hd, int causal,
+                                int use_window, int window, float scale,
+                                void* stream) {
+  if (hd <= 256 || hd % 8 || KV <= 0 || H % KV != 0 || B <= 0 || Sq <= 0 ||
+      Sk < 0 || dtype < 0 || dtype > 2)
+    return (int)cudaErrorInvalidValue;
+  const Args a{q, k, v, o, nullptr, nullptr, 0, B, H, KV, Sq, Sk, hd,
+               causal, use_window, window, scale,
+               static_cast<cudaStream_t>(stream)};
+  switch (dtype) {
+    case 0:
+      return (int)launch_wide<float>(a);
+    case 1:
+      return (int)launch_wide<__nv_bfloat16>(a);
+    default:
+      return (int)launch_wide<__half>(a);
   }
 }
 

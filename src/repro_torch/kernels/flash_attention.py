@@ -5,8 +5,10 @@ Replaces ``src/repro/kernels/flash_attention.py::flash_attention_kernel``
 (the Pallas kernel ``_flash_kernel``).  The kernels are CUDA C++ for
 Hopper (``sm_90a``), in ``src/repro_torch/csrc/flash_attention.cu``:
 ``wgmma`` fed by a TMA ring for bfloat16 and float16, register-tiled FMAs
-for float32; its note says what they compute, what bounds them on the
-H100 and how they are laid out.
+for float32, and for a head_dim over 256 (any type) a kernel whose
+blocks each own a slice of at most 256 output columns and form Q K^T
+over the whole head dim in 64-column slices; its note says what they
+compute, what bounds them on the H100 and how they are laid out.
 
 Build: at first use, :mod:`repro_torch.kernels._build` compiles the
 source with ``nvcc`` into ``build/kernels/flash_attention_<hash>.so`` and
@@ -44,6 +46,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 11
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    wide = lib.k2_flash_attention_wide_fwd
+    wide.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
+                     + [ctypes.c_float, ctypes.c_void_p])
+    wide.restype = ctypes.c_int
     lib.k2_error_string.argtypes = [ctypes.c_int]
     lib.k2_error_string.restype = ctypes.c_char_p
 
@@ -166,19 +172,18 @@ def _check(q, k, v):
 
 def check_kernel_inputs(q, k, v):
     """What the CUDA kernels take beyond :func:`_check`'s shapes: float32,
-    bfloat16 or float16; hd <= 256 (the q, k and v tiles of a block must
-    fit the SM's shared memory) and a multiple of 8 (a 16-bit row is then
-    a multiple of the 16 bytes TMA moves, as is a float32 row for
+    bfloat16 or float16; a head_dim that is a multiple of 8 (a 16-bit row
+    is then a multiple of the 16 bytes TMA moves, as is a float32 row for
     ``cp.async``; :func:`flash_attention` pads any other head_dim up to
-    one); contiguous tensors starting 16-byte aligned."""
+    one; over 256 the wide kernel runs); contiguous tensors starting
+    16-byte aligned."""
     if q.dtype not in _DTYPES:
         raise ValueError(f"K2 takes float32, bfloat16 or float16, not "
                          f"{q.dtype}")
     hd = q.shape[3]
-    if hd > 256 or hd % 8:
-        raise ValueError(f"K2 takes a head_dim <= 256 (its q, k and v tiles "
-                         f"must fit shared memory) that is a multiple of 8, "
-                         f"not {hd}")
+    if hd % 8:
+        raise ValueError(f"K2 takes a head_dim that is a multiple of 8, not "
+                         f"{hd}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("K2 takes contiguous q, k, v")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
@@ -209,8 +214,7 @@ def flash_attention(q, k, v, *, causal=True, window=None):
     if q.device.type != "cuda":
         raise ValueError(f"K2 runs on CUDA, not {q.device}")
     true_hd = q.shape[3]
-    if true_hd <= 256:
-        q, k, v = pad_head_dim(q, k, v)
+    q, k, v = pad_head_dim(q, k, v)
     check_kernel_inputs(q, k, v)
     b, h, sq, hd = q.shape
     kv, sk = k.shape[1], k.shape[2]
@@ -218,17 +222,23 @@ def flash_attention(q, k, v, *, causal=True, window=None):
     if out.numel() == 0:
         return out[..., :true_hd]
     lib = build()
-    items = _work_list(q.device, b, h, sq, sk, TILE[q.dtype], bool(causal),
-                       window)
+    shape = (_DTYPES[q.dtype], b, h, kv, sq, sk, hd, int(causal),
+             int(window is not None), int(window or 0),
+             1.0 / math.sqrt(true_hd))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        taken = _counter(q.device, stream)
-        err = lib.k2_flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            items.data_ptr(), taken.data_ptr(), items.numel(),
-            _DTYPES[q.dtype], b, h, kv, sq, sk, hd, int(causal),
-            int(window is not None), int(window or 0),
-            1.0 / math.sqrt(true_hd), stream)
+        if hd > 256:                # the wide kernel: a grid of its own
+            err = lib.k2_flash_attention_wide_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                *shape, stream)
+        else:
+            items = _work_list(q.device, b, h, sq, sk, TILE[q.dtype],
+                               bool(causal), window)
+            taken = _counter(q.device, stream)
+            err = lib.k2_flash_attention_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                items.data_ptr(), taken.data_ptr(), items.numel(), *shape,
+                stream)
     if err:
         raise RuntimeError(f"K2 launch failed: "
                            f"{lib.k2_error_string(err).decode()}")

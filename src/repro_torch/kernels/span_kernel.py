@@ -48,8 +48,13 @@ the Pallas kernel traced the body into its own body:
   op: affine loads from the slab windows (row ``index - (k0 +
   halo_base)``) or from replicated arrays, pointwise arithmetic,
   ``sum``/``mean``/``amax``/``amin`` over a per-lane value axis, a
-  ``roll`` along it (the rolled value emitted again at the wrapped
-  positions), ``aten.mm`` of a per-lane operand and a replicated array
+  ``cumsum`` along it (``tl.cumsum`` of a tile in float32, the running
+  sum carried from tile to tile where the axis is tiled, a tile of the
+  grid's value axis starting from the sum before it, a rolled scan
+  scanned again in two segments), a ``roll``
+  along it (the rolled value emitted again at the wrapped positions; a
+  lane scalar's roll is the identity), ``aten.mm`` of a per-lane
+  operand and a replicated array
   (either side, transposed or not) as K-loops of ``tl.dot`` and
   ``aten.mv`` as K-loops of row sums; a rank-2
   nest's ``A[i] . B[:, j]`` is the outer tile ``A[tile_i, K] @ B[K,
@@ -71,8 +76,12 @@ memory.  The generator serves a forwarded read only when it provably
 addresses the lane's own row — the index is ``k + base`` on every
 sharded axis for the lane's iteration ``k`` and the producer's write
 ``base`` (tracked through the aten graph as an affine form of the
-iterator) — and raises ``CompileError`` otherwise.  All stages share one
-chunk geometry, so one tile and one grid (checked, not assumed).
+iterator) — and raises ``CompileError`` otherwise.  A later stage that
+reads such a tile in another tiling (a ``roll``'s wrapped positions)
+emits the producer's value again there (``_Val.alt``): the earlier stage
+computed it from values the kernel still holds or loads, so no barrier
+and no read-back of stored rows is needed.  All stages share one chunk
+geometry, so one tile and one grid (checked, not assumed).
 
 An op outside the template raises ``CompileError`` naming it, when the
 program compiles.  The source is written to ``build/span_kernels/`` and
@@ -86,14 +95,27 @@ and a region's span alike: CPU tensors take
 each stage's body vmapped over lanes by :func:`span_values_plain`,
 forwarded values handed over as tensors); CUDA tensors launch the kernel
 or raise.  :data:`LAUNCHES` counts launches, one per span.
+
+The launch (:class:`_Launcher`, built per source at its first launch)
+skips Triton's Python launch path, whose binder, specialisation and
+cache lookup cost more host time than a short span's device time: it
+keeps the compiled kernel of each pointer-alignment specialisation met
+(compiled through Triton's own path on a miss), allocates the outputs as
+16-byte aligned views into one buffer, and enqueues with one C call
+(``csrc/span_launch.cu``: ``cuLaunchKernel`` of the same cubin).
+:func:`launch_span_triton` keeps the old launch, to hold the new one
+against it.
 """
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
+import functools
 import hashlib
 import importlib.util
 import math
+import operator
 import os
 from pathlib import Path
 from typing import Any
@@ -104,6 +126,7 @@ from repro_torch.core import context as ctx_mod
 from repro_torch.core.api import CompileError
 from repro_torch.core.nest import (derive_nest_tiles, pow2_at_least,
                                    window_extent)
+from repro_torch.kernels import _build
 
 aten = torch.ops.aten
 
@@ -131,6 +154,15 @@ _DOT_LANES = 128
 _DOT_TILE_SCALE = 4
 _DOT_WARPS = 8
 _DOT_STAGES = 3
+#: Shared memory a block may hold on the H100 (227 KB, opted in).  A
+#: product's ring takes one ``[lanes, BK]`` and one ``[BK, N]`` operand
+#: tile a stage; where ``_DOT_STAGES`` of them do not fit here, the K
+#: tile is halved until they do (:meth:`_Gen._k_loop`; a tile of 16 lanes
+#: and 1024 values still fits at 16).  Phase 18's cumsum1 (32 lanes, a
+#: 512-wide output tile) so runs K tiles of 32: at 64 its three stages
+#: need 288 KB, and one or two stages ran 20x slower than K tiles of 32
+#: or 16 at three (``tools/k1_product_variants.py ring``).
+_SMEM_BYTES = 232448
 #: Precision of a ``tl.dot`` of float32 operands: three TF32 products
 #: (``a_hi b_hi + a_hi b_lo + a_lo b_hi``) on the tensor cores, within a
 #: few float32 roundings of the IEEE product.  Every float32 ``tl.dot``
@@ -268,6 +300,8 @@ class _Val:
     loop: bool = False          # its tile is computed by a K-loop
     scope: Any = None           # the _Scope ``expr`` lies in (None: any)
     src: tuple | None = None    # a row load: (mem, {dim: index}, value dim)
+    alt: Any = None             # a register tile's lazy twin (other tilings)
+    scan: tuple | None = None   # a cumsum's (operand, sum type)
 
 
 @dataclasses.dataclass
@@ -280,8 +314,17 @@ class _Scope:
     r: str
     m: str
     bt: int
-    start: str | None = None    # a loop's tile start (its loop variable)
+    start: str | None = None    # the tile's first position (a loop's
+    #                             variable, the grid's value tile)
     cache: dict = dataclasses.field(default_factory=dict)
+    seq: bool = False           # positions start + arange(bt), tiles in order
+    pre: tuple | None = None    # a loop's (lines before it, their indent)
+
+
+def _flat(lines: list) -> list[str]:
+    """Generated lines in order, the lists placed before loops opened."""
+    return [x for item in lines
+            for x in (_flat(item) if isinstance(item, list) else (item,))]
 
 
 def _lit(v, dtype) -> str:
@@ -416,7 +459,7 @@ class _Gen:
     def __init__(self, plans, traces):
         plan0 = plans[0]
         self.rank = plan0.rank
-        self.lines: list[str] = []
+        self.lines: list = []       # lines, and lists placed before a loop
         self.head: list[str] = []
         self.ind = ""
         self.n = 0
@@ -446,7 +489,7 @@ class _Gen:
             bt = min(max(pow2_at_least(n), _DOT_MIN), max(
                 _DOT_MIN, _DOT_TILE_SCALE * _MAX_TILE_ELEMS // self.block))
             self.value_tiles = -(-n // bt)
-            self.grid_scope = _Scope(n, "gr", "gm", bt)
+            self.grid_scope = _Scope(n, "gr", "gm", bt, start=f"(vt * {bt})")
             self.head.append(f"    gr = vt * {bt} + tl.arange(0, {bt})"
                              "[None, :]")
             self.head.append(f"    gm = gr < {n}")
@@ -529,7 +572,7 @@ class _Gen:
             r, m = f"kr{k}", f"km{k}"
             self.head.append(f"    {r} = tl.arange(0, {kp})[None, :]")
             self.head.append(f"    {m} = {r} < {k}")
-            self.full_scopes[k] = _Scope(k, r, m, kp)
+            self.full_scopes[k] = _Scope(k, r, m, kp, start="0", seq=True)
         return self.full_scopes[k]
 
     @contextlib.contextmanager
@@ -543,12 +586,17 @@ class _Gen:
         self.n += 1
         rng = (f"tl.range(0, {k}, {bt}, num_stages={stages})" if stages
                else f"range(0, {k}, {bt})")
+        # lines a value emitted in the loop puts before it (a scan's carry)
+        pre: list[str] = []
+        self.lines.append(pre)
+        pre_ind = f"    {self.ind}"
         self._line(f"for t{n} in {rng}:")
         self.ind += "    "
         self._line(f"r{n} = t{n} + tl.arange(0, {bt})[None, :]")
         self._line(f"m{n} = r{n} < {k}")
         try:
-            yield _Scope(k, f"r{n}", f"m{n}", bt, start=f"t{n}")
+            yield _Scope(k, f"r{n}", f"m{n}", bt, start=f"t{n}", seq=True,
+                         pre=(pre, pre_ind))
         finally:
             self.ind = self.ind[:-4]
 
@@ -556,6 +604,8 @@ class _Gen:
         """``v``'s expression in ``scope`` (lane scalars: everywhere)."""
         if v.expr is not None:
             if v.scope is not None and v.scope is not scope:
+                if v.alt is not None:       # emitted again in this tiling
+                    return self.tile(v.alt, scope)
                 raise CompileError(
                     f"span kernel: a register tile of a value axis of {v.k} "
                     f"elements in {self.plan.name!r} is read in another "
@@ -887,6 +937,9 @@ class _Gen:
         if t in _PRODUCTS:
             self.vals[n] = self._product(n)
             return
+        if t is aten.roll.default:
+            self.vals[n] = self._roll(n)
+            return
         od = n.meta["val"].dtype
         lane, k = self._form(n)
         if t in self._BIN:
@@ -983,24 +1036,27 @@ class _Gen:
         elif t in self._REDUCE:
             self.vals[n] = self._reduce(n, self._REDUCE[t],
                                         self.value(args[0]), od, lane)
-        elif t is aten.roll.default:
-            self.vals[n] = self._roll(n, self.value(args[0]))
+        elif t is aten.cumsum.default:
+            self.vals[n] = self._cumsum(n, self.value(args[0]), od)
         else:
             raise CompileError(
                 f"span kernel: aten op {t} in the body of {self.plan.name!r} "
                 "is not supported by the Triton template (supported: "
                 "pointwise arithmetic, comparisons, where, exp/log/sqrt/abs, "
-                "affine env reads, sum/mean/amax/amin and roll along a "
-                "value axis, mm/mv of a per-lane row and a replicated "
+                "affine env reads, sum/mean/amax/amin, cumsum and roll along "
+                "a value axis, mm/mv of a per-lane row and a replicated "
                 "array)")
 
-    def _roll(self, n, x: _Val) -> _Val:
+    def _roll(self, n) -> _Val:
         """``roll(x, s)`` along a per-lane value axis of length ``k``:
         position ``r`` holds ``x`` at ``(r - s) mod k``, so the result is
         ``x`` emitted again in a scope whose positions are shifted (a
         load reads the wrapped positions, a product the wrapped columns
-        of its matrix).  A roll across lanes, or of a value held in one
-        register tile (which cannot be emitted elsewhere), raises."""
+        of its matrix, a forwarded register tile its producer's value).
+        A value with no value axis (a lane scalar: vmap rolls it across
+        the lanes) rolls to itself, as ``torch.roll`` of a 0-d tensor
+        does.  A roll across lanes of a value with a value axis, or a
+        flattened roll of several axes, raises."""
         roles = self.roles[n.args[0]]
         shifts = list(n.args[1])
         dims = list(n.args[2]) if len(n.args) > 2 else []
@@ -1010,34 +1066,224 @@ class _Gen:
                 raise CompileError(f"{where} over a flattened value of "
                                    "several axes")
             dims = [next((d for d, r in enumerate(roles) if r != "1"), 0)]
+        x = self.value(n.args[0])
+        if x.k is None:
+            return x
         shift = 0
         for s, d in zip(shifts, dims):
             role = roles[d % len(roles)] if roles else "1"
             if role == "lane":
-                raise CompileError(f"{where} rolls across lanes; the template "
-                                   "rolls a per-lane value axis only")
+                raise CompileError(f"{where} rolls a row across lanes; the "
+                                   "template rolls a per-lane value axis "
+                                   "only")
             if role == "v":
                 shift += s
-        if x.k is None:
-            return x
         k = x.k
         shift %= k
         if shift == 0:
             return x
-        if x.lazy is None:
-            raise CompileError(f"{where} of a value held in one register "
-                               "tile; the template re-emits a rolled value "
-                               "at the wrapped positions")
+        if x.scan is not None:
+            return self._rolled_scan(x, shift)
 
         def emit_in(scope):
-            rolled = scope.cache.get(("roll", shift))
-            if rolled is None:
-                rolled = scope.cache[("roll", shift)] = _Scope(
-                    k, f"(({scope.r} + {k - shift}) % {k})", scope.m,
-                    scope.bt, scope.start)
-            return self.tile(x, rolled)
+            return self.tile(x, self._rolled(scope, shift))
         return _Val(dtype=x.dtype, lane=x.lane, k=k, lazy=emit_in,
                     loop=x.loop)
+
+    @staticmethod
+    def _rolled(scope: _Scope, shift: int) -> _Scope:
+        """``scope``'s positions rolled by ``shift``: position ``r`` reads
+        ``(r - shift) mod k`` (one scope per shift, kept in ``scope``)."""
+        rolled = scope.cache.get(("roll", shift))
+        if rolled is None:
+            k = scope.length
+            rolled = scope.cache[("roll", shift)] = _Scope(
+                k, f"(({scope.r} + {k - shift}) % {k})", scope.m, scope.bt,
+                scope.start)
+        return rolled
+
+    def _rolled_scan(self, c: _Val, shift: int) -> _Val:
+        """``roll(cumsum(x), s)`` along a value axis of length ``k``, in
+        linear time.  Position ``r`` holds the scan at ``p = (r - s) mod
+        k``: for ``r >= s`` the sum of ``x`` at the rolled positions
+        ``s..r``, for ``r < s`` the sum ``P`` of ``x`` before position ``k
+        - s`` plus ``x`` at the rolled positions ``0..r``.  So a scope
+        whose tiles run in order from 0 scans the rolled row as two
+        segments, each carried from tile to tile, the second from ``P``
+        (a pass emitted before the scope's loop); the grid's value tile
+        scans its own positions (:meth:`_tile_scan`); one position takes
+        the scan's own value there."""
+        x, at = c.scan
+        k, od = c.k, c.dtype
+        rows = self.block if x.lane else 1
+        self.flops += k
+
+        def emit_in(scope):
+            rolled = self._rolled(scope, shift)
+            if scope is self.grid_scope:
+                return self._tile_scan(x, at, od, scope, shift)
+            if not scope.seq:
+                return self.tile(c, rolled)
+            bound = [str(k - shift)]
+            if scope.pre is None:           # the whole axis in one tile
+                pv, = self._sums_before(x, at, bound)
+            else:
+                pv, = self._before_loop(
+                    scope, lambda: self._sums_before(x, at, bound))
+            xr = self.cast(x, at, rolled)
+            hi = f"({scope.r} >= {shift})"
+            e_hi = self.emit(f"tl.where({scope.m} & {hi}, {xr}, 0)", at,
+                             x.lane, k).expr
+            e_lo = self.emit(f"tl.where({scope.m} & ({scope.r} < {shift}), "
+                             f"{xr}, 0)", at, x.lane, k).expr
+            cs_hi = self.emit(f"tl.cumsum({e_hi}, axis=1)", at, x.lane,
+                              k).expr
+            cs_lo = self.emit(f"tl.cumsum({e_lo}, axis=1)", at, x.lane,
+                              k).expr
+            if scope.pre is None:
+                out = f"tl.where({hi}, {cs_hi}, {cs_lo} + {pv})"
+            else:
+                c_hi, c_lo = f"c{self.n}", f"c{self.n + 1}"
+                self.n += 2
+                pre, ind = scope.pre
+                pre.append(f"{ind}{c_hi} = tl.zeros([{rows}, 1], "
+                           f"{_TL[at]})")
+                pre.append(f"{ind}{c_lo} = {pv}")
+                out = f"tl.where({hi}, {cs_hi} + {c_hi}, {cs_lo} + {c_lo})"
+            v = self.emit(out if at == od else f"({out}).to({_TL[od]})", od,
+                          x.lane, k).expr
+            if scope.pre is not None:
+                self._line(f"{c_hi} = {c_hi} + tl.sum({e_hi}, axis=1)"
+                           "[:, None]")
+                self._line(f"{c_lo} = {c_lo} + tl.sum({e_lo}, axis=1)"
+                           "[:, None]")
+            return v
+        return _Val(dtype=od, lane=c.lane, k=k, lazy=emit_in, loop=c.loop)
+
+    def _sums_before(self, x: _Val, at, bounds) -> list[str]:
+        """Per lane, the sum of ``x`` over its positions below each of
+        ``bounds`` (expressions), in type ``at``: one pass over the axis,
+        the whole tile where it fits, else tile by tile."""
+        k, rows = x.k, self.block if x.lane else 1
+
+        def part(sc, b):
+            return (f"tl.sum(tl.where({sc.m} & ({sc.r} < {b}), "
+                    f"{self.cast(x, at, sc)}, 0), axis=1)[:, None]")
+        if self.fits(k):
+            sc = self.full_scope(k)
+            return [self.emit(part(sc, b), at, x.lane, None).expr
+                    for b in bounds]
+        sums = [self.emit(f"tl.zeros([{rows}, 1], {_TL[at]})", at, x.lane,
+                          None).expr for _ in bounds]
+        with self.tiles_of(k) as sc:
+            for v, b in zip(sums, bounds):
+                self._line(f"{v} = {v} + {part(sc, b)}")
+        return sums
+
+    def _before_loop(self, scope: _Scope, emit):
+        """``emit()``'s lines placed before the loop of ``scope`` (with its
+        carries' initial values), where they run once; returns what
+        ``emit`` returns."""
+        pre, ind = scope.pre
+        saved = self.lines, self.ind
+        self.lines, self.ind = [], ind[4:]
+        try:
+            out = emit()
+        finally:
+            lines = self.lines
+            self.lines, self.ind = saved
+        pre.extend(_flat(lines))
+        return out
+
+    def _tile_scan(self, x: _Val, at, od, scope: _Scope, shift: int) -> str:
+        """``roll(cumsum(x), shift)`` (``shift`` 0: the scan itself) at the
+        positions ``start + arange(bt)`` of a tile that does not follow the
+        tiles before it (the grid's value tile): ``tl.cumsum`` of the tile,
+        in two segments where the roll wraps inside it (positions below
+        ``shift`` read the row's end), each segment starting from the sum
+        of ``x`` before its first position, found in one pass."""
+        k = scope.length
+        start = scope.start
+        hi = f"({scope.r} >= {shift})"
+        bounds = [f"tl.maximum({start} - {shift}, 0)" if shift else start]
+        if shift:
+            bounds.append(f"({start} + {k - shift})")
+        base = self._sums_before(x, at, bounds)
+        xr = self.cast(x, at, self._rolled(scope, shift) if shift else scope)
+        segs = []
+        conds = (f" & {hi}", f" & ({scope.r} < {shift})") if shift else ("",)
+        for cond, b in zip(conds, base):
+            e = self.emit(f"tl.where({scope.m}{cond}, {xr}, 0)", at, x.lane,
+                          k).expr
+            segs.append(self.emit(f"(tl.cumsum({e}, axis=1) + {b})", at,
+                                  x.lane, k).expr)
+        out = segs[0] if len(segs) == 1 else \
+            f"tl.where({hi}, {segs[0]}, {segs[1]})"
+        return self.emit(out if at == od else f"({out}).to({_TL[od]})", od,
+                         x.lane, k).expr
+
+    def _cumsum(self, n, x: _Val, od) -> _Val:
+        """``cumsum(x)`` along a per-lane value axis of length ``k``,
+        summed in float32 (integers in their own type).  In a scope whose
+        tiles run in order from position 0 (the whole axis, or a loop
+        over its tiles) it is ``tl.cumsum`` of the tile plus the running
+        sum of the tiles before, carried from tile to tile; in the grid's
+        value tile ``tl.cumsum`` of the tile plus the sum of the positions
+        before it (:meth:`_tile_scan`); in any other scope (one position,
+        rolled positions that :meth:`_rolled_scan` does not scan again)
+        the sum over every tile of ``x`` of its positions at or before
+        each of the scope's.  A scan across lanes raises."""
+        roles = self.roles[n.args[0]]
+        dim = n.args[1] % len(roles) if roles else 0
+        if roles and roles[dim] == "lane":
+            raise CompileError(
+                f"span kernel: aten.cumsum in {self.plan.name!r} scans "
+                "across lanes; the template scans a per-lane value axis "
+                "only")
+        if x.k is None or not roles or roles[dim] != "v":
+            # a scan over an axis of one element: the value itself
+            return self.pointwise(lambda e: e, [(x, od)], od, x.lane, x.k, 0)
+        k = x.k
+        self.flops += k
+        at = torch.float32 if od.is_floating_point else od
+        rows = self.block if x.lane else 1
+
+        def done(e):
+            return e if at == od else f"{e}.to({_TL[od]})"
+
+        def emit_in(scope):
+            if scope.seq:
+                e = self.emit(f"tl.where({scope.m}, {self.cast(x, at, scope)}"
+                              ", 0)", at, x.lane, k).expr
+                cs = self.emit(f"tl.cumsum({e}, axis=1)", at, x.lane, k).expr
+                if scope.pre is None:       # the whole axis in one tile
+                    return cs if at == od else self.emit(
+                        done(cs), od, x.lane, k).expr
+                carry = f"c{self.n}"
+                self.n += 1
+                pre, ind = scope.pre
+                pre.append(f"{ind}{carry} = tl.zeros([{rows}, 1], "
+                           f"{_TL[at]})")
+                out = self.emit(done(f"({cs} + {carry})"), od, x.lane,
+                                k).expr
+                self._line(f"{carry} = {carry} + tl.sum({e}, axis=1)"
+                           "[:, None]")
+                return out
+            if scope is self.grid_scope:
+                return self._tile_scan(x, at, od, scope, 0)
+            acc = self.emit(f"tl.zeros([{rows}, {scope.bt}], {_TL[at]})", at,
+                            x.lane, k).expr
+            cap = max(1, _MAX_TILE_ELEMS // (rows * scope.bt))
+            bt = min(pow2_at_least(k), 1 << (cap.bit_length() - 1))
+            with self.tiles_of(k, bt) as sx:
+                e = self.cast(x, at, sx)
+                self._line(
+                    f"{acc} += tl.sum(tl.where(({sx.r}[:, None, :] <= "
+                    f"({scope.r})[:, :, None]) & {sx.m}[:, None, :], "
+                    f"({e})[:, None, :], 0), axis=2)")
+            return self.emit(done(acc), od, x.lane, k).expr
+        return _Val(dtype=od, lane=x.lane, k=k, lazy=emit_in, loop=x.loop,
+                    scan=(x, at))
 
     def _select(self, n, x: _Val) -> _Val:
         roles = self.roles[n.args[0]]
@@ -1162,11 +1408,18 @@ class _Gen:
                 f"span kernel: the {what} operand env[{mem.key!r}] of a "
                 f"product in {self.plan.name!r} is not a replicated array")
 
-    def _k_loop(self, acc: str, k: int, bk: int, body) -> None:
+    def _k_loop(self, acc: str, k: int, bk: int, body, m: int, n: int,
+                dt) -> None:
         """``acc = tl.dot(a, b, acc)`` over the K tiles of length ``k``:
         ``body(kscope, kcol)`` returns the two operand expressions for a
         K tile (``kscope``: positions ``[1, bk]``; ``kcol``: the same
-        positions as ``[bk, 1]``)."""
+        positions as ``[bk, 1]``), ``[m, bk]`` and ``[bk, n]`` of type
+        ``dt``: one stage of the ring, ``bk`` halved while
+        ``_DOT_STAGES`` of them exceed ``_SMEM_BYTES``."""
+        size = torch.empty((), dtype=dt).element_size()
+        while bk > _DOT_MIN and \
+                _DOT_STAGES * (m + n) * bk * size > _SMEM_BYTES:
+            bk //= 2
         with self.tiles_of(k, bk) as ks:
             kcol = f"{ks.r}c"
             self._line(f"{kcol} = {ks.start} + tl.arange(0, {bk})[:, None]")
@@ -1228,14 +1481,14 @@ class _Gen:
 
             def body(ks, kcol):
                 a = self.cast(row, dt, ks)
-                a = self.emit(f"tl.broadcast_to({a}, [{block}, {bk}])", dt,
-                              True, k).expr
+                a = self.emit(f"tl.broadcast_to({a}, [{block}, {ks.bt}])",
+                              dt, True, k).expr
                 o = off.replace("@K@", kcol).replace("@R@", scope.r)
                 b = self.emit(f"tl.load({p} + {o}, mask=({kcol} < {k}) & "
                               f"{scope.m}, other=0).to({_TL[dt]})", dt, False,
                               None).expr
                 return a, b, opts
-            self._k_loop(acc, k, bk, body)
+            self._k_loop(acc, k, bk, body, block, scope.bt, dt)
             return self.emit(f"{acc}.to({_TL[od]})", od, True, nn).expr
         return _Val(dtype=od, lane=True, k=nn, lazy=emit_in, loop=True)
 
@@ -1327,7 +1580,7 @@ class _Gen:
                           f"mask={kcol} < {k}, other=0).to({_TL[dt]})", dt,
                           True, k).expr
             return a, b, opts
-        self._k_loop(acc, k, bk, body)
+        self._k_loop(acc, k, bk, body, ti, tj, dt)
         # [tile_i, tile_j] is the flat block's own order (f = li * tj + lj)
         return self.emit(f"tl.reshape({acc}, [{self.block}, 1])"
                          f".to({_TL[od]})", od, True, None)
@@ -1401,6 +1654,10 @@ class _Gen:
             if sc is self.full_scopes.get(k):
                 tile = self.emit(e, dt, True, k)
                 tile.scope = sc
+                # a later stage that reads the tile in another tiling (a
+                # roll's wrapped positions) emits the stored value again
+                tile.alt = _Val(dtype=dt, lane=True, k=k, loop=v.loop,
+                                lazy=lambda s, v=v, dt=dt: self.cast(v, dt, s))
                 self.fwd_vals[key] = (tile, bases)
                 e = tile.expr
             else:
@@ -1481,7 +1738,8 @@ def _check_span_geometry(plans) -> None:
 
 def _launch_shape(shape: _Shape) -> dict:
     """Warps and pipelining depth of a span's launch: 8 warps and a
-    ``_DOT_STAGES``-deep operand ring for a row-times-matrix product;
+    ``_DOT_STAGES``-deep operand ring for a row-times-matrix product (its
+    K tile sized to fit shared memory, :meth:`_Gen._k_loop`);
     ``_MV_WARPS`` for a matrix-vector span (its K loop states its own
     depth); Triton's defaults otherwise."""
     if shape.vec is not None:
@@ -1528,9 +1786,10 @@ def generate_span(stages, device=None) -> SpanSource:
     plan0 = plans[0]
     params = [f"p{si}_{i}" for i, (_, si, _) in enumerate(gen.inputs)] + \
         [f"o{si}_{i}" for i, (si, _, _, _) in enumerate(outputs)]
+    lines = _flat(gen.lines)
     body = (_prologue(plan0, gen.tiles, gen.wide, gen.value_tiles)
             + "".join(line + "\n" for line in gen.head)
-            + "\n".join(gen.lines) + "\n")
+            + "\n".join(lines) + "\n")
     digest = hashlib.sha256(
         (",".join(params) + body).encode()).hexdigest()[:16]
     fn_name = f"span_{digest}"
@@ -1596,22 +1855,242 @@ def kernel_args(source: SpanSource, stage_io) -> list:
     return args
 
 
+def _stage_outputs(source: SpanSource, n_stages: int, tensors) -> list:
+    outs = [{} for _ in range(n_stages)]
+    for (si, key, _, _), t in zip(source.outputs, tensors):
+        outs[si][key] = t
+    return outs
+
+
+def _warm(source: SpanSource, args, outs):
+    """The compiled kernel of ``source`` for these arguments, loaded:
+    Triton's ``JITFunction.warmup`` (compiled or taken from its cache,
+    launching nothing) at the source's warps and pipelining depth."""
+    k = _kernel(source).warmup(*args, *outs, grid=(source.n_programs,),
+                               num_warps=source.num_warps,
+                               num_stages=source.num_stages)
+    k.run                                   # loads the module, sets smem
+    return k
+
+
+def launch_span_triton(source: SpanSource, stage_io, device) -> list:
+    """The span kernel launched through Triton's own Python path (its
+    binder, specialisation and cache lookup on every call), into one
+    ``torch.empty`` per output: the launch :func:`launch_span` replaced,
+    kept as it was to hold the new launcher against it, bit for bit and
+    in time.  Counts no launch."""
+    fn = _kernel(source)
+    args = kernel_args(source, stage_io)
+    flat = [torch.empty(shape, dtype=dtype, device=device)
+            for _, _, shape, dtype in source.outputs]
+    fn[(source.n_programs,)](*args, *flat, num_warps=source.num_warps,
+                             num_stages=source.num_stages)
+    return _stage_outputs(source, len(stage_io), flat)
+
+
+#: Bytes of alignment on which Triton specialises a pointer argument
+#: (its ``tt.divisibility``): a kernel compiled for aligned pointers may
+#: use 16-byte loads, so a pointer off it needs another compiled kernel.
+ALIGN = 16
+
+
+def _bind_launch(lib) -> None:
+    lib.k1_launch.argtypes = [ctypes.c_void_p]
+    lib.k1_launch.restype = ctypes.c_int
+    lib.k1_error_string.argtypes = [ctypes.c_int]
+    lib.k1_error_string.restype = ctypes.c_char_p
+
+
+_LAUNCH_LIB = _build.CudaLibrary("span_launch.cu", "K1's launcher",
+                                 _bind_launch)
+
+
+def output_layout(source: SpanSource) -> tuple[list[int], int]:
+    """Where each output of ``source`` lies in the one allocation a launch
+    makes: byte offsets, in output order, each a multiple of
+    :data:`ALIGN`; and the allocation's size in bytes."""
+    offsets, total = [], 0
+    for _, _, shape, dtype in source.outputs:
+        total = -(-total // ALIGN) * ALIGN
+        offsets.append(total)
+        total += math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+    return offsets, total
+
+
+def specialisation(ptrs) -> int:
+    """The key of the compiled kernel a launch needs: bit ``i`` set where
+    pointer ``i`` is off :data:`ALIGN` (a contiguous window view can
+    start off it); 0 when all are on it, found in one pass."""
+    if not functools.reduce(operator.or_, ptrs, 0) % ALIGN:
+        return 0
+    key = 0
+    for i, p in enumerate(ptrs):
+        if p % ALIGN:
+            key |= 1 << i
+    return key
+
+
+@dataclasses.dataclass(frozen=True)
+class _Compiled:
+    """One compiled specialisation of a span kernel, as the launch needs
+    it: its CUfunction, threads a program, dynamic shared memory, and the
+    parameters Triton appends after the user's pointers (a scratch buffer
+    each: bytes a program, alignment)."""
+
+    function: int
+    threads: int
+    shared: int
+    extra: tuple
+    scratch: bool = False    # whether any appended buffer has a size
+
+
+def _compile(source: SpanSource, args, outs) -> _Compiled:
+    """Compile (or fetch from Triton's cache) the kernel of ``source``
+    for the specialisation these pointers need, through Triton's own
+    path (:func:`_warm`), and read what
+    a launch needs from the compiled kernel: the parameters its PTX entry
+    declares beyond the user's pointers are the scratch buffers its
+    metadata sizes (``*_scratch_size``, in the metadata's field order,
+    which is the order Triton's launcher passes them in)."""
+    k = _warm(source, args, outs)
+    meta = k.metadata
+    if meta.num_ctas != 1 or meta.launch_cooperative_grid \
+            or meta.launch_pdl:
+        raise RuntimeError(
+            f"span kernel {source.fn_name}: compiled for clusters or a "
+            "cooperative/PDL launch, which K1's launcher does not make")
+    ptx = k.asm["ptx"]
+    entry = ptx[ptx.index(".entry"):]
+    n_params = entry[:entry.index(")")].count(".param")
+    scratch = [f[:-len("_size")] for f in meta._fields
+               if f.endswith("_scratch_size")]
+    if n_params - len(args) - len(outs) != len(scratch):
+        raise RuntimeError(
+            f"span kernel {source.fn_name}: its PTX entry takes {n_params} "
+            f"parameters for {len(args) + len(outs)} pointers and the "
+            f"scratch buffers {scratch}")
+    extra = tuple((getattr(meta, f"{f}_size"), getattr(meta, f"{f}_align"))
+                  for f in scratch)
+    return _Compiled(function=k.function, threads=32 * meta.num_warps,
+                     shared=meta.shared, extra=extra,
+                     scratch=any(size for size, _ in extra))
+
+
+class _Launcher:
+    """K1's launch of one :class:`SpanSource`, built at its first launch:
+    the outputs' layout in ONE allocation, and the compiled kernel of
+    each pointer specialisation met so far (keyed by device and
+    :func:`specialisation`; a new one is compiled through Triton's own
+    path, as a second kernel).  A launch gathers the pointers, checks
+    their specialisation and types in one pass, and makes one C call."""
+
+    def __init__(self, source: SpanSource):
+        self.source = source
+        self.blob_t = self.lib = self.tail = None
+        self.offsets, self.nbytes = output_layout(source)
+        self.types = tuple(dt for *_, dt in source.outputs)
+        self.shapes = tuple(tuple(shape) for _, _, shape, _ in source.outputs)
+        self.one_type = self.types[0] if len(set(self.types)) == 1 else None
+        self.in_types: tuple | None = None
+        self.kernels: dict = {}
+
+    def outputs(self, device) -> list:
+        """The outputs: views into one allocation, each 16-byte aligned."""
+        if len(self.shapes) == 1:
+            return [torch.empty(self.shapes[0], dtype=self.types[0],
+                                device=device)]
+        if self.one_type is not None:
+            size = torch.empty((), dtype=self.one_type).element_size()
+            buf = torch.empty(-(-self.nbytes // size), dtype=self.one_type,
+                              device=device)
+            return [buf.as_strided(shape, _strides(shape), off // size)
+                    for shape, off in zip(self.shapes, self.offsets)]
+        buf = torch.empty(self.nbytes, dtype=torch.uint8, device=device)
+        return [buf[off:off + math.prod(shape) * torch.empty(
+            (), dtype=dt).element_size()].view(dt).view(shape)
+            for shape, dt, off in zip(self.shapes, self.types,
+                                      self.offsets)]
+
+    def kernel_for(self, args, outs, ptrs, device_index) -> _Compiled:
+        """The compiled kernel for these pointers, compiled on a miss."""
+        types = tuple(map(_DTYPE, args))
+        if self.in_types is None:
+            self.in_types = types
+        elif types != self.in_types:
+            raise ValueError(
+                f"span kernel {self.source.fn_name}: inputs of types "
+                f"{list(types)}, compiled for {self.in_types}")
+        key = (device_index, specialisation(ptrs))
+        entry = self.kernels.get(key)
+        if entry is None:
+            entry = self.kernels[key] = _compile(self.source, args, outs)
+            self.blob_t = ctypes.c_uint64 * (6 + len(ptrs) + len(entry.extra))
+            self.tail = [0] * len(entry.extra)
+        return entry
+
+    def launch(self, args, outs, device_index) -> None:
+        ptrs = [t.data_ptr() for t in args]
+        ptrs += [t.data_ptr() for t in outs]
+        entry = self.kernel_for(args, outs, ptrs, device_index)
+        scratch = []
+        if entry.scratch:
+            scratch = [torch.empty(self.source.n_programs * size + align,
+                                   dtype=torch.uint8, device=outs[0].device)
+                       if size else None for size, align in entry.extra]
+            ptrs += [0 if t is None else -(-t.data_ptr() // align) * align
+                     for t, (_, align) in zip(scratch, entry.extra)]
+        else:
+            ptrs += self.tail
+        blob = self.blob_t(
+            entry.function, self.source.n_programs, entry.threads,
+            entry.shared, torch._C._cuda_getCurrentRawStream(device_index),
+            len(ptrs), *ptrs)
+        if self.lib is None:
+            self.lib = _LAUNCH_LIB.load()
+        err = self.lib.k1_launch(blob)
+        if err:
+            raise RuntimeError("K1 launch failed: "
+                               f"{self.lib.k1_error_string(err).decode()}")
+
+
+_DTYPE = operator.attrgetter("dtype")
+
+
+def _strides(shape) -> tuple:
+    return tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+
+
+_LAUNCHERS: dict[tuple, _Launcher] = {}
+
+
+def launcher_key(source: SpanSource) -> tuple:
+    """What a :class:`_Launcher` keeps from its source beside the kernel
+    text (which ``fn_name`` hashes): the grid, the launch shape and the
+    outputs' shapes and types.  Two sources of one text that differ in
+    any of these get a launcher each."""
+    return (source.fn_name, source.n_programs, source.num_warps,
+            source.num_stages, source.outputs)
+
+
 def launch_span(source: SpanSource, stage_io, device: torch.device) -> list:
     """One launch over every rank's chunks for a whole span;
     ``stage_io``: ``(windows, env_repl)`` per stage.  Returns each
-    stage's dense values."""
+    stage's dense values (views into one allocation)."""
     global LAUNCHES
-    fn = _kernel(source)
+    key = launcher_key(source)
+    launcher = _LAUNCHERS.get(key)
+    if launcher is None:
+        launcher = _LAUNCHERS[key] = _Launcher(source)
     args = kernel_args(source, stage_io)
-    outs = [{} for _ in stage_io]
-    flat = []
-    for si, key, shape, dtype in source.outputs:
-        outs[si][key] = torch.empty(shape, dtype=dtype, device=device)
-        flat.append(outs[si][key])
-    fn[(source.n_programs,)](*args, *flat, num_warps=source.num_warps,
-                             num_stages=source.num_stages)
+    outs = launcher.outputs(device)
+    current = torch._C._cuda_getDevice()
+    if device.index is None or device.index == current:
+        launcher.launch(args, outs, current)
+    else:
+        with torch.cuda.device(device.index):
+            launcher.launch(args, outs, device.index)
     LAUNCHES += 1
-    return outs
+    return _stage_outputs(source, len(stage_io), outs)
 
 
 def span_values_plain(plan, program, windows: dict, env_repl: dict,
@@ -1645,13 +2124,24 @@ def span_values_plain_stages(stages, device) -> list:
 
 
 def _check_device(tensors, device) -> torch.device:
-    device = torch.device(device)
+    """``device`` as a ``torch.device``; raises unless every tensor lies
+    on it (a CUDA tensor never reaches the plain version): one pass of
+    attribute reads."""
+    if not isinstance(device, torch.device):
+        device = torch.device(device)
+    if device.type == "cuda":
+        index = device.index
+        for t in tensors:
+            if not t.is_cuda or (index is not None
+                                 and t.get_device() != index):
+                raise ValueError(f"span inputs lie on {t.device}, the span "
+                                 f"runs on {device}")
+        return device
     for t in tensors:
-        if t.device.type != device.type or (
-                device.index is not None and t.device.index != device.index):
+        if t.device.type != device.type:
             raise ValueError(
                 f"span inputs lie on {t.device}, the span runs on {device}")
-    if device.type not in ("cpu", "cuda"):
+    if device.type != "cpu":
         raise ValueError(f"the span kernel runs on CUDA, not {device}")
     return device
 
@@ -1660,8 +2150,11 @@ def span_stage_values(stages, source: SpanSource | None, device) -> list:
     """Dense per-lane values of every stage of a span, as one launch on
     CUDA (or the plain version on the CPU); see
     :func:`span_values_plain_stages` for ``stages``."""
-    device = _check_device([t for st in stages for t in (
-        *st.ext_windows.values(), *st.env_repl.values())], device)
+    tensors = []
+    for st in stages:
+        tensors += st.ext_windows.values()
+        tensors += st.env_repl.values()
+    device = _check_device(tensors, device)
     if device.type == "cpu":
         return span_values_plain_stages(stages, device)
     if source is None:

@@ -4,7 +4,9 @@ plain version.
 Replaces ``src/repro/kernels/ssd_scan.py::ssd_scan_kernel`` (the Pallas
 kernel ``_ssd_kernel``).  The kernel is CUDA C++ for Hopper (``sm_90a``),
 in ``src/repro_torch/csrc/ssd_scan.cu``; its note says what it computes,
-what bounds it on the H100 and how the work is split.
+what bounds it on the H100 and how the work is split (five grids; the
+products on the tensor cores with ``mma.sync``, C.B^T formed once per
+(b, chunk) into a float32 scratch the heads share).
 
 Build: at first use, :mod:`repro_torch.kernels._build` compiles the
 source with ``nvcc`` into ``build/kernels/ssd_scan_<hash>.so`` and
@@ -27,12 +29,15 @@ from repro_torch.kernels import _build
 
 #: Kernel launches so far (one per :func:`ssd_scan_kernel` call on CUDA).
 LAUNCHES = 0
-MAX_N = 256                     # d_state the output pass holds on chip
+MAX_N = 256                     # d_state the kernel takes
+#: The longest chunk the output pass holds C.B^T for; the output does not
+#: depend on the chunk but for rounding, so a longer one runs as this.
+MAX_CHUNK = 256
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.k3_ssd_scan_fwd
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.k3_error_string.argtypes = [ctypes.c_int]
@@ -118,7 +123,10 @@ def ssd_scan_kernel(x, dt, A, Bm, Cm, *, chunk=128):
     Bm, Cm: (B, S, N) -> y (B, S, H, P) in x's type, without the ``D*x``
     skip.  CPU tensors take :func:`ssd_scan_plain`; CUDA tensors launch
     K3 (x, Bm, Cm of one type: float32, bfloat16 or float16; dt and A
-    float32; all contiguous; N <= 256) or raise."""
+    float32; all contiguous; N <= 256) or raise.  A ``chunk`` over
+    :data:`MAX_CHUNK` (256) runs as 256 on the card: the output does not
+    depend on the chunk but for float32 rounding, and the plain version
+    takes none."""
     global LAUNCHES
     _check(x, dt, A, Bm, Cm)
     if chunk < 1:
@@ -133,19 +141,27 @@ def ssd_scan_kernel(x, dt, A, Bm, Cm, *, chunk=128):
     y = torch.empty_like(x)
     if y.numel() == 0:
         return y
-    q = min(chunk, s)
+    q = min(chunk, s, MAX_CHUNK)
     nc = -(-s // q)
     f32 = dict(dtype=torch.float32, device=x.device)
     acum = torch.empty((b, h, nc, q), **f32)
     a_last = torch.empty((b, h, nc), **f32)
     state = torch.empty((b, h, nc, n, p), **f32)
+    qp = -(-q // 64) * 64
+    cb = torch.empty((b, nc, qp, qp), **f32)        # C.B^T, shared by heads
+    # every row of x, Bm, Cm and the state 16-byte aligned: tiles come by
+    # cp.async, 16 bytes at a time
+    size = x.element_size()
+    vec = int(all(t.data_ptr() % 16 == 0 for t in (x, Bm, Cm))
+              and n * size % 16 == 0 and p * size % 16 == 0 and p % 4 == 0)
     lib = build()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.k3_ssd_scan_fwd(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
             Cm.data_ptr(), y.data_ptr(), acum.data_ptr(), a_last.data_ptr(),
-            state.data_ptr(), _DTYPES[x.dtype], b, s, h, p, n, q, stream)
+            state.data_ptr(), cb.data_ptr(), _DTYPES[x.dtype], b, s, h, p,
+            n, q, vec, stream)
     if err:
         raise RuntimeError(f"K3 launch failed: "
                            f"{lib.k3_error_string(err).decode()}")

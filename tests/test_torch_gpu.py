@@ -101,6 +101,24 @@ def test_ssd_scan_kernel_on_the_card_matches_plain():
 
 
 @pytest.mark.gpu
+def test_ssd_scan_kernel_chunk_over_256_matches_plain():
+    """A chunk over K3's 256 runs as 256 and equals the plain version,
+    in float32 and bfloat16."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import chip_smoke
+    from repro_torch.kernels import ssd_scan as ssd
+
+    for n, case in enumerate(chip_smoke.k3_long_chunk_cases(torch)):
+        label, b, s, h, p, nst, chunk, dtype = case
+        assert chunk > ssd.MAX_CHUNK
+        args = chip_smoke.k3_inputs(torch, "cuda", b, s, h, p, nst, dtype, n)
+        chip_smoke.check_k3(torch, ssd, args, chunk,
+                            chip_smoke.K3_TOL[chip_smoke.dtname(dtype)],
+                            f"{label} {dtype}")
+
+
+@pytest.mark.gpu
 def test_region_spans_on_the_card_match_plain():
     """Small region programs (one 3-stage span, halo-fed spans, a 2-D
     mesh, serial glue) under the kernel lowering on the card: outputs
@@ -130,3 +148,87 @@ def test_region_spans_on_the_card_match_plain():
             torch.testing.assert_close(out[k], ref[k], rtol=1e-4, atol=1e-4)
         chip_smoke.check_region_spans(torch, kernel_lower, span_kernel,
                                       comp, env, dev, reg.name)
+
+
+@pytest.mark.gpu
+def test_span_launcher_equals_triton_launch_bit_for_bit():
+    """K1's launcher (one C call into the compiled kernel, outputs in one
+    allocation) against Triton's own launch path on the same feeds, every
+    block family and a short PolyBench span: equal bit for bit on the
+    lanes that hold an iteration; a window view off 16 bytes compiles a
+    second specialisation and still equals Triton's path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import chip_smoke
+    from repro_torch import omp
+    from repro_torch.core import kernel_lower, transform
+    from repro_torch.kernels import span_kernel
+
+    dev = torch.device("cuda")
+    for prog, env in chip_smoke.families(omp, torch, dev):
+        axes = ("data",) if prog.rank == 1 else ("i", "j")
+        comp = omp.compile(prog, omp.make_mesh((2,) * prog.rank, axes),
+                           lowering="kernel", shard="slice", env_like=env)
+        repl, slabs = transform.stage_inputs(comp.plan, env)
+        one = chip_smoke.one_stage(kernel_lower, comp.plan, prog, slabs,
+                                   repl)
+        for span in comp.kernel_plan.spans:
+            assert chip_smoke.hold_launch_bits(
+                torch, kernel_lower, span_kernel, span.source, one, dev,
+                prog.name) > 0
+    (prog, env), = [(p, e) for p, e in chip_smoke.families(omp, torch, dev)
+                    if p.name == "map"] or [chip_smoke.families(
+                        omp, torch, dev)[0]]
+    comp = omp.compile(prog, omp.make_mesh((2,), ("data",)),
+                       lowering="kernel", env_like=env)
+    source = comp.kernel_plan.spans[0].source
+    repl, slabs = transform.stage_inputs(comp.plan, env)
+    shifted = {k: torch.cat([v.new_zeros(1), v.reshape(-1)])[1:].view(
+        v.shape) for k, v in {**repl, **slabs}.items()}
+    one = chip_smoke.one_stage(
+        kernel_lower, comp.plan, prog,
+        {k: shifted[k] for k in slabs}, {k: shifted[k] for k in repl})
+    chip_smoke.hold_launch_bits(torch, kernel_lower, span_kernel, source,
+                                one, dev, f"{prog.name} shifted")
+
+
+@pytest.mark.gpu
+def test_flash_attention_past_head_dim_256_matches_plain():
+    """K2 at head_dim 288 and 512 (the wide kernel) against its plain
+    version, bfloat16 and float32, causal with and without a window,
+    with ``chip_smoke.py``'s checks; one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import chip_smoke
+    from repro_torch.kernels import flash_attention as fa
+
+    tols = {torch.bfloat16: 1e-2, torch.float32: 2e-5}
+    for hd in (288, 512):
+        for dtype, tol in tols.items():
+            for window in (None, 64):
+                q, k, v = chip_smoke.k2_inputs(torch, "cuda", 1, 4, 2, 300,
+                                               300, hd, dtype, hd)
+                before = fa.LAUNCHES[window]
+                chip_smoke.check_k2(torch, fa, q, k, v, True, window, tol,
+                                    f"hd{hd} {dtype} window={window}")
+                assert fa.LAUNCHES[window] == before + 1
+
+
+@pytest.mark.gpu
+def test_ssd_scan_kernel_16bit_small_cases_match_plain():
+    """K3's tensor-core products in 16 bits (m16n8k16, float32 operands
+    as hi + lo halves) on the 5 small cases of tests/test_kernels.py
+    taken to bfloat16 and float16, with ``chip_smoke.py``'s checks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import chip_smoke
+    from repro_torch.kernels import ssd_scan as ssd
+
+    for n, case in enumerate(chip_smoke.k3_cases(torch)[:5]):
+        label, b, s, h, p, nst, chunk, _ = case
+        for dtype in (torch.bfloat16, torch.float16):
+            args = chip_smoke.k3_inputs(torch, "cuda", b, s, h, p, nst,
+                                        dtype, n)
+            chip_smoke.check_k3(torch, ssd, args, chunk,
+                                chip_smoke.K3_TOL[chip_smoke.dtname(dtype)],
+                                f"{label} {dtype}")

@@ -1,0 +1,350 @@
+"""Programs the reference runs and K1's template once refused, held
+against the JAX package on the CPU.
+
+The reference's Pallas lowering refuses no op, so each body below is
+written once for both packages (``o`` the ``omp`` facade, ``lib`` torch
+or ``jax.numpy``) and run on an env drawn from a numpy seed:
+
+* ``cumsum`` along a per-lane row, of a loaded and of a computed row,
+  consumed whole, rolled, by a product, reduced and at one position, on
+  rank-1 and rank-2 nests;
+* ``roll`` of a lane scalar (a 0-d roll is the identity in both
+  packages; ``vmap``'s batching rule rolls it across the lanes);
+* ``roll`` of a row an earlier stage of the same span hands over in one
+  register tile (the later stage emits the producer's value again at the
+  wrapped positions).
+
+Each compiles under ``lowering="kernel"``; the port's shared-memory run
+and its kernel and collective lowerings on 1 and 2 ranks equal the
+reference's ``run_reference`` (or the region's shared-memory run) and,
+on one rank,
+its ``lowering="pallas"`` (interpret mode), at rtol = atol = 1e-4; the
+generated K1 source, under the NumPy emulation of ``triton.language``
+(``tests/test_torch_span_kernel.py``), equals the plain version — also
+with the register-tile cap lowered, so that a scan's running sum is
+carried from tile to tile.
+"""
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from tests import test_torch_span_kernel as tsk
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _cumsum_bodies(o, lib):
+    @o.parallel_for(start=1, stop=22, reduction={"s": "+"}, name="cs1")
+    def cs1(i, env):
+        row = env["A"][i]
+        c = lib.cumsum(row, 0)
+        d = lib.cumsum(2.0 * row - env["w"], 0)
+        return {"Y": o.at(i, c - lib.roll(d, 2)), "P": o.at(i, c @ env["M"]),
+                "s": o.red(c[3] + d.sum())}
+
+    @o.parallel_for(stop=(5, 6), collapse=2, name="cs2")
+    def cs2(i, j, env):
+        v = lib.cumsum(env["A"][i] * env["B"][j], 0)
+        return {"Z": o.at((i, j), v + lib.cumsum(env["A"][j], 0)),
+                "T": o.at((i, j), (v * env["w"]).sum())}
+    return cs1, cs2
+
+
+def _rolled_scan_body(o, lib):
+    @o.parallel_for(stop=21, reduction={"s": "+"}, name="rs1")
+    def rs1(i, env):
+        row = env["A"][i]
+        c = lib.cumsum(row, 0)
+        return {"Y": o.at(i, lib.roll(c, 3)
+                          - lib.roll(lib.cumsum(row * env["w"], 0), -1)),
+                "s": o.red(lib.roll(c, 2)[0])}
+    return rs1
+
+
+def _lane_roll_bodies(o, lib):
+    @o.parallel_for(stop=6, name="rl1")
+    def rl1(i, env):
+        return {"y": o.at(i, lib.roll(env["x"][i], 1) * 2.0)}
+
+    @o.parallel_for(stop=(3, 4), collapse=2, name="rl2")
+    def rl2(i, j, env):
+        return {"z": o.at((i, j), lib.roll(env["X"][i, j], 1)
+                          + env["X"][i, j])}
+    return rl1, rl2
+
+
+def _forward_roll_regions(o, lib):
+    @o.parallel_for(stop=9, name="w1")
+    def w1(i, env):
+        return {"V": o.at(i, env["X"][i] * 2.0)}
+
+    @o.parallel_for(stop=9, name="w2")
+    def w2(i, env):
+        return {"y": o.at(i, lib.roll(env["V"][i], 1).sum())}
+
+    @o.parallel_for(stop=9, name="w3")
+    def w3(i, env):
+        return {"Z": o.at(i, lib.roll(env["V"][i], 2) - env["V"][i]
+                          * env["w"])}
+    return (o.region(w1, w2, name="rollfwd"),
+            o.region(w1, w3, name="rollfwd2"))
+
+
+def _normal(g, *shape):
+    return g.standard_normal(shape).astype(np.float32)
+
+
+def _cumsum_envs():
+    g = np.random.default_rng(19)
+    n = 19
+    return ({"A": _normal(g, 23, n), "w": _normal(g, n), "M": _normal(g, n, n),
+             "Y": np.zeros((23, n), np.float32),
+             "P": np.zeros((23, n), np.float32),
+             "s": np.zeros((), np.float32)},
+            {"A": _normal(g, 6, n), "B": _normal(g, 6, n), "w": _normal(g, n),
+             "Z": np.zeros((5, 6, n), np.float32),
+             "T": np.zeros((5, 6), np.float32)})
+
+
+def _rolled_scan_env():
+    g = np.random.default_rng(22)
+    return {"A": _normal(g, 21, 19), "w": _normal(g, 19),
+            "Y": np.zeros((21, 19), np.float32), "s": np.zeros((), np.float32)}
+
+
+def _lane_roll_envs():
+    g = np.random.default_rng(20)
+    return ({"x": _normal(g, 6), "y": np.zeros(6, np.float32)},
+            {"X": _normal(g, 3, 4), "z": np.zeros((3, 4), np.float32)})
+
+
+def _forward_roll_env():
+    g = np.random.default_rng(21)
+    return {"X": _normal(g, 9, 4), "V": np.zeros((9, 4), np.float32),
+            "y": np.zeros(9, np.float32), "Z": np.zeros((9, 4), np.float32),
+            "w": _normal(g, 4)}
+
+
+def _jax_block(prog, env_np, pallas=False):
+    """The reference's ``run_reference`` of a block, or its Pallas
+    lowering (interpret mode) on a one-device mesh."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh
+
+    from repro import omp as jomp
+    from repro.compat import make_mesh as jmake_mesh
+    from repro.core import transform as jt
+
+    env = {k: jnp.asarray(v) for k, v in env_np.items()}
+    if not pallas:
+        out = jax.jit(lambda e: jt.run_reference(prog, e))(env)
+    else:
+        mesh = (Mesh(np.asarray(jax.devices()[:1]), ("data",))
+                if prog.rank == 1 else jmake_mesh((1, 1), ("i", "j")))
+        comp = jomp.compile(prog, mesh, lowering="pallas")
+        out = jax.jit(lambda e: comp(e))(env)
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+def _assert_env(got, want, label):
+    from repro_torch import convert
+
+    got = convert.env_to_numpy(got)
+    assert set(got) == set(want), label
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], **TOL,
+                                   err_msg=f"{label} key={k!r}")
+
+
+def _mesh(rank, p):
+    from repro_torch import omp
+
+    shape, axes = ((p,), ("data",)) if rank == 1 else ((p, 1), ("i", "j"))
+    return omp.make_mesh(shape, axes, device="cpu"), shape, axes
+
+
+def _check_block(prog, jprog, env_np):
+    """Both block lowerings on 1 and 2 ranks == the reference's
+    ``run_reference``; the kernel lowering on one rank == its Pallas
+    lowering; the generated source, emulated, == the plain version."""
+    from repro_torch import convert, omp
+
+    env = convert.env_from_numpy(env_np, "cpu")
+    want = _jax_block(jprog, env_np)
+    _assert_env(prog(env), want, f"{prog.name} shared memory")
+    for p in (1, 2):
+        mesh, shape, axes = _mesh(prog.rank, p)
+        for lowering in ("collective", "kernel"):
+            _assert_env(omp.compile(prog, mesh, lowering=lowering,
+                                    env_like=env)(env), want,
+                        f"{prog.name} P={p} {lowering}")
+        tsk._check_family((prog, env), shape, axes, "replicate")
+    _assert_env(omp.compile(prog, _mesh(prog.rank, 1)[0],
+                            lowering="kernel")(env),
+                _jax_block(jprog, env_np, pallas=True),
+                f"{prog.name} kernel-vs-pallas")
+
+
+@pytest.mark.parametrize("rank", [1, 2])
+def test_cumsum_along_a_row_matches_reference(rank, monkeypatch):
+    """``aten.cumsum`` along a per-lane row compiles to ``tl.cumsum``
+    over the row's register tile, summed in float32; with the register-
+    tile cap lowered to 16 the row is swept tile by tile and the running
+    sum carried between tiles (a store's loop, a product's K loop, a
+    reduction's pass); the grid's value tile scans its own positions from
+    the sum of those before it, a rolled read there in two segments, and
+    only one position takes the sum of the positions at or before it."""
+    import jax.numpy as jnp
+
+    from repro import omp as jomp
+    from repro_torch import convert, omp
+    from repro_torch.kernels import span_kernel
+
+    prog = _cumsum_bodies(omp, torch)[rank - 1]
+    jprog = _cumsum_bodies(jomp, jnp)[rank - 1]
+    env_np = _cumsum_envs()[rank - 1]
+    _check_block(prog, jprog, env_np)
+    env = convert.env_from_numpy(env_np, "cpu")
+    monkeypatch.setattr(span_kernel, "_MAX_TILE_ELEMS", 16)
+    omp.clear_compile_cache()           # compiles are cached by structure
+    text = omp.compile(prog, _mesh(rank, 2)[0], lowering="kernel",
+                       env_like=env).kernel_plan.spans[0].source.text
+    # carries (rank 1: also one position, summed over the positions at or
+    # before it; the rolled read in the grid's value tile scans)
+    assert "tl.cumsum(" in text and text.count("axis=2") == (rank == 1), text
+    assert text.count(" = tl.zeros([") > text.count("acc"), text
+    for p in (1, 2):
+        _, shape, axes = _mesh(rank, p)
+        tsk._check_family((prog, env), shape, axes, "replicate")
+
+
+@pytest.mark.parametrize("cap", [None, 16])
+def test_roll_of_a_scan_matches_reference(cap, monkeypatch):
+    """``roll(cumsum(row), s)`` scans the rolled row once, in two
+    segments (positions below ``s`` continue from the sum of the row
+    before ``k - s``): in the whole row's tile, and, with the register-
+    tile cap lowered to 16, in a store's loop with both segments carried
+    from tile to tile.  Only the one position read of a tiled rolled scan
+    sums the positions at or before it."""
+    import jax.numpy as jnp
+
+    from repro import omp as jomp
+    from repro_torch import convert, omp
+    from repro_torch.kernels import span_kernel
+
+    prog = _rolled_scan_body(omp, torch)
+    env_np = _rolled_scan_env()
+    if cap is not None:
+        monkeypatch.setattr(span_kernel, "_MAX_TILE_ELEMS", cap)
+        omp.clear_compile_cache()       # compiles are cached by structure
+    _check_block(prog, _rolled_scan_body(jomp, jnp), env_np)
+    env = convert.env_from_numpy(env_np, "cpu")
+    text = omp.compile(prog, _mesh(1, 2)[0], lowering="kernel",
+                       env_like=env).kernel_plan.spans[0].source.text
+    # the one position is read from the whole tile where the row fits
+    assert text.count("tl.cumsum(") >= 4, text
+    assert text.count("axis=2") == (cap is not None), text
+    if cap is not None:                 # the two segments' carries
+        assert sum(line.strip().startswith("c") and " + tl.sum(" in line
+                   for line in text.splitlines()) >= 4, text
+    omp.clear_compile_cache()
+
+
+def test_product_span_ring_fits_shared_memory(monkeypatch):
+    """The generator fits a product span's operand ring (``[lanes, BK]``
+    and ``[BK, N]`` tiles a stage) to ``_SMEM_BYTES`` at ``_DOT_STAGES``
+    stages by halving its K tile, down to 16; the depth stays."""
+    from repro_torch import convert, omp
+    from repro_torch.kernels import span_kernel
+
+    env = convert.env_from_numpy(_cumsum_envs()[0], "cpu")
+    prog = _cumsum_bodies(omp, torch)[0]
+
+    def source():
+        omp.clear_compile_cache()       # compiles are cached by structure
+        return omp.compile(prog, _mesh(1, 2)[0], lowering="kernel",
+                           env_like=env).kernel_plan.spans[0].source
+
+    def k_tile(src):
+        return int(re.search(r"tl\.broadcast_to\(\w+, \[16, (\d+)\]\)",
+                             src.text).group(1))
+
+    # 16 lanes and a 32-wide output tile of float32: 192 B a K position
+    stage = (16 + 32) * 4
+    assert (k_tile(source()), source().num_stages) == (32, 3)
+    for budget, bk in ((3 * stage * 32, 32), (3 * stage * 32 - 1, 16),
+                       (3 * stage * 16 - 1, 16)):
+        monkeypatch.setattr(span_kernel, "_SMEM_BYTES", budget)
+        src = source()
+        assert (k_tile(src), src.num_stages) == (bk, 3), budget
+        # the tiles are what the emulation runs: still the plain values
+        tsk._check_family((prog, env), (2,), ("data",), "replicate")
+    omp.clear_compile_cache()
+
+
+def test_roll_of_a_lane_scalar_is_the_identity():
+    """``torch.roll`` of a lane scalar (0-d per lane) is the identity, as
+    ``jnp.roll`` of a 0-d value is; vmap's batching rule rolls it across
+    the lanes, so the port evaluates every body (its shared-memory run,
+    the plain lane values, the kernel's trace) with a 0-d roll taken as
+    the identity: the kernel emits no roll."""
+    import jax.numpy as jnp
+
+    from repro import omp as jomp
+    from repro_torch import convert, omp
+
+    for prog, jprog, env_np in zip(_lane_roll_bodies(omp, torch),
+                                   _lane_roll_bodies(jomp, jnp),
+                                   _lane_roll_envs()):
+        _check_block(prog, jprog, env_np)
+        env = convert.env_from_numpy(env_np, "cpu")
+        comp = omp.compile(prog, _mesh(prog.rank, 2)[0], lowering="kernel",
+                           env_like=env)
+        body = comp.kernel_plan.spans[0].source.text.split("# stage 0")[1]
+        assert "%" not in body, body
+        src = env["x"] if prog.rank == 1 else env["X"]
+        key = "y" if prog.rank == 1 else "z"
+        np.testing.assert_allclose(comp(env)[key].numpy(),
+                                   (2.0 * src).numpy(), rtol=1e-6)
+
+
+@pytest.mark.parametrize("p", [1, 2])
+def test_roll_of_a_forwarded_register_tile_matches_reference(p,
+                                                             monkeypatch):
+    """A stage that rolls a row the stage before it in the same span
+    stored in one register tile (``V``, forwarded): the kernel emits the
+    producer's value again at the wrapped positions.  One span, ``V``
+    forwarded; the emulated source == the stages' plain values; the
+    kernel lowering == the reference's shared-memory run and, on one
+    rank, its Pallas lowering."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh
+
+    from repro import omp as jomp
+    from repro_torch import convert, omp
+
+    env_np = _forward_roll_env()
+    env = convert.env_from_numpy(env_np, "cpu")
+    jenv = {k: jnp.asarray(v) for k, v in env_np.items()}
+    for reg, jreg in zip(_forward_roll_regions(omp, torch),
+                         _forward_roll_regions(jomp, jnp)):
+        keys = sorted(jreg(jenv))
+        want = {k: np.asarray(v) for k, v in jax.jit(
+            lambda e: jreg(e))(jenv).items()}
+        comp, calls = tsk._span_calls(reg, env, _mesh(1, p)[0], monkeypatch)
+        (span,) = comp.kernel_plan.spans
+        assert (1, "V") in span.source.forwarded, span.source.forwarded
+        # the later stage reads the wrapped positions of the producer's row
+        assert "%" in span.source.text.split("# stage 1")[1]
+        tsk._check_span_calls(comp, calls)
+        _assert_env({k: v for k, v in comp(env).items() if k in keys},
+                    want, f"{reg.name} P={p}")
+        if p == 1:
+            pal = jomp.compile(jreg, Mesh(np.asarray(jax.devices()[:1]),
+                                          ("data",)), lowering="pallas")
+            _assert_env(comp(env), {k: np.asarray(v) for k, v in jax.jit(
+                lambda e: pal(e))(jenv).items()}, f"{reg.name} vs pallas")

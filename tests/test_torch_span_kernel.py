@@ -76,6 +76,8 @@ def _fake_modules(state):
     tl.sqrt = lambda x: _arr(np.sqrt(x))
     tl.full = lambda shape, v, dt: _arr(np.full(shape, v, dtype=dt))
     tl.sum = lambda x, axis: _arr(np.sum(x, axis=axis, dtype=np.asarray(x).dtype))
+    tl.cumsum = lambda x, axis: _arr(np.cumsum(x, axis=axis,
+                                               dtype=np.asarray(x).dtype))
     tl.max = lambda x, axis: _arr(np.max(x, axis=axis))
     tl.min = lambda x, axis: _arr(np.min(x, axis=axis))
     tl.zeros = lambda shape, dt: _arr(np.zeros(shape, dtype=dt))
@@ -407,22 +409,23 @@ def test_generated_product_forms(monkeypatch):
 
 
 def test_op_outside_the_template_raises_compile_error_naming_it():
-    """An op the template cannot express (a scan along the row) is
-    refused at compile time by the kernel lowering, naming the op; the
-    collective lowering still runs it."""
+    """An op the template cannot express (a product scan along the row:
+    ``cumsum`` is in the template, ``cumprod`` is not) is refused at
+    compile time by the kernel lowering, naming the op; the collective
+    lowering still runs it."""
     from repro_torch import omp
 
     @omp.parallel_for(stop=6)
     def scan(i, env):
-        return {"Y": omp.at(i, torch.cumsum(env["X"][i], 0))}
+        return {"Y": omp.at(i, torch.cumprod(env["X"][i], 0))}
 
-    env = {"X": torch.ones(6, 5), "Y": torch.zeros(6, 5)}
+    env = {"X": torch.full((6, 5), 2.0), "Y": torch.zeros(6, 5)}
     mesh = omp.make_mesh((2,), ("data",), device="cpu")
-    with pytest.raises(omp.CompileError, match="aten.cumsum"):
+    with pytest.raises(omp.CompileError, match="aten.cumprod"):
         omp.compile(scan, mesh, lowering="kernel", env_like=env)
     out = omp.compile(scan, mesh, lowering="collective")(env)
     np.testing.assert_allclose(out["Y"].numpy(),
-                               np.tile(np.arange(1.0, 6.0), (6, 1)))
+                               np.tile(2.0 ** np.arange(1.0, 6.0), (6, 1)))
 
 
 def _roll_bodies(s):
@@ -491,40 +494,53 @@ def test_generated_roll_matches_plain(shift, monkeypatch):
                                        **REDUCING)
 
 
-def test_roll_across_lanes_or_of_a_register_tile_raises_naming_it():
-    """A roll the template cannot re-emit is refused at compile time,
-    naming ``aten.roll``: a lane scalar's roll (vmap rolls it across the
-    lanes) and the roll of a row an earlier span stage hands over in a
-    register tile; the collective lowering still runs the first."""
+def test_roll_across_lanes_or_of_a_register_tile_raises_naming_it(
+        monkeypatch):
+    """The rolls the template still refuses, at compile time, naming
+    ``aten.roll``: a flattened roll of a value of several axes (a
+    replicated matrix rolled as one vector), which the collective
+    lowering still runs; and a roll across lanes of a value with a value
+    axis.  vmap rolls a body's row along its value axis, so the second
+    is shown by marking the rolled row's axes the other way round (its
+    value axis a lane axis).  A lane scalar's roll (the identity) and a
+    roll of a register tile an earlier stage forwards now compile
+    (``tests/test_torch_repairs.py``)."""
     from repro_torch import omp
-    from repro_torch.core.region import plan_region
     from repro_torch.kernels import span_kernel
 
     @omp.parallel_for(stop=6)
-    def lanes(i, env):
-        return {"y": omp.at(i, torch.roll(env["x"][i], 1))}
+    def flat(i, env):
+        return {"y": omp.at(i, torch.roll(env["M"], 1)[0, 0] * env["x"][i])}
 
-    env = {"x": torch.arange(6.0), "y": torch.zeros(6)}
+    env = {"M": torch.arange(12.0).reshape(3, 4), "x": torch.arange(6.0),
+           "y": torch.zeros(6)}
     mesh = omp.make_mesh((2,), ("data",), device="cpu")
-    with pytest.raises(omp.CompileError, match="aten.roll.*across lanes"):
-        omp.compile(lanes, mesh, lowering="kernel", env_like=env)
-    omp.compile(lanes, mesh, lowering="collective")(env)
+    with pytest.raises(omp.CompileError,
+                       match="aten.roll.*flattened value of several axes"):
+        omp.compile(flat, mesh, lowering="kernel", env_like=env)
+    out = omp.compile(flat, mesh, lowering="collective")(env)
+    np.testing.assert_allclose(out["y"].numpy(), 11.0 * np.arange(6.0))
 
-    @omp.parallel_for(stop=9, name="w1")
-    def w1(i, env):
-        return {"V": omp.at(i, env["X"][i] * 2.0)}
+    @omp.parallel_for(stop=6)
+    def row(i, env):
+        return {"Y": omp.at(i, torch.roll(env["X"][i], 1))}
 
-    @omp.parallel_for(stop=9, name="w2")
-    def w2(i, env):
-        return {"y": omp.at(i, torch.roll(env["V"][i], 1).sum())}
+    roles = span_kernel._roles
 
-    env = {"X": torch.ones(9, 4), "V": torch.zeros(9, 4),
-           "y": torch.zeros(9)}
-    plans = [se.plan for se in plan_region(omp.region(w1, w2), env,
-                                           1).stages]
-    with pytest.raises(omp.CompileError, match="aten.roll.*register tile"):
-        span_kernel.generate_span([(plans[0], w1, ()),
-                                   (plans[1], w2, ("V",))])
+    def swapped(ta, tb, name):
+        out = roles(ta, tb, name)
+        for n in ta.graph.nodes:
+            if n.target is torch.ops.aten.roll.default:
+                out[n.args[0]] = tuple(
+                    {"lane": "v", "v": "lane"}.get(r, r)
+                    for r in out[n.args[0]])
+        return out
+
+    monkeypatch.setattr(span_kernel, "_roles", swapped)
+    env = {"X": torch.ones(6, 5), "Y": torch.zeros(6, 5)}
+    with pytest.raises(omp.CompileError,
+                       match="aten.roll.*rolls a row across lanes"):
+        omp.compile(row, mesh, lowering="kernel", env_like=env)
 
 
 def test_cuda_tensor_never_reaches_the_plain_version(monkeypatch):

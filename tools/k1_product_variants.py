@@ -26,11 +26,18 @@ span-kernel generator sets aside, each pair timed in turns on one card:
   chose against the other way (syrk's and syr2k's ``A.T``, covariance's
   rows: as they lie under 3xTF32);
 
+* **the operand ring of a product span of few lanes** (phase 18's
+  ``cumsum1`` of ``chip_smoke.py``: 32-lane tiles, a 512-wide output
+  tile): the K tile the generator chose to fit ``_DOT_STAGES`` stages
+  in ``span_kernel._SMEM_BYTES`` against a longer one at fewer stages,
+  narrower output tiles and shorter K tiles (a variant that does not fit
+  a program is reported as such);
+
 and, at n = 512, the 16-bit route of a product (bfloat16 and float16
 operands go to ``tl.dot`` as they are, with a float32 accumulator),
 held against the plain version at 1e-2 (one bfloat16 rounding).
 
-    python3 tools/k1_product_variants.py [mv|mm|copy|16bit ...]
+    python3 tools/k1_product_variants.py [mv|mm|copy|ring|16bit ...]
 
 PolyBench/C 4.2.1 EXTRALARGE dims, float32, 8 ranks, ``static`` — the
 spans of ``chip_smoke.py``'s phase 17.  Each variant is held against the
@@ -44,6 +51,7 @@ card.
 from __future__ import annotations
 
 import contextlib
+import re
 import sys
 from pathlib import Path
 
@@ -85,14 +93,14 @@ def _mv_dot16(self, row, mem, d_k, od):
 
     def body(ks, kcol):
         a = self.cast(row, sk.torch.float32, ks)
-        a = self.emit(f"tl.broadcast_to({a}, [{block}, {bk}])",
+        a = self.emit(f"tl.broadcast_to({a}, [{block}, {ks.bt}])",
                       sk.torch.float32, True, k).expr
         b = self.emit(f"tl.broadcast_to(tl.load({p} + "
                       f"{off.replace('@K@', kcol)}, mask={kcol} < {k}, "
-                      f"other=0).to(tl.float32), [{bk}, {w}])",
+                      f"other=0).to(tl.float32), [{ks.bt}, {w}])",
                       sk.torch.float32, False, None).expr
         return a, b, ', input_precision="ieee"'
-    self._k_loop(acc, k, bk, body)
+    self._k_loop(acc, k, bk, body, block, w, sk.torch.float32)
     return self.emit(f"tl.sum(tl.where(tl.arange(0, {w})[None, :] == 0, "
                      f"{acc}, 0.0), axis=1)[:, None].to({sk._TL[od]})", od,
                      True, None)
@@ -183,6 +191,12 @@ def pair(cs, torch, span_kernel, plan, prog, io, dev, sources, tol, label):
     a, b = in_turns(cs, torch, [
         (lambda s=s: span_kernel.launch_span(s, io, dev)) for s in sources])
     return a, b, *errs
+
+
+def _k_tile(src) -> int:
+    """The K tile of a product span's ``tl.dot`` loop."""
+    return int(re.search(r"tl\.broadcast_to\(\w+, \[\d+, (\d+)\]\)",
+                         src.text).group(1))
 
 
 def _desc(src):
@@ -280,6 +294,45 @@ def copy_phase(cs, torch, omp, pb, transform, span_kernel, dev, card):
               + "; ".join(parts) + f") on {card}")
 
 
+#: Ring variants set against the chosen one on cumsum1's span.
+RING_VARIANTS = (dict(_SMEM_BYTES=1 << 20),
+                 dict(_DOT_STAGES=2, _SMEM_BYTES=1 << 20),
+                 dict(_DOT_STAGES=1, _SMEM_BYTES=1 << 20),
+                 dict(_DOT_TILE_SCALE=2),
+                 dict(_DOT_TILE_SCALE=1), dict(_BK_ONE=16),
+                 dict(_BK_ONE=16, _DOT_TILE_SCALE=2))
+
+
+def ring_phase(cs, torch, omp, pb, transform, span_kernel, dev, card):
+    """cumsum1's span (phase 18 of ``chip_smoke.py``) at the ring the
+    generator chose against the variants of ``RING_VARIANTS``."""
+    prog, env, shape, axes, _, _ = cs.repair_programs(
+        omp, torch, dev)["cumsum1"]
+    comp = omp.compile(prog, omp.make_mesh(shape, axes, device=dev),
+                       lowering="collective", env_like=env)
+    repl, slabs = transform.stage_inputs(comp.plan, env)
+    io = [(slabs, repl)]
+    chosen = span_kernel.generate(comp.plan, prog, dev)
+    label = "cumsum1"
+    for consts in RING_VARIANTS:
+        with patched(span_kernel, consts):
+            other = span_kernel.generate(comp.plan, prog, dev)
+        try:
+            a, b, ea, eb = pair(cs, torch, span_kernel, comp.plan, prog, io,
+                                dev, (chosen, other), 1e-4, label)
+        except Exception as e:      # a variant the card cannot hold
+            if type(e).__name__ != "OutOfResources":
+                raise
+            print(f"ring {label}: {consts} ({_desc(other)}) does not fit a "
+                  f"program: {e}")
+            continue
+        print(f"ring {label}: chosen {a:.4f} ms ({_desc(chosen)}, "
+              f"{chosen.value_tiles} value tiles, K tile {_k_tile(chosen)}; "
+              f"err {ea:.2e}), {consts} {b:.4f} ms ({_desc(other)}, "
+              f"{other.value_tiles} value tiles, K tile {_k_tile(other)}; "
+              f"err {eb:.2e}): {b / a:.2f}x on {card}")
+
+
 def bits16_phase(cs, torch, omp, pb, transform, span_kernel, dev, card):
     from repro_torch.core import kernel_lower
 
@@ -309,7 +362,7 @@ def bits16_phase(cs, torch, omp, pb, transform, span_kernel, dev, card):
 
 
 PHASES = {"mv": mv_phase, "mm": mm_phase, "copy": copy_phase,
-          "16bit": bits16_phase}
+          "ring": ring_phase, "16bit": bits16_phase}
 
 
 def main(argv) -> int:

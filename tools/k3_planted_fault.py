@@ -20,8 +20,8 @@ import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-FAULT = ("    s[(long)c * NP] = hcur;\n",
-         "    s[(long)c * NP] = c >= 8 ? 1.02f * hcur : hcur;\n")
+FAULT = ("        s[(long)c * NP] = hcur;\n",
+         "        s[(long)c * NP] = c >= 8 ? 1.02f * hcur : hcur;\n")
 
 
 def main() -> int:
