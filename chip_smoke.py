@@ -183,8 +183,9 @@ non-zero (no phase catches an error and carries on):
     short span's host launch sets, and its device time alone,
     ``device_ms``), its plain version, the library call
     ``torch.addmm``/``mm``/``mv``/``addmv`` where one computes the
-    block's values (null for ``gesummv``, ``syr2k`` and ``jacobi2d``;
-    timed both ways too) and
+    block's values, ``F.conv2d`` with the five-point cross for
+    ``jacobi2d`` (its interior columns; null for ``gesummv`` and
+    ``syr2k``; timed both ways too) and
     the bound: each env array read once and each output written once at
     3.35 TB/s, or the span's operations — a product's 2·M·N·K three times
     over at 495 TFLOP/s (TF32, dense) where it runs 3xTF32, else at the
@@ -200,7 +201,14 @@ non-zero (no phase catches an error and carries on):
     (a 4x2 mesh: 200 x 200 rows of 512), ``roll`` of a lane scalar on
     rank 1 (N = 2^24) and rank 2 (4096 x 4096), and a region whose two
     later stages roll a row of 1000 that its first stage forwards in a
-    register tile (16384 rows, one span of 3 stages): each under
+    register tile (16384 rows, one span of 3 stages); the bodies K1's
+    template once refused: pointwise math (``sin`` .. ``erf``,
+    ``pow``, rounding, ``sign``, ``clamp``; N = 2^24), ``cumprod`` along
+    rows of 2600 (rolled, tiled), a gather through per-lane index vectors
+    of 4 with negative and out-of-range entries (N = 2^24), the values of
+    a sort of 512-wide rows (16384 rows; ``torch.sort`` its library call)
+    and a row of 4096 a later stage re-loads after a barrier (8192 rows,
+    stored tile by tile): each under
     ``lowering="kernel"`` against its shared-memory run (``agree`` at
     1e-4: a scan of 2600 normal values reaches ~100, where two float32
     sums in another order differ by more than a fixed 1e-4),
@@ -209,7 +217,27 @@ non-zero (no phase catches an error and carries on):
     seeded normal data, rejecting a one-lane move) and times; then K2 at
     head_dim 288 and 512 (the wide kernel), B=1, H=4, KV=1, S=4096,
     causal, bfloat16 and float32, against its plain version (phase 6's
-    checks), its launches, times, SDPA and the bound.
+    checks), its launches, times, SDPA and the bound;
+19. **master/worker** (paper Fig. 1b) — ``pi`` and ``jacobi1d`` (N =
+    2^24) and the PolyBench kernels of phase 17 at EXTRALARGE size on 8
+    virtual ranks under ``lowering="master_worker"``, the master
+    excluded and included, and as a region staged per loop: every output
+    equal to ``run_reference`` (1e-4; ``PB_MM_TOL`` on products); the
+    mesh's ppermute launches and bytes equal to ``mw_messages`` (the
+    reference executor's sends, held to it in
+    ``tests/test_torch_master_worker.py``); K1 launches none;
+    ``Compiled.run`` timed under master/worker, collective and kernel;
+20. **runtime** — (a) ``ResilientExecutor`` over ``jacobi1d`` (N = 2^24,
+    collective) and PolyBench ``gemm`` (EXTRALARGE, kernel lowering) on 8
+    ranks, a ``FaultPlan`` losing rank 3: the run recovered onto 7 ranks
+    equals the healthy one (bit for bit; ``PB_MM_TOL`` on gemm's
+    product), K1 launches on the shrunk mesh and its span is held against
+    its plain version and timed (a kernel-table row); recovery timed cold
+    and warm (a second executor hitting the compile cache) and the
+    degraded run; (b) a NaN at ``run_exit`` caught and absorbed by a
+    retry; (c) 16 threads, one cold program, a ``CompileService``: one
+    compile; (d) a straggler with ``device_weights`` escalates to one
+    weighted recompile whose outputs equal the unweighted ones.
 
 In phases 4, 15, 17 and 18 every span is also launched by K1's launcher
 and by Triton's launch path on the same feeds, equal bit for bit.
@@ -554,10 +582,14 @@ def one_stage(kernel_lower, plan, prog, slabs, repl) -> list:
 
 def span_tol(source) -> float:
     """1e-5 for pointwise bodies; 1e-4 where a body sums a value axis
-    (``tl.sum``, a scan's ``tl.cumsum``) or multiplies matrices
-    (``tl.dot``), whose summation order differs."""
+    (``tl.sum``, a scan's ``tl.cumsum``), multiplies a row's values
+    (``tl.cumprod``) or matrices (``tl.dot``), in another order, or calls
+    a transcendental function whose CUDA version lies further than a few
+    ulp from torch's (libdevice's, ``tl.sin`` and the like)."""
     return 1e-4 if any(op in source.text for op in (
-        "tl.sum(", "tl.dot(", "tl.cumsum(")) else 1e-5
+        "tl.sum(", "tl.dot(", "tl.cumsum(", "tl.cumprod(", "libdevice.",
+        "tl.sin(", "tl.cos(", "tl.erf(", "tl.sigmoid(", "tl.rsqrt(")) \
+        else 1e-5
 
 
 def hold_launch_bits(torch, kernel_lower, span_kernel, source, stages, dev,
@@ -1861,8 +1893,8 @@ PB_LIBRARY_NOTE = {
     "syr2k": "null: no single call computes A B^T + B A^T",
     "covariance": "torch.addmm (beta 0, alpha 1/(n-1)) for the cov block "
                   "only: no single call centres the rows",
-    "jacobi2d": "null: no single call rolls a row's columns and adds the "
-                "neighbouring rows",
+    "jacobi2d": "F.conv2d (the five-point cross of 0.25, as heat2d's "
+                "row; it leaves out the edge columns the body wraps)",
 }
 
 
@@ -1870,7 +1902,11 @@ def pb_library(name, torch, env, block):
     """One PyTorch call computing block ``block``'s values on ``env`` (a
     yardstick the port never calls), or None."""
     e = env                     # short: the calls below read many keys
+    cross = torch.tensor([[0.0, 0.25, 0.0], [0.25, 0.0, 0.25],
+                          [0.0, 0.25, 0.0]], device=e[next(iter(e))].device)
     calls = {
+        "jacobi2d": [lambda: torch.nn.functional.conv2d(
+            e["A"][None, None], cross.view(1, 1, 3, 3))],
         "gemm": [lambda: torch.addmm(e["C"], e["A"], e["B"], beta=1.2,
                                      alpha=1.5)],
         "2mm": [lambda: torch.mm(e["A"], e["B"]),
@@ -2174,6 +2210,9 @@ REPAIR_ROWS = 2000             # lanes of the rank-1 cumsum block
 REPAIR_WIDTH = 2600            # its rows (PolyBench EXTRALARGE: 2000-4000)
 REPAIR2 = (200, 200, 512)      # the rank-2 cumsum block: i, j, row
 REPAIR_FWD = (16384, 1000)     # the forwarded-roll region: lanes, row
+REPAIR_GATHER = 4              # per-lane index vector of the gather (N1 lanes)
+REPAIR_SORT = (16384, 512)     # the sort: lanes, row (one register tile)
+REPAIR_HANDOFF = (8192, 4096)  # the tile-by-tile hand-off: lanes, row
 K2_WIDE_HD = (288, 512)        # head dims over 256 (the wide kernel)
 
 
@@ -2248,7 +2287,58 @@ def repair_programs(omp, torch, dev):
         return {"Z": omp.at(i, torch.roll(env["V"][i], 2)
                             - env["V"][i] * env["w"])}
 
+    @omp.parallel_for(stop=N1, name="math1")
+    def math1(i, env):
+        x = env["x"][i]
+        a = (torch.sin(x) + torch.cos(x) * torch.tan(0.25 * x)
+             + torch.tanh(x) + torch.sigmoid(x)
+             + torch.rsqrt(torch.abs(x) + 1.0) + torch.erf(x))
+        b = (torch.pow(x, 3.0) + x ** 2 + torch.pow(torch.abs(x) + 0.5, x)
+             + torch.pow(2.0, x) + torch.floor(3.0 * x) + torch.ceil(3.0 * x)
+             + torch.round(2.0 * x) + torch.sign(x))
+        c = (torch.clamp(x, -0.5, 0.5) + torch.clamp_min(x, 0.1)
+             + torch.clamp_max(x, 0.2) + torch.log1p(torch.abs(x))
+             + torch.expm1(0.5 * x))
+        return {"y": omp.at(i, a + b * c)}
+
+    @omp.parallel_for(stop=n, reduction={"s": "+"}, name="cumprod1")
+    def cumprod1(i, env):
+        row = env["A"][i]
+        c = torch.cumprod(row, 0)
+        return {"Y": omp.at(i, c - torch.roll(torch.cumprod(
+                    row * env["w"], 0), 2)),
+                "s": omp.red(c[3] + torch.roll(c, -1)[0] + c.sum())}
+
+    @omp.parallel_for(stop=N1, name="gather1")
+    def gather1(i, env):
+        g = env["x"][env["I"][i]]
+        return {"Y": omp.at(i, g * 2.0 + env["x"][env["I"][i] - 3])}
+
+    sort_lanes, sort_w = REPAIR_SORT
+
+    @omp.parallel_for(stop=sort_lanes, name="sort1")
+    def sort1(i, env):
+        return {"Z": omp.at(i, torch.sort(env["A"][i]).values)}
+
+    h_lanes, h_w = REPAIR_HANDOFF
+
+    # static: chunks of 1024 lanes, so that a row of 4096 does not fit one
+    # register tile of the span's lanes and is stored tile by tile
+    @omp.parallel_for(stop=h_lanes, schedule=omp.static(), name="h1")
+    def h1(i, env):
+        return {"V": omp.at(i, env["X"][i] * 2.0 + env["w"])}
+
+    @omp.parallel_for(stop=h_lanes, schedule=omp.static(), name="h2")
+    def h2(i, env):
+        v = env["V"][i]
+        return {"y": omp.at(i, v.sum() + v[3]), "Z": omp.at(i, v * env["w"])}
+
     x1, x2 = rnd(N1), rnd(N2, N2)
+    near1 = 1.0 + 0.01 * rnd(n, w)
+    # indices in range, negative (wrapping once) and out of range
+    idx = torch.randint(-N1 - 64, N1 + 64, (N1, REPAIR_GATHER), generator=g,
+                        device=dev, dtype=torch.int32)
+    sort_a = rnd(sort_lanes, sort_w)
     return {
         "cumsum1": (cumsum1, {"A": rnd(n, w), "w": rnd(w), "M": rnd(w, w),
                               "Y": zeros(n, w), "P": zeros(n, w),
@@ -2269,6 +2359,26 @@ def repair_programs(omp, torch, dev):
         "lane_roll2": (lane_roll2, {"X": x2, "z": zeros(N2, N2)}, (4, 2),
                        ("i", "j"), lambda: torch.add(x2, x2),
                        "torch.add (z = X + X)"),
+        "math": (math1, {"x": x1, "y": zeros(N1)}, (PB_RANKS,), ("data",),
+                 None, "null: no single call computes the composite body"),
+        "cumprod": (cumprod1, {"A": near1, "w": 1.0 + 0.01 * rnd(w),
+                               "Y": zeros(n, w), "s": zeros()},
+                    (PB_RANKS,), ("data",), None,
+                    "null: no single call computes cumprod, roll and sums"),
+        "gather": (gather1, {"x": x1, "I": idx,
+                             "Y": zeros(N1, REPAIR_GATHER)},
+                   (PB_RANKS,), ("data",), None,
+                   "null: torch.take raises on the out-of-range indices the "
+                   "body clamps"),
+        "sort": (sort1, {"A": sort_a, "Z": zeros(sort_lanes, sort_w)},
+                 (PB_RANKS,), ("data",),
+                 lambda: torch.sort(sort_a, dim=1).values,
+                 "torch.sort (values, along the rows)"),
+        "handoff": (omp.region(h1, h2, name="handoff"),
+                    {"X": rnd(h_lanes, h_w), "w": rnd(h_w),
+                     "V": zeros(h_lanes, h_w), "y": zeros(h_lanes),
+                     "Z": zeros(h_lanes, h_w)}, (PB_RANKS,), ("data",), None,
+                    REGION_LIBRARY_NOTE),
         "roll_fwd": (omp.region(w1, w2, w3, name="roll_fwd"),
                      {"X": rnd(lanes, width), "V": zeros(lanes, width),
                       "y": zeros(lanes), "Z": zeros(lanes, width),
@@ -2335,9 +2445,14 @@ def repair_phase(torch, dev, card):
             calls, err = check_region_spans(torch, kernel_lower, span_kernel,
                                             comp, env, dev, f"repair {name}")
             fwd = [list(src.forwarded) for _, src in calls]
-            if not any((1, "V") in f and (2, "V") in f for f in fwd):
+            readers = (1, 2) if name == "roll_fwd" else (1,)
+            if not any(all((r, "V") in f for r in readers) for f in fwd):
                 raise AssertionError(f"repair {name}: V not forwarded to "
-                                     f"both rolling stages: {fwd}")
+                                     f"stages {readers}: {fwd}")
+            if name == "handoff" and not all(
+                    "tl.debug_barrier()" in t for t in texts):
+                raise AssertionError("repair handoff: V is not re-loaded "
+                                     "after a barrier (held whole?)")
         else:
             err, worst = check_pb_span(torch, span_kernel, kernel_lower,
                                        comp, prog, env, dev,
@@ -2352,7 +2467,12 @@ def repair_phase(torch, dev, card):
               f"{planned}); spans vs plain max_abs_err={err:.3e}, worst "
               f"row-relative err {worst_s}, K1's launcher == Triton's "
               f"launch path bit for bit; tl.cumsum "
-              f"{sum(t.count('tl.cumsum(') for t in texts)}, rolled reads "
+              f"{sum(t.count('tl.cumsum(') for t in texts)}, tl.cumprod "
+              f"{sum(t.count('tl.cumprod(') for t in texts)}, tl.sort "
+              f"{sum(t.count('tl.sort(') for t in texts)}, libdevice calls "
+              f"{sum(t.count('libdevice.') - 1 for t in texts if 'libdevice' in t)}"
+              f", barriers {sum(t.count('tl.debug_barrier()') for t in texts)}"
+              f", rolled reads "
               f"{sum(t.count(') % ') for t in texts)}; shared memory "
               f"{span_shared(span_kernel, comp.kernel_plan.spans)} B at "
               f"{[sp.source.num_stages for sp in comp.kernel_plan.spans]} "
@@ -2433,6 +2553,341 @@ def k2_wide_phase(torch, dev, card):
             del q, k, v
             torch.cuda.empty_cache()
     return rows
+
+
+# ---------------------------------------------------------------------------
+# Master/worker (paper Fig. 1b) and the runtime around a compiled program
+# ---------------------------------------------------------------------------
+
+MW_RANKS = 8                   # virtual ranks of phases 19 and 20
+MW_LOST = 3                    # the rank phase 20's fault plan loses
+
+
+def mw_messages(plan, p_total) -> tuple[int, int]:
+    """``(ppermute launches, bytes)`` the master/worker executor sends for
+    one block: the reference's ``_execute_master_worker`` send by send
+    (``tests/test_torch_master_worker.py`` holds this count against the
+    reference's traced executor)."""
+    ch = plan.chunks
+    w = ch.num_devices
+    first = p_total - w
+    bcast = p_total - max(first, 1)         # master -> every worker
+    gathers = w - (first == 0)              # workers -> master, not 0 -> 0
+    launches = nbytes = 0
+
+    def size(shape, dtype):
+        import torch
+
+        return math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+
+    for key in plan.context.env_keys:
+        info = plan.context.vars[key]
+        if plan.vars[key].in_strategy == "replicate":
+            launches += bcast
+            nbytes += bcast * size(info.shape, info.dtype)
+    for key, dec in plan.vars.items():
+        info = plan.context.vars[key]
+        w_shape, w_dt = info.write.value_shape, info.write.value_dtype
+        if dec.out_strategy in ("identity", "partial"):
+            launches += gathers + bcast
+            nbytes += gathers * size((ch.local_chunks, ch.chunk,
+                                      *w_shape), w_dt)
+            nbytes += bcast * size((ch.padded_trip, *info.shape[1:]),
+                                   info.dtype)
+        elif dec.out_strategy == "put":
+            owner = ((plan.loop.trip_count - 1) // ch.chunk) % w + first
+            sends = (owner != 0) + bcast
+            launches += sends
+            nbytes += sends * size(info.shape, info.dtype)
+        elif dec.out_strategy == "reduce":
+            launches += gathers + bcast
+            nbytes += (gathers + bcast) * size(w_shape, w_dt)
+    return launches, nbytes
+
+
+def mw_programs(omp, torch, dev):
+    """Phase 19's programs, ``name -> (blocks, env, mm)``: the PolyBench
+    kernels of ``repro_torch.polybench`` at EXTRALARGE size, ``pi`` and
+    ``jacobi1d`` at N = 2^24 (their sliced inputs replicated: the master
+    sends whole buffers, paper Fig. 1b).  ``mm``: a body multiplies
+    matrices."""
+    from repro_torch import polybench as pb
+
+    out = {}
+    for name, (blocks, env, _, _) in (
+            ("pi", pi_program(omp, torch, dev)),
+            ("jacobi1d", jacobi1d_program(omp, torch, dev))):
+        out[name] = ([p for p, _ in blocks], env, False)
+    for name in pb.LINEAR_ALGEBRA + pb.STENCILS:
+        kernel = pb.make(name)
+        out[name] = (kernel.programs, kernel.env_fn(dev, seed=0),
+                     name in PB_MM)
+    return out
+
+
+def hold_outputs(torch, got, ref, mm, label) -> float:
+    """Every output against ``run_reference``: rtol=atol=1e-4, and
+    ``agree`` at PB_MM_TOL where a body multiplies matrices; finite.
+    Returns the max abs error."""
+    err = 0.0
+    for k in ref:
+        torch.testing.assert_close(got[k], ref[k], rtol=1e-4, atol=1e-4,
+                                   msg=lambda m: f"{label} {k}: {m}")
+        if mm and not agree(torch, got[k], ref[k], PB_MM_TOL):
+            raise AssertionError(f"{label} {k}: outside PB_MM_TOL")
+        if not bool(torch.isfinite(got[k]).all()):
+            raise AssertionError(f"{label} {k}: not finite")
+        err = max(err, (got[k] - ref[k]).abs().max().item())
+    return err
+
+
+def master_worker_phase(torch, dev, card):
+    """Phase 19: every program of ``mw_programs`` on MW_RANKS virtual
+    ranks under ``lowering="master_worker"`` with the master excluded and
+    included, and as a region (staged per loop), against
+    ``run_reference``; the mesh's ppermute launches and bytes against
+    ``mw_messages``; ``Compiled.run`` timed under master/worker,
+    collective and kernel (the static schedule each)."""
+    from repro_torch import omp
+    from repro_torch.kernels import span_kernel
+
+    mesh = omp.make_mesh((MW_RANKS,), ("data",), device=dev)
+    for name, (progs, env, mm) in mw_programs(omp, torch, dev).items():
+        t0 = time.perf_counter()
+        ref = run_blocks(progs, env)
+        counts = []
+        for excluded in (True, False):
+            comps = [omp.compile(p, mesh, lowering="master_worker",
+                                 paper_master_excluded=excluded)
+                     for p in progs]
+            mesh.reset_counters()
+            span_kernel.LAUNCHES = 0
+            got = run_blocks(comps, env)
+            torch.cuda.synchronize()
+            sent = (mesh.launches["ppermute"], mesh.bytes["ppermute"])
+            want = [0, 0]
+            for c in comps:
+                for i, v in enumerate(mw_messages(c.plan, MW_RANKS)):
+                    want[i] += v
+            if sent != tuple(want) or span_kernel.LAUNCHES:
+                raise AssertionError(
+                    f"master/worker {name} excluded={excluded}: sent "
+                    f"{sent}, the reference's executor sends {tuple(want)}; "
+                    f"K1 launches {span_kernel.LAUNCHES}")
+            hold_outputs(torch, got, ref, mm,
+                         f"master/worker {name} excluded={excluded}")
+            counts.append(f"excluded={excluded}: {sent[0]} ppermutes, "
+                          f"{sent[1]} B (reference's executor: {want[0]}, "
+                          f"{want[1]} B)")
+        region = omp.compile(omp.region(*progs, name=f"{name}_region"),
+                             mesh, lowering="master_worker")
+        hold_outputs(torch, region(env), ref, mm,
+                     f"master/worker {name} as a region")
+        print(f"master/worker {name} on {MW_RANKS} ranks: == run_reference "
+              f"(1e-4{'; PB_MM_TOL' if mm else ''}) excluded and included "
+              f"and as a region staged per loop; " + "; ".join(counts)
+              + f"; {time.perf_counter() - t0:.2f} s")
+        lows = {
+            "master_worker": [omp.compile(p, mesh, lowering="master_worker",
+                                          schedule=omp.static())
+                              for p in progs],
+            "collective": [omp.compile(p, mesh, lowering="collective",
+                                       schedule=omp.static())
+                           for p in progs],
+            "kernel": [omp.compile(p, mesh, lowering="kernel",
+                                   schedule=omp.static(), env_like=env)
+                       for p in progs]}
+        run_ms = {}
+        for low, comps in lows.items():
+            hold_outputs(torch, run_blocks(comps, env), ref, mm,
+                         f"{name} {low} (static)")
+            run_ms[low] = cuda_ms(torch, lambda: run_blocks(comps, env),
+                                  reps=5, inner=2, warmup=1)
+        print(f"times master/worker {name}: Compiled.run master_worker "
+              f"{run_ms['master_worker']:.4f} ms, collective "
+              f"{run_ms['collective']:.4f} ms, kernel "
+              f"{run_ms['kernel']:.4f} ms (static, {MW_RANKS} ranks) on "
+              f"{card}")
+        del ref, env, lows
+        torch.cuda.empty_cache()
+
+
+def runtime_phase(torch, dev, card):
+    """Phase 20: (a) ``ResilientExecutor`` over ``jacobi1d`` (N = 2^24,
+    collective) and PolyBench ``gemm`` (EXTRALARGE, kernel lowering) on
+    MW_RANKS ranks, a ``FaultPlan`` losing rank MW_LOST: the recovered run
+    on the 7-rank mesh equals the healthy one (bit for bit on jacobi1d's
+    stencil, PB_MM_TOL on gemm's product), K1 launches on the shrunk mesh
+    (a new span source, held against its plain version and timed);
+    recovery cold and warm (a second executor that hits the compile
+    cache) and the degraded run timed; (b) a NaN at ``run_exit`` caught
+    and absorbed by a retry; (c) 16 threads submit one cold program to a
+    ``CompileService``: one compile; (d) with ``device_weights`` a
+    straggler escalates to one weighted recompile, whose outputs equal
+    the unweighted ones.  Returns the kernel-table row of the recovered
+    gemm span."""
+    from repro_torch import omp
+    from repro_torch import polybench as pb
+    from repro_torch.core import kernel_lower, transform
+    from repro_torch.kernels import span_kernel
+    from repro_torch.runtime import (FaultPlan, FaultSpec, ResilientExecutor,
+                                     RetryPolicy, StragglerMonitor, inject)
+    from repro_torch.serving import CompileService
+
+    mesh = omp.make_mesh((MW_RANKS,), ("data",), device=dev)
+    policy = RetryPolicy(max_retries=1)
+    lose = FaultPlan(tuple(FaultSpec(call=k, rank=MW_LOST)
+                           for k in range(policy.max_retries + 1)))
+    jac_blocks, jac_env, _, _ = jacobi1d_program(omp, torch, dev)
+    gemm = pb.make("gemm")
+    cases = {"jacobi1d": ([p for p, _ in jac_blocks], jac_env, "collective"),
+             "gemm": (gemm.programs, gemm.env_fn(dev, seed=0), "kernel")}
+    row = None
+    for name, (progs, env, low) in cases.items():
+        (prog,) = progs
+        comp = omp.compile(prog, mesh, lowering=low, schedule=omp.static(),
+                           env_like=env)
+        healthy = comp(env)
+        torch.cuda.synchronize()
+        times = {}
+        for turn in ("cold", "warm"):
+            rex = ResilientExecutor(comp, policy=policy)
+            span_kernel.LAUNCHES = 0
+            t0 = time.perf_counter()
+            with inject(lose) as inj:
+                got = rex.run(env)
+            torch.cuda.synchronize()
+            times[turn] = (time.perf_counter() - t0) * 1e3
+            launches = span_kernel.LAUNCHES
+            shrunk = rex._degraded[1]
+            if not rex.degraded or shrunk.shape["data"] != MW_RANKS - 1 \
+                    or len(inj.fired) != policy.max_retries + 1:
+                raise AssertionError(f"runtime {name}: no recovery onto "
+                                     f"{MW_RANKS - 1} ranks ({rex.stats})")
+            for k in healthy:
+                if name == "gemm":
+                    hold_outputs(torch, {k: got[k]}, {k: healthy[k]}, True,
+                                 f"runtime {name} recovered")
+                elif not torch.equal(got[k], healthy[k]):
+                    raise AssertionError(f"runtime {name} {k}: recovered "
+                                         "run differs from the healthy one")
+            if low == "kernel" and launches < 1:
+                raise AssertionError(f"runtime {name}: K1 did not launch "
+                                     "on the shrunk mesh")
+        degraded_ms = cuda_ms(torch, lambda: rex.run(env), reps=5, inner=2,
+                              warmup=1)
+        healthy_ms = cuda_ms(torch, lambda: comp(env), reps=5, inner=2,
+                             warmup=1)
+        print(f"runtime {name} ({low}): rank {MW_LOST} of {MW_RANKS} lost, "
+              f"recovered onto {MW_RANKS - 1} ranks == healthy run "
+              f"({'PB_MM_TOL' if name == 'gemm' else 'bit for bit'}); K1 "
+              f"launches in the recovered run {launches}; recovery cold "
+              f"{times['cold']:.2f} ms, warm {times['warm']:.2f} ms; "
+              f"Compiled.run healthy {healthy_ms:.4f} ms, degraded "
+              f"{degraded_ms:.4f} ms on {card}")
+        if low == "kernel":
+            degraded = rex._degraded[0]._compiled
+            (dcomp,) = degraded.values()
+            if dcomp.kernel_plan.spans[0].ranks != (MW_RANKS - 1,):
+                raise AssertionError("runtime gemm: the recovered run's span "
+                                     "was not planned for the shrunk mesh")
+            label = f"runtime {name} on {MW_RANKS - 1} ranks"
+            err, _ = check_pb_span(torch, span_kernel, kernel_lower, dcomp,
+                                   prog, env, dev, label, True)
+            repl, slabs = transform.stage_inputs(dcomp.plan, env)
+            src = dcomp.kernel_plan.spans[0].source
+            one = one_stage(kernel_lower, dcomp.plan, prog, slabs, repl)
+            ms = cuda_ms(torch, lambda: span_kernel.span_stage_values(
+                one, src, dev))
+            plain_ms = cuda_ms(torch, lambda: span_kernel.span_values_plain(
+                dcomp.plan, prog, slabs, repl, dev))
+            nbytes, flops, dot_flops = pb_bound(torch, env, src,
+                                                dcomp.plan.nest.total_trip)
+            ops_s = pb_ops_s(flops, dot_flops, True)
+            bound_s = max(nbytes / HBM_BYTES_PER_S, ops_s)
+            lib = pb_library("gemm", torch, env, 0)
+            row = {"name": f"span_kernel[recovered gemm {MW_RANKS - 1} "
+                           "ranks]", "route": "triton", "source": SOURCE,
+                   "replaces": REPLACES, "launches": launches,
+                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_s * 1e3,
+                   "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S >= ops_s
+                                else "operations"),
+                   "library_ms": cuda_ms(torch, lib) if lib else None}
+            print(f"times runtime gemm span on {MW_RANKS - 1} ranks: kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                  f"{bound_s * 1e3:.4f} ms on {card}")
+        # (b) a NaN at run_exit, absorbed by one retry
+        rex = ResilientExecutor(comp, policy=policy)
+        with inject(FaultPlan((FaultSpec(call=0, kind="nan"),))):
+            got = rex.run(env)
+        if rex.stats["validation_failures"] != 1 or rex.degraded \
+                or not all(torch.equal(got[k], healthy[k]) for k in healthy):
+            raise AssertionError(f"runtime {name}: the NaN at run_exit was "
+                                 f"not absorbed by a retry ({rex.stats})")
+        print(f"runtime {name}: a NaN at run_exit caught by validation and "
+              f"absorbed by a retry ({rex.stats})")
+        del comp, healthy, got, rex
+        torch.cuda.empty_cache()
+
+    # (c) single-flight: 16 threads, one cold program, one compile
+    @omp.parallel_for(stop=N1, name="svc_axpy")
+    def axpy(i, env):
+        return {"y": omp.at(i, 2.0 * env["x"][i] + 1.0)}
+
+    x = torch.randn(N1, device=dev)
+    env = {"x": x, "y": torch.zeros(N1, device=dev)}
+    want = axpy(env)["y"]
+    svc = CompileService(mesh, options=omp.Options(lowering="collective"))
+    before = omp.compile_cache_stats()["misses"]
+    barrier = threading.Barrier(16)
+    outs, errors = [None] * 16, []
+
+    def client(t):
+        try:
+            barrier.wait()
+            outs[t] = svc.run(axpy, env)["y"]
+        except BaseException as e:      # re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(t,)) for t in range(16)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    misses = omp.compile_cache_stats()["misses"] - before
+    if svc.stats.cold_compiles != 1 or misses != 1 or not all(
+            torch.equal(o, want) for o in outs):
+        raise AssertionError(f"compile service: {svc.stats.cold_compiles} "
+                             f"compiles, {misses} cache misses for 16 "
+                             "racing clients of one program")
+    print(f"compile service: 16 threads, one cold program: 1 compile, "
+          f"{svc.stats.warm_hits} warm hits, {svc.stats.coalesced} "
+          "coalesced, every output == run_reference bit for bit")
+
+    # (d) a straggler escalates to one weighted recompile
+    weights = [2.0] + [1.0] * (MW_RANKS - 1)
+    svc = CompileService(mesh, options=omp.Options(lowering="collective"),
+                         device_weights=weights)
+    (prog,) = [p for p, _ in jac_blocks]
+    plain = svc.run(prog, jac_env)
+    svc.monitor = StragglerMonitor(spike_factor=2.0, spike_budget=3)
+    for dt in [0.01] * 20 + [0.2] * 3:
+        svc._observe(dt)
+    cold = svc.stats.cold_compiles
+    weighted = svc.run(prog, jac_env)
+    if (svc.stats.rebalances != 1 or svc.stats.evictions != 0
+            or svc.stats.cold_compiles != cold + 1
+            or svc.options.chunk_weights != tuple(weights)
+            or not all(torch.equal(weighted[k], plain[k]) for k in plain)):
+        raise AssertionError(f"compile service escalation: "
+                             f"{svc.stats.as_dict()}")
+    print(f"compile service: a straggler escalated to one weighted "
+          f"recompile (weights {weights}), outputs == the unweighted ones "
+          f"bit for bit; health rebalanced={svc.health()['rebalanced']}")
+    return [row]
 
 
 def main(device: str = "cuda") -> int:
@@ -2606,6 +3061,10 @@ def main(device: str = "cuda") -> int:
     # -- repairs: K1's scans and rolls, K2 past head_dim 256 -----------------
     rows += repair_phase(torch, dev, card)
     rows += k2_wide_phase(torch, dev, card)
+
+    # -- master/worker (paper Fig. 1b) and the runtime -----------------------
+    master_worker_phase(torch, dev, card)
+    rows += runtime_phase(torch, dev, card)
 
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -442,9 +442,6 @@ def _validate_combination(program, options: Options, num) -> None:
             raise CompileError(
                 "Lowering.MASTER_WORKER needs >= 2 mesh ranks (rank 0 is "
                 f"the master); this mesh has {num}.")
-        raise CompileError(
-            "Lowering.MASTER_WORKER is not ported yet: use "
-            "Lowering.COLLECTIVE or Lowering.KERNEL")
 
     cw = options.chunk_weights
     if cw is not None:
@@ -483,16 +480,22 @@ def _validate_combination(program, options: Options, num) -> None:
 # ---------------------------------------------------------------------------
 
 
+def _lowering_str(options: Options) -> str:
+    return ("master_worker" if options.lowering is Lowering.MASTER_WORKER
+            else "collective")
+
+
 def _build_block(program, env_shapes, num, axis, options,
                  device) -> _Artifacts:
+    low = _lowering_str(options)
     shard_inputs = options.shard is ShardPolicy.SLICE
     nest, ctx = plan_mod.analyze_program(program, env_shapes, device)
     chunks_axes = plan_mod.plan_schedule(
-        program, nest, num, lowering="collective",
+        program, nest, num, lowering=low,
         paper_master_excluded=options.paper_master_excluded,
         schedule=options.schedule, weights=options.chunk_weights)
     plan = plan_mod.decide_strategies(
-        program, nest, ctx, chunks_axes, axis=axis, lowering="collective",
+        program, nest, ctx, chunks_axes, axis=axis, lowering=low,
         shard_inputs=shard_inputs)
     passes = (
         PassRecord("analyze",
@@ -598,9 +601,9 @@ def _build_region_fused(region, env_shapes, num, axis, options,
 
 def _build_region_staged(region, env_shapes, num, axis, options,
                          device) -> _Artifacts:
-    """Per-loop staging (COLLECTIVE on a region): each loop planned in
-    isolation, environment shapes threaded through the stages as the
-    staged executor will see them.
+    """Per-loop staging (COLLECTIVE / MASTER_WORKER on a region): each
+    loop planned in isolation, environment shapes threaded through the
+    stages as the staged executor will see them.
 
     Serial glue is shape-traced on the ``meta`` device to thread its
     output shapes.  The staged executor runs glue eagerly on concrete
@@ -609,6 +612,7 @@ def _build_region_staged(region, env_shapes, num, axis, options,
     deferred to run time instead of failing the compile."""
     from repro_torch.core import region as region_mod
 
+    low = _lowering_str(options)
     shard_inputs = options.shard is ShardPolicy.SLICE
     shapes = dict(env_shapes)
     analyses, schedules, plans = [], [], []
@@ -626,11 +630,11 @@ def _build_region_staged(region, env_shapes, num, axis, options,
             continue
         nest, ctx = plan_mod.analyze_program(stage, shapes, device)
         chunks_axes = plan_mod.plan_schedule(
-            stage, nest, num, lowering="collective",
+            stage, nest, num, lowering=low,
             paper_master_excluded=options.paper_master_excluded,
             schedule=options.schedule, weights=options.chunk_weights)
         p = plan_mod.decide_strategies(
-            stage, nest, ctx, chunks_axes, axis=axis, lowering="collective",
+            stage, nest, ctx, chunks_axes, axis=axis, lowering=low,
             shard_inputs=shard_inputs)
         analyses.append((stage.name, ctx))
         schedules.append((stage.name, chunks_axes))
@@ -687,6 +691,8 @@ def _make_executor(program, mesh, axis, options: Options, art: _Artifacts):
             comm_schedule=options.comm_schedule,
             schedule_override=options.schedule,
             stage_plans=None if fused else art.exe_plan,
+            lowering=_lowering_str(options),
+            paper_master_excluded=options.paper_master_excluded,
             use_kernel=options.lowering is Lowering.KERNEL,
             kernel_plan=kernel_plan,
             chunk_weights=options.chunk_weights)
@@ -700,6 +706,13 @@ def _make_executor(program, mesh, axis, options: Options, art: _Artifacts):
 # ---------------------------------------------------------------------------
 # The Compiled artifact
 # ---------------------------------------------------------------------------
+
+#: Fault-injection hook (:mod:`repro_torch.runtime.fault_injection`
+#: installs a callable here inside ``inject()``).  Called as
+#: ``hook("run")`` at every ``Compiled.run`` entry and ``hook("run_exit",
+#: out)`` on exit (the return value replaces ``out``: output corruption
+#: faults).  ``None`` in production: one check per call.
+_fault_hook = None
 
 
 @dataclasses.dataclass
@@ -724,9 +737,14 @@ class Compiled:
         raises."""
         from repro_torch.core import transform as tf
 
+        if _fault_hook is not None:
+            _fault_hook("run")
         env = tf.check_env(env, self.mesh.device)
         self._ensure(env)
-        return self._exe(env)
+        out = self._exe(env)
+        if _fault_hook is not None:
+            out = _fault_hook("run_exit", out)
+        return out
 
     __call__ = run
 

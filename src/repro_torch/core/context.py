@@ -155,13 +155,41 @@ def lane_body(program, rank: int):
 class _ZeroDimRoll(torch.overrides.TorchFunctionMode):
     """``torch.roll`` of a 0-d value is that value, as it is outside vmap
     and as ``jnp.roll`` of a 0-d array is; vmap's batching rule for it
-    rolls the value across the batch (the lanes) instead."""
+    rolls the value across the batch (the lanes) instead.
+
+    A gather through a per-lane index vector (an integer tensor index of
+    one or more dims) indexes as ``jnp`` does: a negative index wraps
+    once, then every index clamps into bounds (torch would raise).  A
+    lane's scalar index is left alone: its reads are classified, and
+    clamped where sliced, by Context Analysis (:class:`ClampedArray`)."""
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         if func in (torch.roll, torch.Tensor.roll) and args \
                 and isinstance(args[0], torch.Tensor) and args[0].dim() == 0:
             return args[0]
+        if func is torch.Tensor.__getitem__ and len(args) == 2:
+            args = (args[0], _clamped_index(args[0], args[1]))
         return func(*args, **(kwargs or {}))
+
+
+def _clamped_index(x: torch.Tensor, idx):
+    """``idx`` with each integer index vector wrapped once and clamped
+    into its axis of ``x`` (indices with ``None``/``...`` pass as they
+    are)."""
+    tup = idx if isinstance(idx, tuple) else (idx,)
+    if len(tup) > x.dim() or any(e is None or e is Ellipsis for e in tup):
+        return idx
+    out, hit = [], False
+    for d, e in enumerate(tup):
+        if (isinstance(e, torch.Tensor) and e.dim() >= 1
+                and not e.dtype.is_floating_point and e.dtype != torch.bool):
+            n = x.shape[d]
+            e = torch.clamp(torch.where(e < 0, e + n, e), 0, n - 1)
+            hit = True
+        out.append(e)
+    if not hit:
+        return idx
+    return tuple(out) if isinstance(idx, tuple) else out[0]
 
 
 def vmap_lanes(fn, rank: int, ivecs, env):

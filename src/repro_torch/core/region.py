@@ -443,6 +443,8 @@ class DistributedRegion:
     comm_schedule: str = "aggregate"    # schedule_comm mode
     schedule_override: pragma.Schedule | None = None
     stage_plans: tuple | None = None    # staged path: per-loop (name, plan)
+    lowering: str = "collective"        # staged path: or "master_worker"
+    paper_master_excluded: bool | None = None   # staged master/worker
     use_kernel: bool = False            # Lowering.KERNEL: span kernels
     kernel_plan: Any = None             # its KernelPlan
     chunk_weights: tuple | None = None  # straggler-weighted (staged only)
@@ -482,8 +484,9 @@ class DistributedRegion:
             else:
                 _, num = tf.resolve_axes(stage, self.mesh, self.axis)
                 plan = make_plan(
-                    stage, out, num, axis=self.axis, lowering="collective",
+                    stage, out, num, axis=self.axis, lowering=self.lowering,
                     shard_inputs=self.shard_inputs,
+                    paper_master_excluded=self.paper_master_excluded,
                     schedule=self.schedule_override,
                     weights=self.chunk_weights, device=device)
             out = tf.DistributedProgram(
@@ -553,6 +556,7 @@ def _reduction_identity(plan, key, device):
 
 
 def _execute_region(dr: DistributedRegion, env: dict) -> dict:
+    tf._maybe_fault("region")
     rp = dr.plan
     mesh, axis = dr.mesh, rp.axis
     device = mesh.device
@@ -741,6 +745,7 @@ def _execute_region2(dr: DistributedRegion, env: dict) -> dict:
     """Fused execution of a rank-2 region over the 2-D mesh: slabs stay
     resident as ``(n_i, P_i, c_i, n_j, P_j, c_j, *rest)`` stacks, halo
     boundaries run as row+column ``ppermute`` rings."""
+    tf._maybe_fault("region2")
     rp = dr.plan
     mesh = dr.mesh
     device = mesh.device

@@ -23,10 +23,10 @@ whole master/worker exchange of the paper becomes layout, not messages.
 from __future__ import annotations
 
 import dataclasses
-import math
 
 from repro_torch.core import pragma
 from repro_torch.core.loop import LoopInfo
+from repro_torch.runtime.straggler import rebalance_chunks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -187,63 +187,3 @@ def make_chunk_plan(
         slot_map=tuple(slot_map),
         weights=w,
     )
-
-
-# Copy of repro.runtime.straggler.rebalance_chunks (the weighted deal above
-# needs it; the runtime package is ported in a later slice).
-def rebalance_chunks(num_chunks: int, weights: list[float]) -> list[int]:
-    """Deal ``num_chunks`` cyclic chunks proportionally to per-device
-    speed ``weights`` (higher = faster = more chunks).  Returns the
-    device owner of each chunk — the straggler-aware replacement for
-    ``chunk j -> device j % P``.
-
-    Quotas are assigned by largest-remainder apportionment, which
-    always sums exactly to ``num_chunks`` and so terminates for every
-    input — including ``num_chunks < len(weights)``, where the slowest
-    devices simply receive zero chunks.  When there are at least as
-    many chunks as devices, every device receives at least one chunk
-    (SPMD lock-step means an idle device still pays for the step; a
-    zero quota would only waste its slot).
-    """
-    if num_chunks < 1:
-        raise ValueError(f"num_chunks must be >= 1, got {num_chunks}")
-    p = len(weights)
-    if p == 0:
-        raise ValueError("weights must be non-empty")
-    for w in weights:
-        if not math.isfinite(w) or w <= 0:
-            raise ValueError(
-                f"weights must be finite and > 0, got {list(weights)}")
-    total = float(sum(weights))
-    ideal = [num_chunks * w / total for w in weights]
-    quota = [int(f) for f in (math.floor(x) for x in ideal)]
-    if num_chunks >= p:
-        quota = [max(1, q) for q in quota]
-    # Largest-remainder repair: hand out (or claw back) the rounding
-    # drift one chunk at a time, fastest-first, never below the floor.
-    floor = 1 if num_chunks >= p else 0
-    drift = num_chunks - sum(quota)
-    order = sorted(range(p), key=lambda i: (-(ideal[i] - quota[i]), i))
-    i = 0
-    while drift > 0:
-        quota[order[i % p]] += 1
-        drift -= 1
-        i += 1
-    order = sorted(range(p), key=lambda i: (ideal[i] - quota[i], i))
-    i = 0
-    while drift < 0:
-        d = order[i % p]
-        if quota[d] > floor:
-            quota[d] -= 1
-            drift += 1
-        i += 1
-    owners: list[int] = []
-    remaining = quota[:]
-    dev = 0
-    for _ in range(num_chunks):
-        while remaining[dev % p] == 0:
-            dev += 1
-        owners.append(dev % p)
-        remaining[dev % p] -= 1
-        dev += 1
-    return owners

@@ -18,7 +18,10 @@ counterpart of :mod:`repro.core.transform`.
     (:func:`~repro_torch.core.comm_schedule.fused_collectives`), and the
     chunk-cyclic slabs reassemble to the shared-memory layout.
 
-The master/worker lowering waits for a later slice of the port.
+  Under ``Lowering.MASTER_WORKER`` (paper Fig. 1b) every transfer is a
+  point-to-point send through rank 0 instead
+  (:func:`_execute_master_worker`), and each rank computes from the
+  copies it received.
 """
 from __future__ import annotations
 
@@ -194,6 +197,16 @@ def resolve_axes(program_or_rank, mesh, axis):
 # Execution
 # ---------------------------------------------------------------------------
 
+#: Fault-injection hook (:mod:`repro_torch.runtime.fault_injection`
+#: installs a callable here inside ``inject()``); called with a site name
+#: at the entry of each chunk-cyclic executor.  ``None`` in production.
+_fault_hook = None
+
+
+def _maybe_fault(site: str) -> None:
+    if _fault_hook is not None:
+        _fault_hook(site)
+
 
 def _execute(dp: DistributedProgram, env: dict) -> dict:
     plan = dp.plan
@@ -210,6 +223,8 @@ def _execute(dp: DistributedProgram, env: dict) -> dict:
         return out
     if plan.rank == 2:
         return _execute_collective2(dp, env)
+    if plan.lowering == "master_worker":
+        return _execute_master_worker(dp, env)
     return _execute_collective(dp, env)
 
 
@@ -237,7 +252,8 @@ def _env_sub(plan, env_in, wins, offs, device):
     return env_sub
 
 
-def lane_values(plan, program, env_in, slab_stacks, device) -> dict:
+def lane_values(plan, program, env_in, slab_stacks, device, *,
+                ranks=None, env_rank=None) -> dict:
     """Dense per-lane body values of every rank's chunks, in the global
     slab layout ``(n_loc, P, c, *value_shape)`` (rank 1) — the plain
     PyTorch evaluation that the span kernel computes in one launch.
@@ -246,28 +262,35 @@ def lane_values(plan, program, env_in, slab_stacks, device) -> dict:
     windows; ``env_in`` the replicated ones.  vmap runs over ranks
     (dim 1), then over local chunks (skipped when each rank has one:
     the static fast path), then over lanes.
+
+    Master/worker: mesh rank ``d`` computes the chunks of compute rank
+    ``ranks[d]`` (``P`` mesh ranks in dim 1), and ``env_rank`` holds the
+    replicated inputs as every rank's own received copy ``(P, *shape)``.
     """
     ch, loop = plan.chunks, plan.loop
     js, ivec = _lane_iterations(ch, loop, device)
+    if ranks is not None:
+        js, ivec = js.index_select(1, ranks), ivec.index_select(1, ranks)
     offs = {k: (js * ch.chunk + plan.vars[k].window()[0]).to(torch.int32)
             for k in slab_stacks}
     fn = lane_body(program, 1)
     keys = plan.written_keys
 
-    def chunk(iv, wins, off):
-        env_sub = _env_sub(plan, env_in, wins,
+    def chunk(iv, wins, off, env_r):
+        env_sub = _env_sub(plan, {**env_in, **env_r}, wins,
                            {k: (o,) for k, o in off.items()}, device)
         upd = vmap_lanes(fn, 1, (iv,), env_sub)
         return {k: upd[k].value for k in keys}
 
-    def rank(iv, wins, off):
+    def rank(iv, wins, off, env_r):
         if ch.local_chunks == 1:
             got = chunk(iv[0], {k: w[0] for k, w in wins.items()},
-                        {k: o[0] for k, o in off.items()})
+                        {k: o[0] for k, o in off.items()}, env_r)
             return {k: v[None] for k, v in got.items()}
-        return vmap(chunk)(iv, wins, off)
+        return vmap(chunk, in_dims=(0, 0, 0, None))(iv, wins, off, env_r)
 
-    return vmap(rank, in_dims=1, out_dims=1)(ivec, dict(slab_stacks), offs)
+    return vmap(rank, in_dims=(1, 1, 1, 0), out_dims=1)(
+        ivec, dict(slab_stacks), offs, dict(env_rank or {}))
 
 
 def lane_values2(plan, program, env_in, slab_stacks, device) -> dict:
@@ -365,6 +388,7 @@ def _combine(mesh, entries, axis, aggregate: bool):
 
 
 def _execute_collective(dp: DistributedProgram, env: dict) -> dict:
+    _maybe_fault("collective")
     plan, mesh = dp.plan, dp.mesh
     axis, ch = plan.axis, plan.chunks
     t = plan.loop.trip_count
@@ -428,6 +452,7 @@ def _execute_collective(dp: DistributedProgram, env: dict) -> dict:
 
 
 def _execute_collective2(dp: DistributedProgram, env: dict) -> dict:
+    _maybe_fault("collective2")
     plan, mesh = dp.plan, dp.mesh
     axes = tuple(plan.axes_names)
     chs = plan.chunks_axes
@@ -457,6 +482,125 @@ def _execute_collective2(dp: DistributedProgram, env: dict) -> dict:
         elif dec.out_strategy == "reduce":
             rop = red_mod.get_reduction(dec.reduction_op)
             val = combined[key]
+            if key in env:
+                val = rop.pairwise(env[key], val)
+            result[key] = val
+    return result
+
+
+# ---------------------------------------------------------------------------
+# Master/worker lowering (paper Fig. 1b, the paper-faithful baseline)
+# ---------------------------------------------------------------------------
+
+
+def _mw_send(mesh, x, src, dst, d, current, axis):
+    """Point-to-point send: rank ``dst`` receives ``x`` from ``src``, every
+    other rank keeps ``current`` (both per-rank, ``(P, ...)``)."""
+    msg = mesh.ppermute(x, axis, [(src, dst)])
+    sel = (d == dst).reshape((-1,) + (1,) * (x.dim() - 1))
+    return torch.where(sel, msg, current)
+
+
+def _broadcast(mesh, x, first, d, axis):
+    """Master -> every worker, one send each (rank 0 never to itself)."""
+    for dst in range(max(first, 1), mesh.shape[axis]):
+        x = _mw_send(mesh, x, 0, dst, d, x, axis)
+    return x
+
+
+def _execute_master_worker(dp: DistributedProgram, env: dict) -> dict:
+    """The reference's ``_execute_master_worker`` on the stacked mesh.
+
+    With ``paper_master_excluded`` the plan deals the chunks to ``w =
+    P - 1`` compute ranks and rank 0 recomputes worker 0's chunks (its
+    result is never used), as in the reference.  Every send is one
+    :meth:`Mesh.ppermute` with one ``(src, dst)`` pair, in the
+    reference's order."""
+    plan, program, mesh = dp.plan, dp.program, dp.mesh
+    axis, ch = plan.axis, plan.chunks
+    device = mesh.device
+    p_total = mesh.shape[axis]
+    w = ch.num_devices
+    t = plan.loop.trip_count
+    first = p_total - w          # 1 when the master is excluded, else 0
+    d = mesh.axis_index(axis)
+    wd = (d.long() - first).clamp(0, w - 1)
+
+    # master -> worker sends of every IN buffer; each rank computes from
+    # the copy it received
+    received = {}
+    for key in plan.context.env_keys:
+        if plan.vars[key].in_strategy == "replicate":
+            x = env[key].expand((p_total,) + tuple(env[key].shape))
+            received[key] = _broadcast(mesh, x, first, d, axis)
+    values = lane_values(plan, program, {}, {}, device, ranks=wd,
+                         env_rank=received)
+    carry, _ = kl.merge_chunk_values(
+        plan, {k: v[:, first:] for k, v in values.items()})
+
+    def pad(x, fill=0):
+        """Compute-rank partials ``(w, ...)`` -> mesh ranks ``(P, ...)``,
+        the excluded master's slot ``fill``."""
+        if not first:
+            return x
+        return torch.cat([torch.full_like(x[:1], fill), x])
+
+    result = dict(env)
+    for key, dec in plan.vars.items():
+        info = plan.context.vars[key]
+        rest = tuple(info.shape[1:])
+        if dec.out_strategy in ("identity", "partial"):
+            # workers -> master sends of each slab stack, the master
+            # assembles the padded buffer, then re-broadcasts it
+            stack = values[key].transpose(0, 1)     # (P, n_loc, c, *rest)
+            full = torch.zeros((p_total, ch.padded_trip) + rest,
+                               dtype=info.dtype, device=device)
+            lanes = torch.arange(ch.chunk, device=device)
+            locs = torch.arange(ch.local_chunks, device=device)[:, None]
+            for src_w in range(w):
+                src = src_w + first
+                got = (stack if src == 0
+                       else mesh.ppermute(stack, axis, [(src, 0)]))
+                # the padded rows of src_w's chunks: chunk q * w + src_w
+                rows = ((locs * w + src_w) * ch.chunk + lanes).reshape(-1)
+                full[0].index_copy_(0, rows, got[0].reshape(
+                    (-1,) + rest).to(info.dtype))
+            flat = _broadcast(mesh, full, first, d, axis)[0][:t]
+            if dec.out_strategy == "identity":
+                result[key] = flat.to(env[key].dtype)
+            else:
+                b = dec.write_map.b
+                result[key] = env[key].clone()
+                result[key][b:b + t] = flat.to(env[key].dtype)
+        elif dec.out_strategy == "scatter":
+            # the excluded master's duplicate of worker 0's chunks is
+            # zeroed before the combine
+            buf, mask = carry[key]
+            summed = mesh.psum(pad(buf), axis)
+            hits = mesh.psum(pad(mask.to(torch.int32)), axis)
+            vmask = (hits > 0).reshape((-1,) + (1,) * (summed.dim() - 1))
+            result[key] = torch.where(vmask, summed.to(env[key].dtype),
+                                      env[key])
+        elif dec.out_strategy == "put":
+            owner = ((t - 1) // ch.chunk) % w + first
+            val = pad(carry[key])
+            if owner != 0:
+                val = _mw_send(mesh, val, owner, 0, d, val, axis)
+            result[key] = _broadcast(mesh, val, first, d, axis)[0]
+        elif dec.out_strategy == "reduce":
+            # Table 3: workers send partials; the master folds them in
+            # rank order into the identity-initialised accumulator
+            rop = red_mod.get_reduction(dec.reduction_op)
+            part = pad(carry[key])
+            acc = torch.full_like(part, red_mod.identity_value(
+                rop, part.dtype))
+            master = (d == 0).reshape((-1,) + (1,) * (part.dim() - 1))
+            for src_w in range(w):
+                src = src_w + first
+                got = (part if src == 0
+                       else mesh.ppermute(part, axis, [(src, 0)]))
+                acc = torch.where(master, rop.pairwise(acc, got), acc)
+            val = _broadcast(mesh, acc, first, d, axis)[0]
             if key in env:
                 val = rop.pairwise(env[key], val)
             result[key] = val

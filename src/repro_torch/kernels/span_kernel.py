@@ -206,6 +206,10 @@ _VIEWS = ctx_mod.VIEW_OPS | {aten.squeeze_.dims, aten.squeeze_.dim,
 _MEM_VIEWS = (aten.t.default, aten.permute.default, aten.transpose.int)
 
 
+#: A scan along a per-lane value axis: Triton's scan, the identity a
+#: masked position holds, and how two partial results combine.
+_SCAN_OPS = {"sum": ("tl.cumsum", "0", "+"), "prod": ("tl.cumprod", "1", "*")}
+
 _TL = {
     torch.float32: "tl.float32", torch.float16: "tl.float16",
     torch.bfloat16: "tl.bfloat16", torch.float64: "tl.float64",
@@ -325,6 +329,14 @@ def _flat(lines: list) -> list[str]:
     """Generated lines in order, the lists placed before loops opened."""
     return [x for item in lines
             for x in (_flat(item) if isinstance(item, list) else (item,))]
+
+
+def _nan_arg(dtype) -> str:
+    """``tl.maximum``/``tl.minimum``'s NaN rule for ``dtype``: a float NaN
+    comes out as NaN, as in ``torch.clamp``/``torch.maximum`` and
+    ``jnp.clip`` (Triton's default returns the other operand)."""
+    return (", propagate_nan=tl.PropagateNan.ALL"
+            if dtype.is_floating_point else "")
 
 
 def _lit(v, dtype) -> str:
@@ -468,9 +480,13 @@ class _Gen:
         self.full_scopes: dict[int, _Scope] = {}
         self.ptrs: dict[tuple, str] = {}
         self.inputs: list = []
-        self.fwd_vals: dict[str, tuple[_Val | None, tuple]] = {}
+        # key -> (register tile or None, write bases, where its rows were
+        # stored when tile by tile: (pointer, row base, k, type))
+        self.fwd_vals: dict[str, tuple] = {}
         self.fwd_reads: list = []
         self.iter_vecs: dict[tuple, str] = {}
+        self.libdevice = False      # the body calls CUDA's libdevice
+        self.barriers: set = set()  # stages that re-load stored rows
         chs = plan0.chunks_axes
         chunks = tuple(ch.chunk for ch in chs)
         self.stage_roles = [_roles(ta, tb, plan.name)
@@ -735,7 +751,7 @@ class _Gen:
         info = plan.context.vars[key]
         idx_by_dim = {d: (indices[p] if p < len(indices) else None)
                       for p, d in enumerate(mem.remaining)}
-        parts, lane, whole, index = {}, False, [], {}
+        parts, lane, whole, index, gather = {}, False, [], {}, {}
         for d, size in enumerate(mem.shape):
             if d in mem.fixed:
                 continue
@@ -758,12 +774,18 @@ class _Gen:
                     f"span kernel: env[{key!r}] indexed by a {v.dtype} value "
                     f"in {plan.name!r}")
             lane |= v.lane
-            parts[d] = index[d] = v
+            if v.k is not None:         # a per-lane index vector: a gather
+                gather[d] = v
+                parts[d] = f"@G{d}@"
+            else:
+                parts[d] = index[d] = v
         if len(whole) > 1:
             raise CompileError(
                 f"span kernel: env[{key!r}] read with two whole axes in "
                 f"{plan.name!r} outside a matrix product; the template holds "
                 "one value axis per lane")
+        if gather:
+            return self._gather(mem, parts, gather, whole, lane)
         p, off = self._address(mem, parts)
         if not whole:
             return self.emit(f"tl.load({p} + {off})", info.dtype, lane, None)
@@ -775,6 +797,55 @@ class _Gen:
                              info.dtype, lane, k).expr
         return _Val(dtype=info.dtype, lane=lane, k=k, lazy=emit_in,
                     src=(mem, index, whole[0]))
+
+    def _gather(self, mem: _Mem, parts: dict, gather: dict, whole: list,
+                lane: bool) -> _Val:
+        """``x[idx]`` for a per-lane index vector ``idx`` into a replicated
+        array: a load at computed offsets, per tile of the index's value
+        axis.  An index wraps once if negative, then clamps into bounds,
+        as the reference's indexing does (and the plain path's
+        ``ClampedArray``)."""
+        plan, key = self.plan, mem.key
+        where = (f"span kernel: env[{key!r}] gathered through a per-lane "
+                 f"index vector in {plan.name!r}")
+        if plan.vars[key].in_strategy in ("shard", "shard_halo"):
+            raise CompileError(f"{where} is a chunk-sharded window; the "
+                               "template gathers from replicated arrays")
+        if whole or len({v.k for v in gather.values()}) > 1:
+            raise CompileError(f"{where} makes more than one value axis; "
+                               "the template holds one per lane")
+        k = next(iter(gather.values())).k
+        p, off = self._address(mem, parts)
+        dt = plan.context.vars[key].dtype
+
+        def emit_in(scope):
+            o = off
+            for d, v in gather.items():
+                e = self.tile(v, scope)
+                size = mem.shape[d]
+                ix = self.emit(
+                    f"tl.minimum(tl.maximum(tl.where({e} < 0, {e} + {size}, "
+                    f"{e}), 0), {size - 1})", v.dtype, v.lane, k).expr
+                o = o.replace(f"@G{d}@", ix)
+            return self.emit(f"tl.load({p} + {o}, mask={scope.m}, other=0)",
+                             dt, lane, k).expr
+        return _Val(dtype=dt, lane=lane, k=k, lazy=emit_in,
+                    loop=any(v.loop for v in gather.values()))
+
+    def _reload(self, out_ptr: str, base: str, k: int, dt) -> _Val:
+        """The lane's own row of a key an earlier span stage stored tile by
+        tile, loaded back from where that stage stored it, after a
+        block-wide barrier: the same program wrote exactly those
+        addresses, so nothing outside the program is waited on."""
+        if self.si not in self.barriers:
+            self.barriers.add(self.si)
+            self._line("tl.debug_barrier()")
+
+        def emit_in(scope):
+            return self.emit(f"tl.load({out_ptr} + {base} * {k} + {scope.r}, "
+                             f"mask=lmask & {scope.m}, other=0)", dt, True,
+                             k).expr
+        return _Val(dtype=dt, lane=True, k=k, lazy=emit_in)
 
     def _forwarded(self, mem: _Mem, indices: list) -> _Val:
         """A read of a key an earlier span stage wrote for the same
@@ -795,10 +866,11 @@ class _Gen:
                                "chunk-sharded read")
         idx_by_dim = {d: (indices[p] if p < len(indices) else None)
                       for p, d in enumerate(mem.remaining)}
-        fv, bases = self.fwd_vals[key]
-        if fv is None:
-            raise CompileError(f"{where}, stored tile by tile: no one "
-                               "register tile holds it")
+        fv, bases, stored = self.fwd_vals[key]
+        if fv is None and stored is None:
+            raise CompileError(f"{where}, stored tile by tile by the "
+                               "programs of the grid's value axis: no one "
+                               "program holds the row")
         for d in range(n_sh):
             ix = idx_by_dim.get(d)
             v = self.value(ix) if isinstance(ix, torch.fx.Node) else None
@@ -814,6 +886,8 @@ class _Gen:
                     "(offset 0 after the window base), so the tile cannot "
                     "be forwarded")
         self.fwd_reads.append((self.si, key))
+        if fv is None:                      # stored tile by tile: re-load
+            fv = self._reload(*stored)
         rest = [d for d in range(n_sh, len(mem.shape)) if mem.shape[d] != 1]
         if not rest:
             return fv
@@ -832,6 +906,9 @@ class _Gen:
                 raise CompileError(f"{where} at a per-lane value index")
             pos = int(c.const)
         pos = pos + fv.k if pos < 0 else pos
+        if stored is not None:
+            return _Val(self.tile(fv, _Scope(fv.k, str(pos), "True", 1)),
+                        fv.dtype, lane=True)
         sc = self.full_scope(fv.k)
         return self.emit(f"tl.sum(tl.where({sc.r} == {pos}, {fv.expr}, 0), "
                          "axis=1)[:, None]", fv.dtype, True, None)
@@ -871,8 +948,26 @@ class _Gen:
             for name, sym in (("lt", "<"), ("le", "<="), ("gt", ">"),
                               ("ge", ">="), ("eq", "=="), ("ne", "!="))
             for ov in ("Tensor", "Scalar")}
+    #: Pointwise math in float32 (float64 kept), the result cast back:
+    #: Triton's own functions, and CUDA's libdevice where Triton has none.
     _MATH = {aten.exp.default: "tl.exp", aten.log.default: "tl.log",
-             aten.sqrt.default: "tl.sqrt"}
+             aten.sqrt.default: "tl.sqrt", aten.sin.default: "tl.sin",
+             aten.cos.default: "tl.cos", aten.rsqrt.default: "tl.rsqrt",
+             aten.erf.default: "tl.erf", aten.sigmoid.default: "tl.sigmoid",
+             aten.tan.default: "libdevice.tan",
+             aten.tanh.default: "libdevice.tanh",
+             aten.log1p.default: "libdevice.log1p",
+             aten.expm1.default: "libdevice.expm1"}
+    #: Rounding: the identity on integers (``round`` is half to even).
+    _ROUND = {aten.floor.default: "tl.floor", aten.ceil.default: "tl.ceil",
+              aten.round.default: "libdevice.rint"}
+    _CLAMP = {aten.clamp.default: (1, 2), aten.clamp.Tensor: (1, 2),
+              aten.clamp_min.default: (1, None),
+              aten.clamp_min.Tensor: (1, None),
+              aten.clamp_max.default: (None, 1),
+              aten.clamp_max.Tensor: (None, 1)}
+    _POW = (aten.pow.Tensor_Scalar, aten.pow.Tensor_Tensor, aten.pow.Scalar)
+    _SORT = (aten.sort.default, aten.sort.stable)
     _REDUCE = {aten.sum.dim_IntList: "sum", aten.sum.default: "sum",
                aten.mean.dim: "mean", aten.mean.default: "mean",
                aten.amax.default: "max", aten.amin.default: "min"}
@@ -940,6 +1035,18 @@ class _Gen:
         if t is aten.roll.default:
             self.vals[n] = self._roll(n)
             return
+        if t in self._SORT:
+            self.vals[n] = (self._sort(n), None)
+            return
+        if t is operator.getitem and isinstance(self.vals[args[0]], tuple):
+            got = self.vals[args[0]][args[1]]
+            if got is None:
+                raise CompileError(
+                    f"span kernel: aten.sort's indices in {self.plan.name!r} "
+                    "are not supported by the Triton template (its sorted "
+                    "values are)")
+            self.vals[n] = got
+            return
         od = n.meta["val"].dtype
         lane, k = self._form(n)
         if t in self._BIN:
@@ -962,8 +1069,10 @@ class _Gen:
         elif t in (aten.maximum.default, aten.minimum.default):
             a, b = self.value(args[0]), self.value(args[1])
             fn = "tl.maximum" if t is aten.maximum.default else "tl.minimum"
-            self.vals[n] = self.pointwise(lambda x, y: f"{fn}({x}, {y})",
-                                          [(a, od), (b, od)], od, lane, k)
+            nan = _nan_arg(od)
+            self.vals[n] = self.pointwise(
+                lambda x, y: f"{fn}({x}, {y}{nan})",
+                [(a, od), (b, od)], od, lane, k)
         elif t in (aten.where.self, aten.where.ScalarSelf,
                    aten.where.ScalarOther, aten.where.Scalar):
             c, a, b = (self.value(x) for x in args[:3])
@@ -993,13 +1102,48 @@ class _Gen:
             self.vals[n] = self.pointwise(lambda e: f"(1.0 / {e})",
                                           [(self.value(args[0]), od)], od,
                                           lane, k)
-        elif t in self._MATH:
-            fn = self._MATH[t]
+        elif t in self._MATH or (t in self._ROUND
+                                 and od.is_floating_point):
+            fn = self._MATH.get(t) or self._ROUND[t]
+            self.libdevice |= fn.startswith("libdevice.")
             wd = od if od in (torch.float32, torch.float64) else torch.float32
             tail = "" if wd == od else f".to({_TL[od]})"
             self.vals[n] = self.pointwise(lambda e: f"{fn}({e}){tail}",
                                           [(self.value(args[0]), wd)], od,
                                           lane, k)
+        elif t in self._ROUND:          # an integer rounds to itself
+            self.vals[n] = self.pointwise(lambda e: e,
+                                          [(self.value(args[0]), od)], od,
+                                          lane, k, 0)
+        elif t in self._POW:
+            self.vals[n] = self._pow(n, od, lane, k)
+        elif t is aten.sign.default:
+            one, zero = ("1.0", "0.0") if od.is_floating_point else ("1", "0")
+            x = self.value(args[0])
+            # zero (and NaN) keep their own value, as torch.sign does
+            keep = "{e}" if od.is_floating_point else zero
+            self.vals[n] = self.pointwise(
+                lambda e: (f"tl.where({e} > 0, {one}, tl.where({e} < 0, "
+                           f"-{one}, {keep.format(e=e)}))"),
+                [(x, od)], od, lane, k, 2)
+        elif t in self._CLAMP:
+            lo_at, hi_at = self._CLAMP[t]
+            bounds = [self.value(args[i]) if i is not None and i < len(args)
+                      and args[i] is not None else None
+                      for i in (lo_at, hi_at)]
+            x = self.value(args[0])
+            lo, hi = bounds
+            vals = [(x, od)] + [(b, od) for b in bounds if b is not None]
+            nan = _nan_arg(od)
+
+            def clamp(e, *bs, lo=lo, hi=hi):
+                bs = list(bs)
+                if lo is not None:
+                    e = f"tl.maximum({e}, {bs.pop(0)}{nan})"
+                if hi is not None:
+                    e = f"tl.minimum({e}, {bs.pop(0)}{nan})"
+                return e
+            self.vals[n] = self.pointwise(clamp, vals, od, lane, k, 2)
         elif t is aten._to_copy.default:
             x = self.value(args[0])
             if x.const is not None and not x.lane:
@@ -1038,14 +1182,83 @@ class _Gen:
                                         self.value(args[0]), od, lane)
         elif t is aten.cumsum.default:
             self.vals[n] = self._cumsum(n, self.value(args[0]), od)
+        elif t is aten.cumprod.default:
+            self.vals[n] = self._cumsum(n, self.value(args[0]), od, "prod")
         else:
             raise CompileError(
                 f"span kernel: aten op {t} in the body of {self.plan.name!r} "
                 "is not supported by the Triton template (supported: "
-                "pointwise arithmetic, comparisons, where, exp/log/sqrt/abs, "
-                "affine env reads, sum/mean/amax/amin, cumsum and roll along "
-                "a value axis, mm/mv of a per-lane row and a replicated "
-                "array)")
+                "pointwise arithmetic and math, comparisons, where, clamp, "
+                "affine env reads and gathers from replicated arrays, "
+                "sum/mean/amax/amin, cumsum, cumprod and roll along a value "
+                "axis, the values of a sort of a row that fits one register "
+                "tile, mm/mv of a per-lane row and a replicated array)")
+
+    def _pow(self, n, od, lane, k) -> _Val:
+        """``pow`` with a tensor or a scalar exponent (or base): a square
+        is one multiply, anything else CUDA's ``pow`` in float32."""
+        t, args = n.target, n.args
+        if not od.is_floating_point:
+            raise CompileError(
+                f"span kernel: {t} of integers in {self.plan.name!r} is not "
+                "supported by the Triton template (floating pow is)")
+        wd = od if od == torch.float64 else torch.float32
+        tail = "" if wd == od else f".to({_TL[od]})"
+        if t is aten.pow.Tensor_Scalar and args[1] == 2:
+            return self.pointwise(lambda e: f"({e} * {e})",
+                                  [(self.value(args[0]), od)], od, lane, k)
+        self.libdevice = True
+
+        def operand(a):
+            if isinstance(a, torch.fx.Node):
+                return self.value(a), wd
+            # a scalar operand as a [1, 1] tile: libdevice takes tensors
+            return _Val(const=a, dtype=wd), wd
+        vals = [operand(a) for a in args[:2]]
+        full = [isinstance(a, torch.fx.Node) for a in args[:2]]
+
+        def fmt(a, b):
+            a, b = (e if f else f"tl.full([1, 1], {e}, {_TL[wd]})"
+                    for e, f in zip((a, b), full))
+            return f"libdevice.pow({a}, {b}){tail}"
+        return self.pointwise(fmt, vals, od, lane, k, 4)
+
+    def _sort(self, n) -> _Val:
+        """The values of ``sort(x)`` along a per-lane value axis that fits
+        one register tile: ``tl.sort`` of the row padded to a power of two
+        with +inf (-inf descending), so the padding sorts last.  A row
+        longer than one register tile, or a sort across lanes, raises."""
+        args = n.args
+        roles = self.roles[args[0]]
+        dim = args[1] if len(args) > 1 else n.kwargs.get("dim", -1)
+        desc = bool(args[2] if len(args) > 2
+                    else n.kwargs.get("descending", False))
+        dim = dim % len(roles) if roles else 0
+        where = f"span kernel: aten.sort in {self.plan.name!r}"
+        if roles and roles[dim] == "lane":
+            raise CompileError(f"{where} sorts across lanes; the template "
+                               "sorts a per-lane value axis only")
+        x = self.value(args[0])
+        if x.k is None or not roles or roles[dim] != "v":
+            return x                        # a sort of one element
+        k, od = x.k, x.dtype
+        if not self.fits(k):
+            raise CompileError(
+                f"{where} sorts a row of {k} elements, longer than one "
+                "register tile; the template sorts a row held whole")
+        sc = self.full_scope(k)
+        if od.is_floating_point:
+            pad = '-float("inf")' if desc else 'float("inf")'
+        else:
+            info = torch.iinfo(od)
+            pad = str(info.min if desc else info.max)
+        e = self.emit(f"tl.where({sc.m}, {self.tile(x, sc)}, {pad})", od,
+                      x.lane, k).expr
+        self.flops += k * max(1, sc.bt.bit_length() - 1)
+        v = self.emit(f"tl.sort({e}, dim=1, descending={desc})", od, x.lane,
+                      k)
+        v.scope = sc
+        return v
 
     def _roll(self, n) -> _Val:
         """``roll(x, s)`` along a per-lane value axis of length ``k``:
@@ -1103,17 +1316,19 @@ class _Gen:
         return rolled
 
     def _rolled_scan(self, c: _Val, shift: int) -> _Val:
-        """``roll(cumsum(x), s)`` along a value axis of length ``k``, in
-        linear time.  Position ``r`` holds the scan at ``p = (r - s) mod
-        k``: for ``r >= s`` the sum of ``x`` at the rolled positions
-        ``s..r``, for ``r < s`` the sum ``P`` of ``x`` before position ``k
-        - s`` plus ``x`` at the rolled positions ``0..r``.  So a scope
+        """``roll(scan(x), s)`` along a value axis of length ``k``, in
+        linear time (``scan``: a cumsum or a cumprod).  Position ``r``
+        holds the scan at ``p = (r - s) mod k``: for ``r >= s`` the scan
+        of ``x`` at the rolled positions ``s..r``, for ``r < s`` the
+        aggregate ``P`` of ``x`` before position ``k - s`` combined with
+        the scan of ``x`` at the rolled positions ``0..r``.  So a scope
         whose tiles run in order from 0 scans the rolled row as two
         segments, each carried from tile to tile, the second from ``P``
         (a pass emitted before the scope's loop); the grid's value tile
         scans its own positions (:meth:`_tile_scan`); one position takes
         the scan's own value there."""
-        x, at = c.scan
+        x, at, op = c.scan
+        scan, ident, comb = _SCAN_OPS[op]
         k, od = c.k, c.dtype
         rows = self.block if x.lane else 1
         self.flops += k
@@ -1121,63 +1336,83 @@ class _Gen:
         def emit_in(scope):
             rolled = self._rolled(scope, shift)
             if scope is self.grid_scope:
-                return self._tile_scan(x, at, od, scope, shift)
+                return self._tile_scan(x, at, od, scope, shift, op)
             if not scope.seq:
                 return self.tile(c, rolled)
             bound = [str(k - shift)]
             if scope.pre is None:           # the whole axis in one tile
-                pv, = self._sums_before(x, at, bound)
+                pv, = self._sums_before(x, at, bound, op)
             else:
                 pv, = self._before_loop(
-                    scope, lambda: self._sums_before(x, at, bound))
+                    scope, lambda: self._sums_before(x, at, bound, op))
             xr = self.cast(x, at, rolled)
             hi = f"({scope.r} >= {shift})"
-            e_hi = self.emit(f"tl.where({scope.m} & {hi}, {xr}, 0)", at,
-                             x.lane, k).expr
+            e_hi = self.emit(f"tl.where({scope.m} & {hi}, {xr}, {ident})",
+                             at, x.lane, k).expr
             e_lo = self.emit(f"tl.where({scope.m} & ({scope.r} < {shift}), "
-                             f"{xr}, 0)", at, x.lane, k).expr
-            cs_hi = self.emit(f"tl.cumsum({e_hi}, axis=1)", at, x.lane,
+                             f"{xr}, {ident})", at, x.lane, k).expr
+            cs_hi = self.emit(f"{scan}({e_hi}, axis=1)", at, x.lane,
                               k).expr
-            cs_lo = self.emit(f"tl.cumsum({e_lo}, axis=1)", at, x.lane,
+            cs_lo = self.emit(f"{scan}({e_lo}, axis=1)", at, x.lane,
                               k).expr
             if scope.pre is None:
-                out = f"tl.where({hi}, {cs_hi}, {cs_lo} + {pv})"
+                out = f"tl.where({hi}, {cs_hi}, {cs_lo} {comb} {pv})"
             else:
                 c_hi, c_lo = f"c{self.n}", f"c{self.n + 1}"
                 self.n += 2
                 pre, ind = scope.pre
-                pre.append(f"{ind}{c_hi} = tl.zeros([{rows}, 1], "
-                           f"{_TL[at]})")
+                pre.append(f"{ind}{c_hi} = {self._filled(op, rows, at)}")
                 pre.append(f"{ind}{c_lo} = {pv}")
-                out = f"tl.where({hi}, {cs_hi} + {c_hi}, {cs_lo} + {c_lo})"
+                out = (f"tl.where({hi}, {cs_hi} {comb} {c_hi}, "
+                       f"{cs_lo} {comb} {c_lo})")
             v = self.emit(out if at == od else f"({out}).to({_TL[od]})", od,
                           x.lane, k).expr
             if scope.pre is not None:
-                self._line(f"{c_hi} = {c_hi} + tl.sum({e_hi}, axis=1)"
-                           "[:, None]")
-                self._line(f"{c_lo} = {c_lo} + tl.sum({e_lo}, axis=1)"
-                           "[:, None]")
+                for cv, e, cs in ((c_hi, e_hi, cs_hi), (c_lo, e_lo, cs_lo)):
+                    self._line(f"{cv} = {cv} {comb} "
+                               f"{self._total(op, e, cs, scope.bt)}")
             return v
         return _Val(dtype=od, lane=c.lane, k=k, lazy=emit_in, loop=c.loop)
 
-    def _sums_before(self, x: _Val, at, bounds) -> list[str]:
-        """Per lane, the sum of ``x`` over its positions below each of
-        ``bounds`` (expressions), in type ``at``: one pass over the axis,
-        the whole tile where it fits, else tile by tile."""
+    @staticmethod
+    def _filled(op: str, rows: int, at) -> str:
+        """A ``[rows, 1]`` column of the identity of scan ``op``."""
+        if op == "sum":
+            return f"tl.zeros([{rows}, 1], {_TL[at]})"
+        return f"tl.full([{rows}, 1], {_lit(1, at)}, {_TL[at]})"
+
+    @staticmethod
+    def _total(op: str, e: str, cs: str, bt: int) -> str:
+        """The aggregate of tile ``e`` per lane (``cs``: its scan): its
+        sum, or its product, the scan's last position (padding positions
+        hold the identity)."""
+        if op == "sum":
+            return f"tl.sum({e}, axis=1)[:, None]"
+        return (f"tl.sum(tl.where(tl.arange(0, {bt})[None, :] == {bt - 1}, "
+                f"{cs}, 0), axis=1)[:, None]")
+
+    def _sums_before(self, x: _Val, at, bounds, op: str = "sum") -> list:
+        """Per lane, the aggregate (sum or product) of ``x`` over its
+        positions below each of ``bounds`` (expressions), in type ``at``:
+        one pass over the axis, the whole tile where it fits, else tile by
+        tile."""
         k, rows = x.k, self.block if x.lane else 1
+        scan, ident, comb = _SCAN_OPS[op]
 
         def part(sc, b):
-            return (f"tl.sum(tl.where({sc.m} & ({sc.r} < {b}), "
-                    f"{self.cast(x, at, sc)}, 0), axis=1)[:, None]")
+            e = f"tl.where({sc.m} & ({sc.r} < {b}), {self.cast(x, at, sc)}, " \
+                f"{ident})"
+            return (f"tl.sum({e}, axis=1)[:, None]" if op == "sum" else
+                    self._total(op, e, f"{scan}({e}, axis=1)", sc.bt))
         if self.fits(k):
             sc = self.full_scope(k)
             return [self.emit(part(sc, b), at, x.lane, None).expr
                     for b in bounds]
-        sums = [self.emit(f"tl.zeros([{rows}, 1], {_TL[at]})", at, x.lane,
+        sums = [self.emit(self._filled(op, rows, at), at, x.lane,
                           None).expr for _ in bounds]
         with self.tiles_of(k) as sc:
             for v, b in zip(sums, bounds):
-                self._line(f"{v} = {v} + {part(sc, b)}")
+                self._line(f"{v} = {v} {comb} {part(sc, b)}")
         return sums
 
     def _before_loop(self, scope: _Scope, emit):
@@ -1195,49 +1430,54 @@ class _Gen:
         pre.extend(_flat(lines))
         return out
 
-    def _tile_scan(self, x: _Val, at, od, scope: _Scope, shift: int) -> str:
-        """``roll(cumsum(x), shift)`` (``shift`` 0: the scan itself) at the
+    def _tile_scan(self, x: _Val, at, od, scope: _Scope, shift: int,
+                   op: str = "sum") -> str:
+        """``roll(scan(x), shift)`` (``shift`` 0: the scan itself) at the
         positions ``start + arange(bt)`` of a tile that does not follow the
-        tiles before it (the grid's value tile): ``tl.cumsum`` of the tile,
-        in two segments where the roll wraps inside it (positions below
-        ``shift`` read the row's end), each segment starting from the sum
-        of ``x`` before its first position, found in one pass."""
+        tiles before it (the grid's value tile): the scan of the tile, in
+        two segments where the roll wraps inside it (positions below
+        ``shift`` read the row's end), each segment starting from the
+        aggregate of ``x`` before its first position, found in one pass."""
+        scan, ident, comb = _SCAN_OPS[op]
         k = scope.length
         start = scope.start
         hi = f"({scope.r} >= {shift})"
         bounds = [f"tl.maximum({start} - {shift}, 0)" if shift else start]
         if shift:
             bounds.append(f"({start} + {k - shift})")
-        base = self._sums_before(x, at, bounds)
+        base = self._sums_before(x, at, bounds, op)
         xr = self.cast(x, at, self._rolled(scope, shift) if shift else scope)
         segs = []
         conds = (f" & {hi}", f" & ({scope.r} < {shift})") if shift else ("",)
         for cond, b in zip(conds, base):
-            e = self.emit(f"tl.where({scope.m}{cond}, {xr}, 0)", at, x.lane,
-                          k).expr
-            segs.append(self.emit(f"(tl.cumsum({e}, axis=1) + {b})", at,
+            e = self.emit(f"tl.where({scope.m}{cond}, {xr}, {ident})", at,
+                          x.lane, k).expr
+            segs.append(self.emit(f"({scan}({e}, axis=1) {comb} {b})", at,
                                   x.lane, k).expr)
         out = segs[0] if len(segs) == 1 else \
             f"tl.where({hi}, {segs[0]}, {segs[1]})"
         return self.emit(out if at == od else f"({out}).to({_TL[od]})", od,
                          x.lane, k).expr
 
-    def _cumsum(self, n, x: _Val, od) -> _Val:
-        """``cumsum(x)`` along a per-lane value axis of length ``k``,
-        summed in float32 (integers in their own type).  In a scope whose
-        tiles run in order from position 0 (the whole axis, or a loop
-        over its tiles) it is ``tl.cumsum`` of the tile plus the running
-        sum of the tiles before, carried from tile to tile; in the grid's
-        value tile ``tl.cumsum`` of the tile plus the sum of the positions
+    def _cumsum(self, n, x: _Val, od, op: str = "sum") -> _Val:
+        """``cumsum(x)`` (``op`` "sum") or ``cumprod(x)`` ("prod") along a
+        per-lane value axis of length ``k``, in float32 (integers in their
+        own type).  In a scope whose tiles run in order from position 0
+        (the whole axis, or a loop over its tiles) it is ``tl.cumsum`` /
+        ``tl.cumprod`` of the tile combined with the running aggregate of
+        the tiles before, carried from tile to tile; in the grid's value
+        tile the scan of the tile from the aggregate of the positions
         before it (:meth:`_tile_scan`); in any other scope (one position,
         rolled positions that :meth:`_rolled_scan` does not scan again)
-        the sum over every tile of ``x`` of its positions at or before
-        each of the scope's.  A scan across lanes raises."""
+        the aggregate over every tile of ``x`` of its positions at or
+        before each of the scope's.  A scan across lanes raises."""
+        scan, ident, comb = _SCAN_OPS[op]
+        name = f"aten.{'cumsum' if op == 'sum' else 'cumprod'}"
         roles = self.roles[n.args[0]]
         dim = n.args[1] % len(roles) if roles else 0
         if roles and roles[dim] == "lane":
             raise CompileError(
-                f"span kernel: aten.cumsum in {self.plan.name!r} scans "
+                f"span kernel: {name} in {self.plan.name!r} scans "
                 "across lanes; the template scans a per-lane value axis "
                 "only")
         if x.k is None or not roles or roles[dim] != "v":
@@ -1254,36 +1494,43 @@ class _Gen:
         def emit_in(scope):
             if scope.seq:
                 e = self.emit(f"tl.where({scope.m}, {self.cast(x, at, scope)}"
-                              ", 0)", at, x.lane, k).expr
-                cs = self.emit(f"tl.cumsum({e}, axis=1)", at, x.lane, k).expr
+                              f", {ident})", at, x.lane, k).expr
+                cs = self.emit(f"{scan}({e}, axis=1)", at, x.lane, k).expr
                 if scope.pre is None:       # the whole axis in one tile
                     return cs if at == od else self.emit(
                         done(cs), od, x.lane, k).expr
                 carry = f"c{self.n}"
                 self.n += 1
                 pre, ind = scope.pre
-                pre.append(f"{ind}{carry} = tl.zeros([{rows}, 1], "
-                           f"{_TL[at]})")
-                out = self.emit(done(f"({cs} + {carry})"), od, x.lane,
+                pre.append(f"{ind}{carry} = {self._filled(op, rows, at)}")
+                out = self.emit(done(f"({cs} {comb} {carry})"), od, x.lane,
                                 k).expr
-                self._line(f"{carry} = {carry} + tl.sum({e}, axis=1)"
-                           "[:, None]")
+                self._line(f"{carry} = {carry} {comb} "
+                           f"{self._total(op, e, cs, scope.bt)}")
                 return out
             if scope is self.grid_scope:
-                return self._tile_scan(x, at, od, scope, 0)
-            acc = self.emit(f"tl.zeros([{rows}, {scope.bt}], {_TL[at]})", at,
-                            x.lane, k).expr
+                return self._tile_scan(x, at, od, scope, 0, op)
+            fill = "zeros" if op == "sum" else "full"
+            one = "" if op == "sum" else f"{_lit(1, at)}, "
+            acc = self.emit(f"tl.{fill}([{rows}, {scope.bt}], {one}"
+                            f"{_TL[at]})", at, x.lane, k).expr
             cap = max(1, _MAX_TILE_ELEMS // (rows * scope.bt))
             bt = min(pow2_at_least(k), 1 << (cap.bit_length() - 1))
             with self.tiles_of(k, bt) as sx:
                 e = self.cast(x, at, sx)
-                self._line(
-                    f"{acc} += tl.sum(tl.where(({sx.r}[:, None, :] <= "
-                    f"({scope.r})[:, :, None]) & {sx.m}[:, None, :], "
-                    f"({e})[:, None, :], 0), axis=2)")
+                sel = (f"tl.where(({sx.r}[:, None, :] <= "
+                       f"({scope.r})[:, :, None]) & {sx.m}[:, None, :], "
+                       f"({e})[:, None, :], {ident})")
+                if op == "sum":
+                    self._line(f"{acc} += tl.sum({sel}, axis=2)")
+                else:
+                    self._line(
+                        f"{acc} *= tl.sum(tl.where(tl.arange(0, {bt})"
+                        f"[None, None, :] == {bt - 1}, tl.cumprod({sel}, "
+                        "axis=2), 0), axis=2)")
             return self.emit(done(acc), od, x.lane, k).expr
         return _Val(dtype=od, lane=x.lane, k=k, lazy=emit_in, loop=x.loop,
-                    scan=(x, at))
+                    scan=(x, at, op))
 
     def _select(self, n, x: _Val) -> _Val:
         roles = self.roles[n.args[0]]
@@ -1623,7 +1870,7 @@ class _Gen:
                 # the tile a later span stage reads in place of this output,
                 # and where this stage wrote lane k on each axis (k + base)
                 tile = self.emit(e, dt, True, None)
-                self.fwd_vals[key] = (tile, bases)
+                self.fwd_vals[key] = (tile, bases, None)
                 e = tile.expr
             self._line(f"tl.store({out_ptr} + {base}, {e}, mask=lmask{once})")
             return
@@ -1635,7 +1882,10 @@ class _Gen:
                              out_ptr, base, once)
         else:
             if fwd:
-                self.fwd_vals[key] = (None, bases)
+                # a later stage re-loads its rows (one program stored them
+                # all, unless the grid's value axis splits the program)
+                self.fwd_vals[key] = (None, bases, None if gs is not None
+                                      else (out_ptr, base, k, dt))
             with self.tiles_of(k) as sc:
                 self._store_tile(v, sc, key, dt, False, bases, out_ptr, base,
                                  once)
@@ -1658,10 +1908,10 @@ class _Gen:
                 # roll's wrapped positions) emits the stored value again
                 tile.alt = _Val(dtype=dt, lane=True, k=k, loop=v.loop,
                                 lazy=lambda s, v=v, dt=dt: self.cast(v, dt, s))
-                self.fwd_vals[key] = (tile, bases)
+                self.fwd_vals[key] = (tile, bases, None)
                 e = tile.expr
             else:
-                self.fwd_vals[key] = (None, bases)
+                self.fwd_vals[key] = (None, bases, None)
         self._line(f"tl.store({out_ptr} + {base} * {k} + {sc.r}, {e}, "
                    f"mask={mask})")
 
@@ -1798,7 +2048,9 @@ def generate_span(stages, device=None) -> SpanSource:
         f'"""Span kernel of {names!r}, generated by '
         "repro_torch.kernels.span_kernel\nfrom the bodies' aten graphs; "
         'rebuilt on demand, never edited."""\n'
-        "import triton\nimport triton.language as tl\n\n\n"
+        "import triton\nimport triton.language as tl\n"
+        + ("from triton.language.extra import libdevice\n"
+           if gen.libdevice else "") + "\n\n"
         f"@triton.jit\ndef {fn_name}({', '.join(params)}):\n{body}")
     n_prog = math.prod(live_slots(plan0)) \
         * math.prod(t.n_tiles for t in gen.tiles) * gen.value_tiles

@@ -160,23 +160,28 @@ class Mesh:
         self.launches["ppermute"] += 1
         self.bytes["ppermute"] += len(perm) * (x[0].numel()
                                                 * x.element_size())
-        idx, hit = self._perm_index(tuple(src))
-        out = x.index_select(0, idx)
-        if hit is not None:
-            out = torch.where(hit.reshape((p,) + (1,) * (x.dim() - 1)),
-                              out, torch.zeros((), dtype=out.dtype,
-                                               device=out.device))
-        return out
+        idx, dst = self._perm_index(tuple(src))
+        if dst is None:             # every rank receives: one gather
+            return x.index_select(0, idx)
+        # some ranks receive nothing: zeros, and only the sent rows copied
+        out = torch.zeros_like(x)
+        return out.index_copy_(0, dst, x.index_select(0, idx))
 
     def _perm_index(self, src: tuple[int, ...]):
-        """Gather index of a permutation (cached on the device) and,
-        when some rank receives nothing, the 0/1 mask of ranks that do."""
+        """Per permutation (cached on the device): the sending rank of
+        every rank, or, when some rank receives nothing, the sending
+        ranks and the receiving ranks of its pairs."""
         got = self._perms.get(src)
         if got is None:
-            idx = torch.tensor([max(s, 0) for s in src], device=self.device)
-            hit = (None if min(src) >= 0 else torch.tensor(
-                [s >= 0 for s in src], device=self.device))
-            got = self._perms[src] = (idx, hit)
+            if min(src) >= 0:
+                got = (torch.tensor(src, device=self.device), None)
+            else:
+                pairs = [(s, d) for d, s in enumerate(src) if s >= 0]
+                got = tuple(torch.tensor(t, dtype=torch.long,
+                                         device=self.device).reshape(-1)
+                            for t in zip(*pairs)) if pairs else (
+                    torch.zeros(0, dtype=torch.long, device=self.device),) * 2
+            self._perms[src] = got
         return got
 
 

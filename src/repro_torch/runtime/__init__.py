@@ -1,0 +1,9 @@
+"""Runtime around a compiled program: fault injection, straggler
+re-weighting, elastic remesh and resilient execution (counterpart of
+:mod:`repro.runtime`, less ``FaultTolerantLoop``, which needs training)."""
+from repro_torch.runtime.straggler import StragglerMonitor, rebalance_chunks  # noqa: F401
+from repro_torch.runtime.elastic import plan_elastic_remesh, reshard_tree  # noqa: F401
+from repro_torch.runtime.fault_injection import (  # noqa: F401
+    DeviceLossError, FaultPlan, FaultSpec, Injector, inject)
+from repro_torch.runtime.resilient import (  # noqa: F401
+    CorruptOutputError, ResilientExecutor, RetryPolicy)

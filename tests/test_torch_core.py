@@ -333,13 +333,15 @@ def test_compile_rejections_match_reference():
         omp.compile(prog1, mesh1, omp.Options(), lowering="collective")
     with pytest.raises(omp.CompileError, match="ParallelFor"):
         omp.compile(lambda i, env: {}, mesh1)
-    # a region compiles (tests/test_torch_region.py); master/worker still
-    # waits for its slice of the port
+    # a region compiles (tests/test_torch_region.py), and so does a region
+    # under master/worker, staged per loop, equal to the reference
     assert omp.compile(omp.region(prog1), mesh1).program.stages == (prog1,)
-    with pytest.raises(omp.CompileError, match="MASTER_WORKER is not ported"):
-        omp.compile(omp.region(prog1),
-                    omp.make_mesh((2,), ("data",), device="cpu"),
-                    lowering="master_worker")
+    prog, env, jprog, jenv, _ = td.make_case(11, "map")
+    mw = omp.compile(omp.region(prog),
+                     omp.make_mesh((2,), ("data",), device="cpu"),
+                     lowering="master_worker")
+    td._assert_matches(mw(env), td._jax_reference(jprog, jenv),
+                       "region under master/worker")
     with pytest.raises(omp.LoopNotCanonical, match="non-zero"):
         omp.analyze_loop(0, 4, 0)
 

@@ -625,8 +625,10 @@ def test_region_rejections_match_reference():
                       chunk_weights=(1.0, 2.0))(td._env_of(env))
     td._assert_matches(out, _jax_region_reference(jreg, _jax_env(env)),
                        "weighted staged chain")
-    with pytest.raises(omp.CompileError, match="not ported yet"):
-        omp.compile(reg, mesh, lowering="master_worker")
+    # master/worker stages the region per loop, as collective does
+    out = omp.compile(reg, mesh, lowering="master_worker")(td._env_of(env))
+    td._assert_matches(out, _jax_region_reference(jreg, _jax_env(env)),
+                       "master/worker staged chain")
 
     hreg, henv = _host_glue_region(omp, torch)
     jhreg, _ = _host_glue_region(jomp, jnp)

@@ -348,3 +348,263 @@ def test_roll_of_a_forwarded_register_tile_matches_reference(p,
                                           ("data",)), lowering="pallas")
             _assert_env(comp(env), {k: np.asarray(v) for k, v in jax.jit(
                 lambda e: pal(e))(jenv).items()}, f"{reg.name} vs pallas")
+
+
+# ---------------------------------------------------------------------------
+# The template's former refusals: pointwise math, cumprod, gathers through
+# a per-lane index vector, sorts, a row handed over tile by tile
+# ---------------------------------------------------------------------------
+
+
+def _fns(lib):
+    """The ops each package spells its own way."""
+    if lib is torch:
+        return dict(sigmoid=torch.sigmoid, rsqrt=torch.rsqrt, erf=torch.erf,
+                    clip=torch.clamp, clip_min=torch.clamp_min,
+                    clip_max=torch.clamp_max, pow=torch.pow,
+                    sort=lambda x, desc=False: torch.sort(
+                        x, descending=desc).values)
+    import jax
+
+    return dict(sigmoid=jax.nn.sigmoid, rsqrt=jax.lax.rsqrt,
+                erf=jax.scipy.special.erf, clip=lib.clip,
+                clip_min=lib.maximum, clip_max=lib.minimum, pow=lib.power,
+                sort=lambda x, desc=False: (lib.sort(x)[::-1] if desc
+                                            else lib.sort(x)))
+
+
+def _math_body(o, lib):
+    f = _fns(lib)
+
+    @o.parallel_for(stop=21, reduction={"s": "+"}, name="pm1")
+    def pm1(i, env):
+        x, r = env["x"][i], env["R"][i]
+        a = (lib.sin(r) + lib.cos(x) * lib.tan(0.5 * r) + lib.tanh(r)
+             + f["sigmoid"](r) + f["rsqrt"](lib.abs(r) + 1.0) + f["erf"](r))
+        b = (f["pow"](r, 3.0) + r ** 2 + f["pow"](lib.abs(r) + 0.5, x)
+             + f["pow"](2.0, r) + lib.floor(3.0 * r) + lib.ceil(3.0 * r)
+             + lib.round(2.0 * r) + lib.sign(r))
+        c = (f["clip"](r, -0.5, 0.5) + f["clip_min"](r, 0.1)
+             + f["clip_max"](r, 0.2) + lib.log1p(lib.abs(r))
+             + lib.expm1(0.5 * r))
+        return {"Y": o.at(i, a + b * c), "s": o.red(lib.tanh(x) * x)}
+    return pm1
+
+
+def _nan_body(o, lib):
+    f = _fns(lib)
+
+    @o.parallel_for(stop=13, name="cn1")
+    def cn1(i, env):
+        r, w = env["R"][i], env["w"]
+        return {"Y": o.at(i, f["clip"](r, -0.5, 0.5) + f["clip_min"](r, 0.1)
+                          + f["clip_max"](r, 0.2) + lib.maximum(r, w)
+                          + lib.minimum(w, r))}
+    return cn1
+
+
+def _cumprod_body(o, lib):
+    @o.parallel_for(start=1, stop=22, reduction={"s": "+"}, name="cp1")
+    def cp1(i, env):
+        row = env["A"][i]
+        c = lib.cumprod(row, 0)
+        return {"Y": o.at(i, c - lib.roll(lib.cumprod(row * env["w"], 0), 2)),
+                "P": o.at(i, c @ env["M"]),
+                "s": o.red(c[3] + lib.roll(c, -1)[0] + c.sum())}
+    return cp1
+
+
+def _gather_body(o, lib):
+    @o.parallel_for(stop=17, name="ga1")
+    def ga1(i, env):
+        g = env["x"][env["I"][i]]
+        return {"Y": o.at(i, g * 2.0 + env["x"][env["I"][i] - 3]),
+                "y": o.at(i, g.sum())}
+    return ga1
+
+
+def _sort_body(o, lib):
+    f = _fns(lib)
+
+    @o.parallel_for(stop=(5, 6), collapse=2, name="so2")
+    def so2(i, j, env):
+        s = f["sort"](env["A"][i] * env["B"][j])
+        return {"Z": o.at((i, j), s - f["sort"](env["B"][j], True)),
+                "T": o.at((i, j), s[0] + s[-1])}
+    return so2
+
+
+def _handoff_region(o, lib, lag=0):
+    @o.parallel_for(stop=9, name="h1")
+    def h1(i, env):
+        return {"V": o.at(i, env["X"][i] * 2.0 + env["w"])}
+
+    @o.parallel_for(stop=9, name="h2")
+    def h2(i, env):
+        v = env["V"][i + lag]
+        return {"y": o.at(i, v.sum() + v[3]), "Z": o.at(i, v * env["w"])}
+    return o.region(h1, h2, name=f"handoff{lag}")
+
+
+def _math_env():
+    g = np.random.default_rng(30)
+    return {"x": _normal(g, 21), "R": _normal(g, 21, 19),
+            "Y": np.zeros((21, 19), np.float32), "s": np.zeros((), np.float32)}
+
+
+def _nan_env():
+    g = np.random.default_rng(35)
+    r, w = _normal(g, 13, 19), _normal(g, 19)
+    r[g.random((13, 19)) < 0.2] = np.nan     # NaN on either side
+    w[::5] = np.nan
+    return {"R": r, "w": w, "Y": np.zeros((13, 19), np.float32)}
+
+
+def _cumprod_env():
+    g = np.random.default_rng(31)
+    n = 19
+    return {"A": (1.0 + 0.1 * _normal(g, 23, n)).astype(np.float32),
+            "w": (1.0 + 0.1 * _normal(g, n)).astype(np.float32),
+            "M": _normal(g, n, n), "Y": np.zeros((23, n), np.float32),
+            "P": np.zeros((23, n), np.float32), "s": np.zeros((), np.float32)}
+
+
+def _gather_env():
+    g = np.random.default_rng(32)
+    # in range, negative (wrapping once) and out of range either way
+    idx = g.integers(-30, 30, size=(17, 9)).astype(np.int32)
+    return {"x": _normal(g, 12), "I": idx, "Y": np.zeros((17, 9), np.float32),
+            "y": np.zeros(17, np.float32)}
+
+
+def _sort_env():
+    g = np.random.default_rng(33)
+    return {"A": _normal(g, 6, 21), "B": _normal(g, 6, 21),
+            "Z": np.zeros((5, 6, 21), np.float32),
+            "T": np.zeros((5, 6), np.float32)}
+
+
+def _handoff_env():
+    g = np.random.default_rng(34)
+    return {"X": _normal(g, 10, 40), "w": _normal(g, 40),
+            "V": np.zeros((10, 40), np.float32), "y": np.zeros(10, np.float32),
+            "Z": np.zeros((10, 40), np.float32)}
+
+
+def _text(prog, env, rank=1):
+    from repro_torch import omp
+
+    omp.clear_compile_cache()           # compiles are cached by structure
+    return omp.compile(prog, _mesh(rank, 2)[0], lowering="kernel",
+                       env_like=env).kernel_plan.spans[0].source.text
+
+
+@pytest.mark.parametrize("cap", [None, 16])
+@pytest.mark.parametrize("body", ["math", "nan", "cumprod", "gather",
+                                  "sort"])
+def test_former_refusals_match_reference(body, cap, monkeypatch):
+    """Pointwise math (Triton's functions and libdevice's; a NaN clamped
+    or through ``maximum``/``minimum`` stays NaN), ``cumprod``
+    along a row (whole, carried from tile to tile, rolled, in the grid's
+    value tile, at one position), a gather through a per-lane index vector
+    with negative and out-of-range entries (wrap once, then clamp) and the
+    values of a sort (ascending and descending, rank 2) compile under the
+    kernel lowering and equal the reference's ``run_reference`` and its
+    Pallas lowering; the emulated source equals the plain version, also
+    with the register-tile cap lowered to 16."""
+    import jax.numpy as jnp
+
+    from repro import omp as jomp
+    from repro_torch import convert, omp
+    from repro_torch.kernels import span_kernel
+
+    make, env_np = {"math": (_math_body, _math_env),
+                    "nan": (_nan_body, _nan_env),
+                    "cumprod": (_cumprod_body, _cumprod_env),
+                    "gather": (_gather_body, _gather_env),
+                    "sort": (_sort_body, _sort_env)}[body]
+    env_np = env_np()
+    prog, jprog = make(omp, torch), make(jomp, jnp)
+    if cap is not None:
+        if body == "sort":          # a row longer than one register tile
+            monkeypatch.setattr(span_kernel, "_MAX_TILE_ELEMS", cap)
+            env = convert.env_from_numpy(env_np, "cpu")
+            with pytest.raises(omp.CompileError, match="aten.sort .* 21 "
+                               "elements, longer than one register tile"):
+                _text(prog, env, 2)
+            omp.clear_compile_cache()
+            return
+        monkeypatch.setattr(span_kernel, "_MAX_TILE_ELEMS", cap)
+    omp.clear_compile_cache()
+    _check_block(prog, jprog, env_np)
+    text = _text(prog, convert.env_from_numpy(env_np, "cpu"), prog.rank)
+    marks = {"math": ("libdevice.pow(", "tl.sin(", "libdevice.rint("),
+             "nan": ("tl.PropagateNan.ALL",),
+             "cumprod": ("tl.cumprod(",),
+             "gather": ("tl.where(",),
+             "sort": ("tl.sort(",)}[body]
+    assert all(m in text for m in marks), text
+    if body == "math":
+        assert "from triton.language.extra import libdevice" in text
+    if body == "cumprod" and cap is not None:   # carried products
+        assert sum(" * tl.sum(tl.where(tl.arange(" in line
+                   for line in text.splitlines()) >= 2, text
+    omp.clear_compile_cache()
+
+
+def test_sort_indices_stay_refused_naming_themselves():
+    from repro_torch import convert, omp
+
+    @omp.parallel_for(stop=5, name="si1")
+    def si1(i, env):
+        return {"Y": omp.at(i, torch.sort(env["A"][i]).indices.float())}
+
+    env = convert.env_from_numpy({"A": np.ones((5, 4), np.float32),
+                                  "Y": np.zeros((5, 4), np.float32)}, "cpu")
+    with pytest.raises(omp.CompileError, match="aten.sort's indices"):
+        omp.compile(si1, _mesh(1, 2)[0], lowering="kernel", env_like=env)
+
+
+@pytest.mark.parametrize("p", [1, 2])
+def test_row_handed_over_tile_by_tile_matches_reference(p, monkeypatch):
+    """A later span stage reads a row an earlier stage stored tile by tile
+    (the register-tile cap lowered to 16, rows of 40): it re-loads the
+    lane's own stored rows after a block-wide barrier.  One span, the key
+    forwarded; the emulated source == the stages' plain values; the kernel
+    lowering == the reference's shared-memory run and, on one rank, its
+    Pallas lowering.  A read of the next lane's row is still refused."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh
+
+    from repro import omp as jomp
+    from repro_torch import convert, omp
+    from repro_torch.core.region import plan_region
+    from repro_torch.kernels import span_kernel
+
+    monkeypatch.setattr(span_kernel, "_MAX_TILE_ELEMS", 16)
+    omp.clear_compile_cache()
+    env_np = _handoff_env()
+    env = convert.env_from_numpy(env_np, "cpu")
+    jenv = {k: jnp.asarray(v) for k, v in env_np.items()}
+    reg, jreg = _handoff_region(omp, torch), _handoff_region(jomp, jnp)
+    want = {k: np.asarray(v) for k, v in jax.jit(
+        lambda e: jreg(e))(jenv).items()}
+    comp, calls = tsk._span_calls(reg, env, _mesh(1, p)[0], monkeypatch)
+    (span,) = comp.kernel_plan.spans
+    assert (1, "V") in span.source.forwarded, span.source.forwarded
+    later = span.source.text.split("# stage 1")[1]
+    assert later.count("tl.debug_barrier()") == 1, later
+    tsk._check_span_calls(comp, calls)
+    _assert_env(comp(env), want, f"handoff P={p}")
+    if p == 1:
+        pal = jomp.compile(jreg, Mesh(np.asarray(jax.devices()[:1]),
+                                      ("data",)), lowering="pallas")
+        _assert_env(comp(env), {k: np.asarray(v) for k, v in jax.jit(
+            lambda e: pal(e))(jenv).items()}, "handoff vs pallas")
+    lagged = _handoff_region(omp, torch, lag=1)
+    plans = [se.plan for se in plan_region(lagged, env, 1).stages]
+    with pytest.raises(omp.CompileError, match="lane's own row"):
+        span_kernel.generate_span([(plans[0], lagged.stages[0], ()),
+                                   (plans[1], lagged.stages[1], ("V",))])
+    omp.clear_compile_cache()
