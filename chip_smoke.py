@@ -208,7 +208,11 @@ non-zero (no phase catches an error and carries on):
     of 4 with negative and out-of-range entries (N = 2^24), the values of
     a sort of 512-wide rows (16384 rows; ``torch.sort`` its library call)
     and a row of 4096 a later stage re-loads after a barrier (8192 rows,
-    stored tile by tile): each under
+    stored tile by tile); the ninth slice's ``logcumsumexp`` and the
+    values of ``cummax``/``cummin`` along 2000 rows of 2600, the indices
+    of a sort of 16384 tied rows of 512 and an int32 ``x ** 5`` (N =
+    2^24), each beside its one ``torch`` call, integers held bit for
+    bit: each under
     ``lowering="kernel"`` against its shared-memory run (``agree`` at
     1e-4: a scan of 2600 normal values reaches ~100, where two float32
     sums in another order differ by more than a fixed 1e-4),
@@ -237,7 +241,25 @@ non-zero (no phase catches an error and carries on):
     degraded run; (b) a NaN at ``run_exit`` caught and absorbed by a
     retry; (c) 16 threads, one cold program, a ``CompileService``: one
     compile; (d) a straggler with ``device_weights`` escalates to one
-    weighted recompile whose outputs equal the unweighted ones.
+    weighted recompile whose outputs equal the unweighted ones;
+21. **the persistent compile store** — PolyBench ``gemm`` (kernel) and
+    ``jacobi1d`` (collective) on 8 ranks in four fresh processes (no
+    store, an empty store, a hit, a hit with an empty Triton cache),
+    each first ``Compiled.run`` timed; hits restore every block, the
+    last compiles nothing through Triton, outputs equal bit for bit
+    (``aot_phase``);
+22. **qwen2-moe-a2.7b** at full width and depth, bfloat16 weights drawn
+    on the card: the prefill of 2 x 4096 tokens with K2 (24 launches)
+    against the plain prefill on the tokens whose routing agrees, the
+    share of routing flips, times, tokens/s and the profiler's split
+    (K2, expert products, dispatch, the rest); float32 at
+    ``MOE_F32_LAYERS`` layers; K2 at its shape against its plain
+    version, SDPA and the bound (``moe_phase``);
+23. **MoE serving** — phase 8's engine and check on qwen2-moe-a2.7b at
+    capacity factor ``MOE_SERVE_CF``;
+24. **jamba-1.5-large-398b and arctic-480b** at ``smoke_config`` size:
+    prefill + one decode step == forward at capacity factor 8, and the
+    engine serves 3 requests (``moe_smoke_phase``).
 
 In phases 4, 15, 17 and 18 every span is also launched by K1's launcher
 and by Triton's launch path on the same feeds, equal bit for bit.
@@ -626,6 +648,14 @@ def hold_lanes(torch, got, want, mask, tol, label, lane_dim=None) -> float:
     err = 0.0
     for k in want:
         g, w = got[k][mask], want[k][mask]
+        if not w.is_floating_point():
+            # integers (a sort's indices, a wrapped pow) equal bit for bit:
+            # any other value fails, so no rejection needs showing
+            if not torch.equal(g, w):
+                raise AssertionError(
+                    f"{label} {k}: kernel != plain at "
+                    f"{int((g != w).sum())} of {w.numel()} integers")
+            continue
         e = (g - w).abs().max().item()
         if not agree(torch, g, w, tol):
             raise AssertionError(
@@ -1374,20 +1404,30 @@ def _leaves(tree):
         yield tree
 
 
-def prefill_pairs(got, want, names=("k", "v")):
+def prefill_pairs(got, want, names=("k", "v"), tokens=None):
     """(name, got, want) over two prefills' logits and every layer's cache
     entries ``names``, as float32; ``slot*`` caches are split by period,
-    so ``cache slot1[p]`` is layer ``p x period + 1``."""
+    so ``cache slot1[p]`` is layer ``p x period + 1``.  Given ``tokens``
+    ((B, S) bool), only those tokens' cache rows, and the logits of the
+    prompts whose last token is one of them."""
     (got_logits, got_cache), (want_logits, want_cache) = got, want
-    pairs = [("logits", got_logits, want_logits)]
+    pairs = []
+    if tokens is None:
+        pairs.append(("logits", got_logits, want_logits))
+    elif bool(tokens[:, -1].any()):
+        last = tokens[:, -1]
+        pairs.append(("logits", got_logits[last], want_logits[last]))
     for key in want_cache:
         for name in names:
             g, w = got_cache[key][name], want_cache[key][name]
             if key.startswith("slot"):
-                pairs += [(f"cache {key}[{i}]/{name}", g[i], w[i])
+                layers = [(f"cache {key}[{i}]/{name}", g[i], w[i])
                           for i in range(w.shape[0])]
             else:
-                pairs.append((f"cache {key}/{name}", g, w))
+                layers = [(f"cache {key}/{name}", g, w)]
+            pairs += [(n, a, b) if tokens is None else (n, a[tokens],
+                                                         b[tokens])
+                      for n, a, b in layers]
     return [(n, g.float(), w.float()) for n, g, w in pairs]
 
 
@@ -1397,17 +1437,19 @@ def worst_gap(pairs):
                 name) for name, g, w in pairs)
 
 
-def hold_prefill(torch, got, want, tol, label, names=("k", "v")):
+def hold_prefill(torch, got, want, tol, label, names=("k", "v"),
+                 tokens=None):
     """A prefill's (logits, cache) under ``agree`` against another's, the
     cache's positions equal where it keeps them; returns
     :func:`worst_gap` of the logits and every layer's cache entries
-    ``names``.  Every reading is taken before a failure raises, so a
-    failure names them all."""
+    ``names`` (on ``tokens`` only, given: see :func:`prefill_pairs`).
+    Every reading is taken before a failure raises, so a failure names
+    them all."""
     for key in want[1]:
         if "pos" in want[1][key] and not torch.equal(got[1][key]["pos"],
                                                      want[1][key]["pos"]):
             raise AssertionError(f"{label}: cache {key}/pos differ")
-    pairs = prefill_pairs(got, want, names)
+    pairs = prefill_pairs(got, want, names, tokens)
     worst = worst_gap(pairs)
     bad = [name for name, g, w in pairs if not agree(torch, g, w, tol)]
     if bad:
@@ -1963,6 +2005,8 @@ def check_pb_span(torch, span_kernel, kernel_lower, comp, prog, env, dev,
                      dev, label)
     worst = 0.0
     for k in want:
+        if not want[k].is_floating_point():
+            continue                    # held bit for bit by hold_lanes
         # lanes that hold no iteration take the plain value
         g = torch.where(mask, got[k], want[k]) if want[k].dim() == \
             mask.dim() else got[k]
@@ -2213,6 +2257,8 @@ REPAIR_FWD = (16384, 1000)     # the forwarded-roll region: lanes, row
 REPAIR_GATHER = 4              # per-lane index vector of the gather (N1 lanes)
 REPAIR_SORT = (16384, 512)     # the sort: lanes, row (one register tile)
 REPAIR_HANDOFF = (8192, 4096)  # the tile-by-tile hand-off: lanes, row
+REPAIR_ARGSORT = (16384, 512)  # the sort's indices: lanes, row (one tile)
+REPAIR_POW = 5                 # the constant exponent of the int32 pow
 K2_WIDE_HD = (288, 512)        # head dims over 256 (the wide kernel)
 
 
@@ -2333,8 +2379,34 @@ def repair_programs(omp, torch, dev):
         v = env["V"][i]
         return {"y": omp.at(i, v.sum() + v[3]), "Z": omp.at(i, v * env["w"])}
 
+    def scan_row(name, fn):
+        @omp.parallel_for(stop=n, name=name)
+        def scan1(i, env):
+            return {"Y": omp.at(i, fn(env["A"][i]))}
+        return scan1
+
+    lse1 = scan_row("logcumsumexp1", lambda r: torch.logcumsumexp(r, 0))
+    cummax1 = scan_row("cummax1", lambda r: torch.cummax(r, 0).values)
+    cummin1 = scan_row("cummin1", lambda r: torch.cummin(r, 0).values)
+    as_lanes, as_w = REPAIR_ARGSORT
+
+    @omp.parallel_for(stop=as_lanes, name="argsort1")
+    def argsort1(i, env):
+        return {"Z": omp.at(i, torch.argsort(env["A"][i]))}
+
+    @omp.parallel_for(stop=N1, name="int_pow1")
+    def int_pow1(i, env):
+        return {"y": omp.at(i, env["x"][i] ** REPAIR_POW)}
+
     x1, x2 = rnd(N1), rnd(N2, N2)
     near1 = 1.0 + 0.01 * rnd(n, w)
+    scan_a = rnd(n, w)
+    # few distinct values: ties everywhere, which a stable order keeps
+    tied = torch.randint(-8, 8, (as_lanes, as_w), generator=g, device=dev,
+                         dtype=torch.int32).float()
+    # |x|^5 passes 2^31: the products wrap, as int32's do
+    ints = torch.randint(-2000, 2000, (N1,), generator=g, device=dev,
+                         dtype=torch.int32)
     # indices in range, negative (wrapping once) and out of range
     idx = torch.randint(-N1 - 64, N1 + 64, (N1, REPAIR_GATHER), generator=g,
                         device=dev, dtype=torch.int32)
@@ -2374,6 +2446,25 @@ def repair_programs(omp, torch, dev):
                  (PB_RANKS,), ("data",),
                  lambda: torch.sort(sort_a, dim=1).values,
                  "torch.sort (values, along the rows)"),
+        "logcumsumexp": (lse1, {"A": scan_a, "Y": zeros(n, w)},
+                         (PB_RANKS,), ("data",),
+                         lambda: torch.logcumsumexp(scan_a, 1),
+                         "torch.logcumsumexp (along the rows)"),
+        "cummax": (cummax1, {"A": scan_a, "Y": zeros(n, w)}, (PB_RANKS,),
+                   ("data",), lambda: torch.cummax(scan_a, 1),
+                   "torch.cummax (values and indices, along the rows)"),
+        "cummin": (cummin1, {"A": scan_a, "Y": zeros(n, w)}, (PB_RANKS,),
+                   ("data",), lambda: torch.cummin(scan_a, 1),
+                   "torch.cummin (values and indices, along the rows)"),
+        "argsort": (argsort1, {"A": tied, "Z": torch.zeros(
+                        as_lanes, as_w, dtype=torch.int64, device=dev)},
+                    (PB_RANKS,), ("data",),
+                    lambda: torch.argsort(tied, dim=1, stable=True),
+                    "torch.argsort(stable=True) (along the rows)"),
+        "int_pow": (int_pow1, {"x": ints, "y": torch.zeros_like(ints)},
+                    (PB_RANKS,), ("data",),
+                    lambda: torch.pow(ints, REPAIR_POW),
+                    f"torch.pow (x ** {REPAIR_POW}, int32)"),
         "handoff": (omp.region(h1, h2, name="handoff"),
                     {"X": rnd(h_lanes, h_w), "w": rnd(h_w),
                      "V": zeros(h_lanes, h_w), "y": zeros(h_lanes),
@@ -2432,6 +2523,11 @@ def repair_phase(torch, dev, card):
         # of 2600 normal values reaches ~100, where two float32 sums in
         # another order differ by more than a fixed 1e-4
         for k in ref:
+            if not ref[k].is_floating_point():
+                if not torch.equal(out[k], ref[k]):
+                    raise AssertionError(f"repair {name} {k}: kernel != "
+                                         "prog(env) (integers, bit for bit)")
+                continue
             if not agree(torch, out[k], ref[k], 1e-4):
                 raise AssertionError(
                     f"repair {name} {k}: kernel != prog(env), max abs err "
@@ -2468,7 +2564,9 @@ def repair_phase(torch, dev, card):
               f"row-relative err {worst_s}, K1's launcher == Triton's "
               f"launch path bit for bit; tl.cumsum "
               f"{sum(t.count('tl.cumsum(') for t in texts)}, tl.cumprod "
-              f"{sum(t.count('tl.cumprod(') for t in texts)}, tl.sort "
+              f"{sum(t.count('tl.cumprod(') for t in texts)}, "
+              f"tl.associative_scan "
+              f"{sum(t.count('tl.associative_scan(') for t in texts)}, tl.sort "
               f"{sum(t.count('tl.sort(') for t in texts)}, libdevice calls "
               f"{sum(t.count('libdevice.') - 1 for t in texts if 'libdevice' in t)}"
               f", barriers {sum(t.count('tl.debug_barrier()') for t in texts)}"
@@ -2890,6 +2988,518 @@ def runtime_phase(torch, dev, card):
     return [row]
 
 
+# ---------------------------------------------------------------------------
+# The persistent compile store across processes
+# ---------------------------------------------------------------------------
+
+#: The AOT phase's fresh processes: (label, whether it uses the store,
+#: which Triton cache it runs with).
+AOT_RUNS = (("a: no store", False, "a"), ("b: empty store", True, "b"),
+            ("c: store hit", True, "b"), ("d: store hit, empty Triton cache",
+                                          True, "d"))
+
+
+def aot_programs(omp, torch, dev):
+    """``name -> (blocks, env, lowering)`` of the AOT phase: PolyBench
+    ``gemm`` (EXTRALARGE, the kernel lowering) and ``jacobi1d`` (N = 2^24,
+    collective), on 8 ranks under ``schedule=omp.static()``."""
+    from repro_torch import polybench as pb
+
+    gemm = pb.make("gemm")
+    jac_blocks, jac_env, _, _ = jacobi1d_program(omp, torch, dev)
+    return {"gemm": (gemm.programs, gemm.env_fn(dev, seed=0), "kernel"),
+            "jacobi1d": ([p for p, _ in jac_blocks], jac_env, "collective")}
+
+
+def aot_child(store: str, out_dir: str, device: str = "cuda") -> None:
+    """One fresh process of the AOT phase (``python3 -c "import
+    chip_smoke; chip_smoke.aot_child(...)"``): each program of
+    ``aot_programs`` compiled and run once, with the persistent store at
+    ``store`` (none when empty).  Prints one JSON line: per program the
+    wall time of its first ``Compiled.run`` (planning, any K1 build and
+    the run), whether each block was restored, the store hits it took and
+    K1's Triton compiles; saves the outputs under ``out_dir``."""
+    torch = _setup()
+    from repro_torch import omp
+    from repro_torch.kernels import span_kernel
+
+    dev = torch.device(device)
+    if store:
+        omp.enable_persistent_cache(store)
+    mesh = omp.make_mesh((PB_RANKS,), ("data",), device=dev)
+    report = {}
+    for name, (progs, env, low) in aot_programs(omp, torch, dev).items():
+        torch.cuda.synchronize()
+        hits, compiles, launches = (omp.compile_cache_stats()["disk_hits"],
+                                    span_kernel.COMPILES, span_kernel.LAUNCHES)
+        t0 = time.perf_counter()
+        comps = [omp.compile(p, mesh, lowering=low, schedule=omp.static())
+                 for p in progs]
+        out = run_blocks(comps, env)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        torch.save({k: v.cpu() for k, v in out.items()},
+                   Path(out_dir) / f"{name}.pt")
+        report[name] = {
+            "first_run_ms": ms, "restored": [c.restored for c in comps],
+            "disk_hits": omp.compile_cache_stats()["disk_hits"] - hits,
+            "triton_compiles": span_kernel.COMPILES - compiles,
+            "k1_launches": span_kernel.LAUNCHES - launches}
+    report["stats"] = omp.compile_cache_stats()
+    report["triton_imported"] = "triton" in sys.modules
+    print(json.dumps(report))
+
+
+def aot_phase(torch, card) -> dict:
+    """Phase 21: the persistent compile store across processes.  Four
+    fresh ``python3`` processes, each with its own Triton cache directory
+    (``TRITON_CACHE_DIR``) under a temporary directory, run
+    ``aot_programs``: (a) no store; (b) an empty store: cold, and it
+    saves (the plans, and after gemm's first run its span kernel's
+    cubin); (c) a hit with (b)'s Triton cache; (d) a hit with an empty
+    Triton cache.  Hard checks: (c) and (d) restore every block with one
+    store hit each; (d) compiles no span kernel (K1 launches the stored
+    cubin through ``cuModuleLoadData``) and leaves its Triton cache
+    empty; every output equals (a)'s bit for bit.  Returns each run's
+    first-run times."""
+    import os
+    import tempfile
+
+    here = Path(__file__).resolve().parent
+    times = {}
+    with tempfile.TemporaryDirectory(prefix="aot_phase_") as tmp:
+        tmp = Path(tmp)
+        store = tmp / "store"
+        reports = {}
+        for label, use_store, tri in AOT_RUNS:
+            out = tmp / f"out_{label[0]}"
+            out.mkdir()
+            triton_dir = tmp / f"triton_{tri}"
+            triton_dir.mkdir(exist_ok=True)
+            env = dict(os.environ, TRITON_CACHE_DIR=str(triton_dir))
+            code = ("import chip_smoke as c; "
+                    f"c.aot_child({str(store) if use_store else ''!r}, "
+                    f"{str(out)!r})")
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-c", code], cwd=here,
+                                  env=env, capture_output=True, text=True,
+                                  timeout=600)
+            wall = time.perf_counter() - t0
+            if proc.returncode:
+                raise AssertionError(f"AOT {label}: the process failed:\n"
+                                     f"{proc.stdout[-2000:]}\n"
+                                     f"{proc.stderr[-4000:]}")
+            rep = reports[label[0]] = json.loads(
+                proc.stdout.strip().splitlines()[-1])
+            progs = [k for k in rep if k not in ("stats", "triton_imported")]
+            times[label[0]] = {k: rep[k]["first_run_ms"] for k in progs}
+            print(f"AOT {label}: first Compiled.run "
+                  + ", ".join(f"{k} {rep[k]['first_run_ms']:.2f} ms "
+                              f"(restored {rep[k]['restored']}, store hits "
+                              f"{rep[k]['disk_hits']}, K1 Triton compiles "
+                              f"{rep[k]['triton_compiles']})" for k in progs)
+                  + f"; store {rep['stats']['persistent_dir'] and 'on'}, "
+                  f"{rep['stats']['disk_bytes_written']} B written, "
+                  f"{rep['stats']['disk_bytes_read']} B read, errors "
+                  f"{rep['stats']['disk_errors']}; triton imported "
+                  f"{rep['triton_imported']}; process wall {wall:.1f} s "
+                  f"on {card}")
+            if rep["stats"]["disk_errors"]:
+                raise AssertionError(f"AOT {label}: store errors "
+                                     f"{rep['stats']['disk_errors']}")
+            for k in progs:
+                restored = use_store and label[0] in "cd"
+                if rep[k]["restored"] != [restored] * len(rep[k]["restored"]) \
+                        or rep[k]["disk_hits"] != (
+                            len(rep[k]["restored"]) if restored else 0):
+                    raise AssertionError(
+                        f"AOT {label} {k}: restored {rep[k]['restored']}, "
+                        f"store hits {rep[k]['disk_hits']}")
+                if k == "gemm" and not rep[k]["k1_launches"]:
+                    raise AssertionError(f"AOT {label}: gemm launched no K1")
+                got = torch.load(out / f"{k}.pt")
+                want = torch.load(tmp / "out_a" / f"{k}.pt")
+                for key in want:
+                    if not torch.equal(got[key], want[key]):
+                        raise AssertionError(f"AOT {label} {k}/{key}: != "
+                                             "(a) bit for bit")
+        if not reports["b"]["gemm"]["triton_compiles"]:
+            raise AssertionError("AOT b: the cold run compiled no K1")
+        if reports["d"]["gemm"]["triton_compiles"] or any(
+                (tmp / "triton_d").iterdir()):
+            raise AssertionError(
+                "AOT d: a store hit compiled through Triton "
+                f"({reports['d']['gemm']['triton_compiles']} compiles, "
+                f"{len(list((tmp / 'triton_d').iterdir()))} cache entries)")
+        print(f"AOT: {len(list(store.iterdir()))} store entries; (c) and (d) "
+              "restored every block from one store hit each, (d) compiled "
+              "nothing through Triton (its cache stayed empty); every output "
+              "== (a) bit for bit")
+    return times
+
+
+# ---------------------------------------------------------------------------
+# The MoE and hybrid families: qwen2-moe-a2.7b at full width
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "qwen2-moe-a2.7b"
+MOE_F32_LAYERS = 8             # float32 depth: it fits beside the bf16 model
+MOE_SERVE_CF = 16.0            # >= e / k = 15: a 4-slot decode tick drops none
+MOE_SMOKE = ("jamba-1.5-large-398b", "arctic-480b")
+MOE_SMOKE_CF = 8.0             # the reference's high-capacity decode check
+MOE_SMOKE_TOL = 2e-4           # its tolerance, prefill + decode vs forward
+
+
+def moe_config(**changes):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(MOE_ARCH), **changes)
+
+
+def with_capacity(cfg, factor):
+    import dataclasses
+
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=factor))
+
+
+def routed(moe, fn):
+    """``fn()`` with every MoE layer's routing recorded (per token and
+    expert: not chosen, dropped over capacity, kept): its result, and the
+    routing per layer."""
+    moe.ROUTES = []
+    try:
+        out = fn()
+    finally:
+        routes, moe.ROUTES = moe.ROUTES, None
+    return out, routes
+
+
+def route_agreement(torch, a, b):
+    """The share of (token, layer) expert sets that differ between two
+    runs' routings (a set differs where an expert is chosen in one run
+    and not the other, or kept in one and dropped in the other), per
+    token (flattened over the batch, in dispatch order) whether its sets
+    agree in every layer, and each run's share of (token, expert) choices
+    dropped."""
+    same = torch.stack([(x == y).all(-1).reshape(-1) for x, y in zip(a, b)])
+    drops = [sum(int((r == 1).sum()) for r in rs)
+             / max(1, sum(int((r > 0).sum()) for r in rs)) for rs in (a, b)]
+    return 1.0 - same.float().mean().item(), same.all(0), drops
+
+
+def before_first_flip(torch, ok):
+    """Per token (flattened in dispatch order), whether it comes before
+    the first token whose routing differs in any layer.  Such a token is
+    untouched by every flip: attention is causal within a prompt, the
+    second prompt's tokens follow the first's, and an expert's capacity
+    slots are dealt in this order."""
+    bad = (~ok).nonzero()
+    first = int(bad[0, 0]) if bad.numel() else ok.numel()
+    return torch.arange(ok.numel(), device=ok.device) < first
+
+
+def moe_profile(torch, fn, card, wall_ms, label):
+    """One prefill under ``torch.profiler``: the card's busy time split
+    into K2, the expert products (the ``moe.experts`` ranges), dispatch
+    (``moe.dispatch``: routing, top-k, the capacity table, the gather and
+    the scatter-add) and the rest, beside the unprofiled wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = ("moe.experts", "moe.dispatch")
+    events = prof.key_averages()
+    # the ranges show on the device timeline too (their span there, idle
+    # gaps included): the kernels are the other device events
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and e.key not in names]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    if not busy:
+        print(f"profile {label}: the profiler recorded no device time")
+        return
+    k2 = sum(e.self_device_time_total for e in kernels
+             if "flash_fwd" in e.key) / 1e3
+    # a range's kernels: the device time of the ops it ran on the host
+    inside = {n: sum(e.device_time_total for e in events
+                     if e.key == n and e.device_type == DeviceType.CPU) / 1e3
+              for n in names}
+    spans = {n: sum(e.self_device_time_total for e in events
+                    if e.key == n and e.device_type == DeviceType.CUDA) / 1e3
+             for n in names}
+    experts, dispatch = inside["moe.experts"], inside["moe.dispatch"]
+    rest = busy - k2 - experts - dispatch
+    print(f"profile {label}: kernels busy {busy:.2f} ms, {busy / wall_ms:.1%} "
+          f"of the unprofiled {wall_ms:.1f} ms: K2 {k2:.2f} ms "
+          f"({k2 / busy:.1%}), expert products {experts:.2f} ms "
+          f"({experts / busy:.1%}), dispatch {dispatch:.2f} ms "
+          f"({dispatch / busy:.1%}), rest {rest:.2f} ms ({rest / busy:.1%}); "
+          f"the ranges' spans on the device: experts "
+          f"{spans['moe.experts']:.2f} ms, dispatch "
+          f"{spans['moe.dispatch']:.2f} ms on {card}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"  {e.self_device_time_total / 1e3:8.2f} ms  x{e.count:<5d} "
+              f"{e.key[:100]}")
+
+
+def moe_prefill(torch, dev, cfg, dtype, label):
+    """A model of ``cfg`` with weights drawn on the card (seed 0) and
+    stored as ``dtype``, its prefill of 2 x ``PREFILL_LEN`` tokens with
+    ``impl="kernel"`` against ``impl="chunked"`` (the plain attention),
+    computing in ``dtype``: K2 launched once per layer; the share of
+    (token, layer) expert sets that differ (chosen, or kept against
+    dropped over capacity); every token held where no set differs, else
+    the tokens whose sets agree in every layer (``hold_prefill`` on them),
+    at ``PREFILL_TOL`` in float32 and ``PREFILL_TOL_BF16`` in bfloat16.
+    In bfloat16 also phase 7's second rule: on the tokens whose sets agree
+    in three runs, the kernel's gap to the same weights computed in
+    float32 (chunked) may not exceed ``BF16_GAP_RATIO`` x the chunked
+    path's.  Returns (model, params, the prefill as a function of
+    ``impl``, K2 launches, flip share)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import build_model, moe
+
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params, _ = model.init(gen, dtype=dtype)
+    tokens = torch.randint(1, cfg.vocab_size, (2, PREFILL_LEN),
+                           generator=gen, device=dev, dtype=torch.int32)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"{label}: {cfg.name}, {cfg.n_layers} layers, {n_params} "
+          f"parameters ({dtname(dtype)}, seed 0) built on the card in "
+          f"{time.perf_counter() - t0:.2f} s; "
+          f"{torch.cuda.memory_allocated() / 1e9:.1f} GB allocated")
+
+    def run(impl, compute=dtype):
+        cache = model.init_cache(2, PREFILL_LEN, dtype=compute, device=dev)
+        return model.prefill(params, {"tokens": tokens}, cache, impl=impl,
+                             compute_dtype=compute)
+
+    fa.LAUNCHES.clear()
+    got, r_kernel = routed(moe, lambda: run("kernel"))
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    if launches != {None: cfg.n_layers}:
+        raise AssertionError(f"{label}: K2 launched {launches} times by "
+                             f"window, want {cfg.n_layers} (global)")
+    if got[0].shape != (2, cfg.vocab_size) or not bool(
+            torch.isfinite(got[0]).all()):
+        raise AssertionError(f"{label}: logits {tuple(got[0].shape)} not "
+                             "finite")
+    want, r_plain = routed(moe, lambda: run("chunked"))
+    if len(r_kernel) != cfg.n_layers or len(r_plain) != cfg.n_layers:
+        raise AssertionError(f"{label}: routes of {len(r_kernel)} layers")
+    share, ok, drops = route_agreement(torch, r_kernel, r_plain)
+    f32 = dtype == torch.float32
+    tol = PREFILL_TOL if f32 else PREFILL_TOL_BF16
+    if share == 0.0:
+        worst = hold_prefill(torch, got, want, tol,
+                             f"{label}: impl=kernel != impl=chunked")
+        held = "every token"
+    else:
+        # float32: the tokens no flip reaches, at 1e-4 (a flipped token's
+        # values, attended to by every later token of its prompt, move
+        # theirs by more than float32's rounding); bfloat16: every token
+        # whose own sets agree, at 1e-1
+        held_tok = (before_first_flip(torch, ok) if f32 else ok).view(
+            2, PREFILL_LEN)
+        if not bool(held_tok.any()):
+            raise AssertionError(f"{label}: the first token's routing "
+                                 "differs; no token is left to hold")
+        worst = hold_prefill(torch, got, want, tol,
+                             f"{label}: impl=kernel != impl=chunked on the "
+                             "tokens whose routing agrees", tokens=held_tok)
+        held = (f"the {int(held_tok.sum())} of {ok.numel()} tokens "
+                + ("before the first routing flip" if f32
+                   else "whose sets agree"))
+        if f32:
+            agreeing = worst_gap(prefill_pairs(
+                got, want, tokens=ok.view(2, PREFILL_LEN)))
+            print(f"{label}: on all {int(ok.sum())} tokens whose own sets "
+                  f"agree (flips attended to included) the worst err / "
+                  f"scale is {agreeing[0]:.3e} in {agreeing[1]}")
+    ok = ok.view(2, PREFILL_LEN)
+    print(f"{label}: impl=kernel == impl=chunked in {dtname(dtype)} on "
+          f"{held} (logits and the k/v caches of all {cfg.n_layers} layers: "
+          f"rtol={tol}, atol={tol} x max|value|; worst err / scale "
+          f"{worst[0]:.3e} in {worst[1]}); (token, layer) expert sets that "
+          f"differ: {share:.3e} of {ok.numel() * cfg.n_layers}; dropped "
+          f"over capacity {drops[0]:.3e} / {drops[1]:.3e} of the expert "
+          f"choices (kernel / plain); K2 launches by window {launches}")
+    if dtype != torch.float32:
+        ref, r_ref = routed(moe, lambda: run("chunked", torch.float32))
+        _, ok_k, _ = route_agreement(torch, r_kernel, r_ref)
+        share_ref, ok_c, _ = route_agreement(torch, r_plain, r_ref)
+        all3 = (ok.reshape(-1) & ok_k & ok_c).view(2, PREFILL_LEN)
+        gaps = {}
+        for impl, out in (("kernel", got), ("chunked", want)):
+            gaps[impl], where = worst_gap(prefill_pairs(out, ref,
+                                                        tokens=all3))
+            print(f"{label}: impl={impl} {dtname(dtype)} against the same "
+                  f"weights computed in float32 (chunked) on the "
+                  f"{int(all3.sum())} tokens whose sets agree in all three "
+                  f"runs: worst err / scale {gaps[impl]:.3e} in {where}")
+        if gaps["kernel"] > BF16_GAP_RATIO * gaps["chunked"]:
+            raise AssertionError(
+                f"{label}: impl=kernel lies {gaps['kernel']:.3e} from "
+                f"float32, over {BF16_GAP_RATIO} x impl=chunked's "
+                f"{gaps['chunked']:.3e}")
+        print(f"{label}: the plain bfloat16 prefill's own sets differ from "
+              f"float32's in {share_ref:.3e} of (token, layer)")
+        del ref
+    del got, want
+    return model, params, run, launches, share
+
+
+def moe_phase(torch, dev, card):
+    """Phases 22-23: qwen2-moe-a2.7b at full width and depth in bfloat16
+    (``moe_prefill``; times, tokens/s and the profiler's split), served
+    (phase 8's engine and teacher-forced check, the capacity factor
+    raised to ``MOE_SERVE_CF`` so that a batched decode tick drops no
+    token a single-sequence decode keeps), then float32 at
+    ``MOE_F32_LAYERS`` layers, and K2 at its shape (B=2, H=KV=16, hd=128,
+    S=4096, causal) against its plain version, timed beside SDPA and the
+    bound.  Returns the kernel-table rows."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import build_model
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cfg = moe_config()
+    model, params, run, launches_bf16, share = moe_prefill(
+        torch, dev, cfg, bf16, f"prefill {MOE_ARCH}")
+    ms = {impl: cuda_ms(torch, lambda: run(impl), reps=3, inner=1, warmup=1)
+          for impl in ("kernel", "chunked")}
+    for impl, t in ms.items():
+        print(f"end-to-end prefill {MOE_ARCH} impl={impl} bfloat16: "
+              f"{t:.2f} ms for 2 x {PREFILL_LEN} tokens, "
+              f"{2 * PREFILL_LEN / t * 1e3:.0f} tokens/s on {card}")
+    moe_profile(torch, lambda: run("kernel"), card, ms["kernel"],
+                f"prefill {MOE_ARCH} bfloat16 impl=kernel")
+    serving_phase(torch, dev, card,
+                  build_model(with_capacity(cfg, MOE_SERVE_CF)), params)
+    del model, params, run
+    torch.cuda.empty_cache()
+    model, params, run, launches_f32, share32 = moe_prefill(
+        torch, dev, moe_config(n_layers=MOE_F32_LAYERS), f32,
+        f"prefill {MOE_ARCH} at {MOE_F32_LAYERS} layers")
+    del model, params, run
+    torch.cuda.empty_cache()
+
+    rows = []
+    b, h, kv, s, hd = 2, cfg.n_heads, cfg.n_kv_heads, PREFILL_LEN, \
+        cfg.head_dim
+    tols = {f32: 2e-5, bf16: 1e-2}
+    for dtype, launches in ((bf16, launches_bf16), (f32, launches_f32)):
+        q, k, v = k2_inputs(torch, dev, b, h, kv, s, s, hd, dtype, 22)
+        fa.LAUNCHES.clear()
+        err, row_err = check_k2(torch, fa, q, k, v, True, None,
+                                tols[dtype], f"{MOE_ARCH} {dtname(dtype)}")
+        if sum(fa.LAUNCHES.values()) != 1:
+            raise AssertionError(f"K2 {MOE_ARCH}: launched "
+                                 f"{dict(fa.LAUNCHES)} times in one call")
+        t = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True))
+        plain_ms = cuda_ms(torch, lambda: fa.flash_attention_plain(
+            q, k, v, causal=True), reps=5, inner=5)
+        library_ms = cuda_ms(torch, sdpa_call(torch, q, k, v, None), reps=5,
+                             inner=5)
+        bound_s, bound_by, flops, nbytes, _ = k2_bound(
+            torch, b, h, kv, s, s, hd, None, dtype)
+        del q, k, v
+        rows.append({
+            "name": f"flash_attention[{MOE_ARCH} global S={s} B={b} "
+                    f"{dtname(dtype)}]",
+            "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,
+            "launches": launches.get(None, 0), "max_abs_err": err, "ms": t,
+            "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
+            "bound_by": bound_by, "library_ms": library_ms})
+        print(f"times K2 {MOE_ARCH} {dtname(dtype)} B={b} H={h} KV={kv} "
+              f"hd={hd} S={s}: kernel {t:.4f} ms "
+              f"({flops / (t * 1e-3) / 1e12:.1f} TFLOP/s), plain "
+              f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound "
+              f"{bound_s * 1e3:.4f} ms ({bound_by}); max_abs_err {err:.3e}, "
+              f"worst row-relative err {row_err:.3e}; K2 launches per "
+              f"prefill {launches.get(None, 0)} on {card}")
+    print(f"routing flips (kernel vs plain prefill): bfloat16 at "
+          f"{cfg.n_layers} layers {share:.3e}, float32 at {MOE_F32_LAYERS} "
+          f"layers {share32:.3e} of the (token, layer) expert sets")
+    return rows
+
+
+def moe_smoke_phase(torch, dev, card):
+    """Phase 24: jamba-1.5-large-398b (hybrid: SSM and attention layers,
+    an MoE FFN every other layer) and arctic-480b (128 experts and a
+    dense residual) at ``smoke_config`` size — neither fits the card at
+    full width — with weights drawn on the card (seed 0), float32, the
+    capacity factor at ``MOE_SMOKE_CF``: a prefill of 21 tokens
+    (``impl="kernel"``: K2 on every attention layer) then one decode
+    step equals the forward's logits at token 21 (``MOE_SMOKE_TOL``, the
+    reference's check); the engine serves 3 requests."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import build_model
+    from repro_torch.serving import Request, ServeEngine
+
+    f32 = torch.float32
+    for arch in MOE_SMOKE:
+        cfg = with_capacity(smoke_config(arch), MOE_SMOKE_CF)
+        model = build_model(cfg)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params, _ = model.init(gen)
+        s = 21
+        tokens = torch.randint(1, cfg.vocab_size, (2, s + 1), generator=gen,
+                               device=dev, dtype=torch.int32)
+        x, aux = model.forward(params, {"tokens": tokens},
+                               compute_dtype=f32)
+        full = x[:, s] @ model._head_matrix(params)
+        cache = model.init_cache(2, 48, dtype=f32, device=dev)
+        fa.LAUNCHES.clear()
+        _, cache = model.prefill(params, {"tokens": tokens[:, :s]}, cache,
+                                 impl="kernel", compute_dtype=f32)
+        torch.cuda.synchronize()
+        n_attn = sum(cfg.layer_kind(i) == "attn"
+                     for i in range(cfg.n_layers))
+        if sum(fa.LAUNCHES.values()) != n_attn:
+            raise AssertionError(f"{arch}: K2 launched {dict(fa.LAUNCHES)} "
+                                 f"times, want {n_attn}")
+        logits, _ = model.decode_step(params, cache, tokens[:, s],
+                                      torch.full((2,), s, dtype=torch.int32,
+                                                 device=dev),
+                                      compute_dtype=f32)
+        err = (logits - full).abs().max().item()
+        torch.testing.assert_close(logits, full, rtol=MOE_SMOKE_TOL,
+                                   atol=MOE_SMOKE_TOL)
+        engine = ServeEngine(model, params, n_slots=2, cache_len=48,
+                             compute_dtype=f32)
+        reqs = [Request(rid=i, prompt=tokens[i % 2, :8 + 4 * i].tolist(),
+                        max_new_tokens=4) for i in range(3)]
+        for r in reqs:
+            engine.submit(r)
+        done = engine.run_until_drained()
+        if sorted(r.rid for r in done) != [0, 1, 2] or any(
+                len(r.output) != 4 or not all(0 <= t < cfg.vocab_size
+                                              for t in r.output)
+                for r in reqs):
+            raise AssertionError(f"{arch}: the engine served "
+                                 f"{[r.output for r in reqs]}")
+        kinds = sorted({blk for blk in model.slot_kinds + model.tail_kinds})
+        print(f"smoke {arch}: {cfg.n_layers} layers {kinds}, capacity "
+              f"factor {MOE_SMOKE_CF}: prefill of {s} tokens (K2 launches "
+              f"{n_attn}) + one decode step == forward at token {s} "
+              f"(max abs err {err:.3e}, tol {MOE_SMOKE_TOL}); aux "
+              f"{float(aux):.4f}; engine served {len(done)} requests "
+              f"{[r.output for r in reqs]} on {card}")
+        del model, params, engine
+        torch.cuda.empty_cache()
+
+
 def main(device: str = "cuda") -> int:
     sys.stdout.reconfigure(line_buffering=True)
     torch = _setup()
@@ -3065,6 +3675,14 @@ def main(device: str = "cuda") -> int:
     # -- master/worker (paper Fig. 1b) and the runtime -----------------------
     master_worker_phase(torch, dev, card)
     rows += runtime_phase(torch, dev, card)
+
+    # -- the persistent compile store across processes ----------------------
+    torch.cuda.empty_cache()
+    aot_phase(torch, card)
+
+    # -- MoE and hybrid: qwen2-moe-a2.7b at full width, jamba and arctic -----
+    rows += moe_phase(torch, dev, card)
+    moe_smoke_phase(torch, dev, card)
 
     print(card)
     print(json.dumps({"kernels": rows}))

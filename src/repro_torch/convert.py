@@ -4,9 +4,11 @@ JAX package and the port.
 The JAX package's envs are dicts of arrays; given as numpy, they map
 into the port with :func:`env_from_numpy` and back with
 :func:`env_to_numpy`.  Its model parameter and cache trees (nested dicts
-of arrays, the same keys and shapes in both packages) map in with
-:func:`params_from_numpy` / :func:`cache_from_numpy` and back with
-:func:`tree_to_numpy`.  JAX computes in 32 bits by default (float32,
+of arrays, the same keys and shapes in both packages: an MoE layer's
+``router``, ``w_gate``/``w_up``/``w_down``, ``shared``, ``shared_gate``
+and ``dense`` as well, and a hybrid's SSM ``h``/``conv`` caches beside
+the KV caches) map in with :func:`params_from_numpy` /
+:func:`cache_from_numpy` and back with :func:`tree_to_numpy`.  JAX computes in 32 bits by default (float32,
 int32), so 64-bit numpy values narrow to 32 bits on the way in, as
 ``jnp.asarray`` would narrow them; a 0-d value stays a 0-d tensor.
 """

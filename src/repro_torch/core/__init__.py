@@ -4,6 +4,8 @@ Module for module the counterpart of :mod:`repro.core`:
 
 * :mod:`repro_torch.core.api`          — ``omp.compile``, ``Options``, the
   pass pipeline and the compilation cache,
+* :mod:`repro_torch.core.aot_store`    — the persistent compile store
+  (entries that outlive the process, keyed by structural fingerprints),
 * :mod:`repro_torch.core.pragma`       — the OpenMP annotation surface,
 * :mod:`repro_torch.core.context`      — Context Analysis over the aten
   graph of the vmapped body (§3.1.1),

@@ -22,21 +22,33 @@ staging).
 
 Options are validated at construction with the reference's messages
 (:class:`CompileError`); compiles are cached under a structural key
-(program signature, mesh shape/axes/device, Options, env shapes).  There
-is no persistent (AOT) store in the port yet.
+(program signature, mesh shape/axes/device, Options, env shapes).  With
+:func:`enable_persistent_cache` (or ``$REPRO_AOT_CACHE_DIR``) compiles
+also persist across processes through the versioned store of
+:mod:`repro_torch.core.aot_store`: a cold build stores its planned
+artifacts (and, after its first run on the card, the cubin of each span
+kernel), and a fresh process pointed at the same directory restores
+them instead of planning and compiling; the pass records rebuild lazily
+when inspected.
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
+import io
 import itertools
 import math
+import os
+import pickle
 import threading
 from typing import Any, Mapping
 
+import torch
+
+from repro_torch.core import aot_store as aot_store_mod
 from repro_torch.core import pragma
 from repro_torch.core import plan as plan_mod
-from repro_torch.core.context import spec_of
+from repro_torch.core.context import TensorSpec, spec_of
 from repro_torch.core.loop import LoopNotCanonical
 
 
@@ -62,7 +74,8 @@ class Lowering(enum.Enum):
     chunk compute in plain PyTorch."""
 
     MASTER_WORKER = "master_worker"
-    """Paper-faithful Fig. 1b staging (not ported yet: compiling raises)."""
+    """Paper-faithful Fig. 1b staging: rank 0 is the master, which sends
+    every worker its inputs and gathers their chunks back."""
 
     KERNEL = "kernel"
     """COLLECTIVE (a block) or FUSED (a region) with each compute span —
@@ -333,20 +346,66 @@ _TICK = itertools.count()        # LRU clock
 _HITS = _Counter()
 _MISSES = _Counter()
 
+# The persistent store (None: in-memory only), enabled by
+# enable_persistent_cache() or $REPRO_AOT_CACHE_DIR.
+_PERSISTENT: aot_store_mod.AOTStore | None = None
+_RESTORED: dict[str, "_Stored"] = {}   # disk key -> entry read or written
+_UNEXPORTABLE: set[str] = set()        # disk keys that cannot be stored
+
 
 def compile_cache_stats() -> dict:
-    """Hit/miss counters and current size of the compilation cache."""
-    return {"hits": _HITS.value, "misses": _MISSES.value,
-            "size": len(_CACHE)}
+    """Hit/miss counters and current size of the compilation cache, plus
+    the persistent store's counters (``disk_hits`` / ``disk_misses`` /
+    ``disk_errors`` / ``disk_bytes_read`` / ``disk_bytes_written`` /
+    ``evictions`` / ``evicted_bytes``; zeros while persistence is off)
+    and its directory (``persistent_dir``)."""
+    stats = {"hits": _HITS.value, "misses": _MISSES.value,
+             "size": len(_CACHE),
+             "persistent_dir": _PERSISTENT.path if _PERSISTENT else None}
+    stats.update(_PERSISTENT.stats if _PERSISTENT
+                 else aot_store_mod.empty_stats())
+    return stats
 
 
 def clear_compile_cache() -> None:
-    """Drop every cached compilation and reset the counters."""
+    """Drop every cached compilation and reset the counters (the
+    persistent store keeps its entries on disk; its counters reset)."""
     global _HITS, _MISSES
     with _CACHE_LOCK:
         _CACHE.clear()
+        _RESTORED.clear()
+        _UNEXPORTABLE.clear()
         _HITS = _Counter()
         _MISSES = _Counter()
+        if _PERSISTENT is not None:
+            _PERSISTENT.stats = aot_store_mod.empty_stats()
+
+
+def enable_persistent_cache(path: str | None = None) -> str:
+    """Turn on the on-disk store at ``path`` (default:
+    ``$REPRO_AOT_CACHE_DIR`` or ``~/.cache/repro-aot``); returns the
+    resolved directory.  Compiles gain a disk probe on the miss path and
+    a save on cold builds; a fresh process pointed at the same directory
+    restores the planned artifacts (and the span kernels' cubins)
+    instead of planning and compiling."""
+    global _PERSISTENT
+    if path is None:
+        path = os.environ.get(aot_store_mod.ENV_VAR) or os.path.join(
+            os.path.expanduser("~"), ".cache", "repro-aot")
+    _PERSISTENT = aot_store_mod.AOTStore(path)
+    return _PERSISTENT.path
+
+
+def disable_persistent_cache() -> None:
+    """Back to in-memory-only caching (the entries stay on disk)."""
+    global _PERSISTENT
+    _PERSISTENT = None
+    _RESTORED.clear()
+    _UNEXPORTABLE.clear()
+
+
+if os.environ.get(aot_store_mod.ENV_VAR):
+    enable_persistent_cache()
 
 
 def _program_signature(p) -> tuple:
@@ -373,6 +432,110 @@ def _env_signature(env: Mapping[str, Any]) -> tuple:
 def _mesh_signature(mesh) -> tuple:
     return (tuple((str(a), int(mesh.shape[a])) for a in mesh.axis_names),
             str(mesh.device))
+
+
+def _stable_program_token(p) -> tuple:
+    """Cross-process counterpart of :func:`_program_signature` for the
+    persistent store: loop bodies hash by bytecode + consts + closure
+    values (:func:`repro_torch.core.aot_store.fingerprint`), not by
+    ``id()``, so the same source program keys alike in every process."""
+    if isinstance(p, pragma.ParallelRegion):
+        return ("region",
+                tuple(_stable_program_token(s) for s in p.stages))
+    if isinstance(p, pragma.SerialStage):
+        return ("serial", aot_store_mod.fingerprint(p.fn), p.reads)
+    return ("for", aot_store_mod.fingerprint(p.body), p.bounds, p.collapse,
+            (p.schedule.kind, p.schedule.chunk),
+            tuple(sorted(p.reduction.items())))
+
+
+# ---------------------------------------------------------------------------
+# What the persistent store keeps
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class _Stored:
+    """One store entry: what the executor is built from, as data — the
+    plan (``exe_plan``), the ``kernel`` pass's plan (``kernel``, or None)
+    and, once a run on the card compiled them, each span kernel's cubins
+    (``cubins``: see :func:`repro_torch.kernels.span_kernel.export_cubins`).
+    Loop bodies are not stored: the caller's program supplies them, and
+    the disk key (a fingerprint of their bytecode) guarantees they are
+    the same code."""
+
+    exe_plan: Any
+    kernel: Any
+    cubins: dict = dataclasses.field(default_factory=dict)
+
+
+def _program_objects(program) -> dict:
+    """``{token: obj}`` of the program, its stages and their loop bodies /
+    glue functions: the objects an entry refers to and does not store."""
+    stages = (program.stages if isinstance(program, pragma.ParallelRegion)
+              else (program,))
+    objs = {("part", "program"): program}
+    for i, st in enumerate(stages):
+        objs[("part", "stage", i)] = st
+        objs[("part", "fn", i)] = (st.fn if isinstance(st, pragma.SerialStage)
+                                   else st.body)
+    return objs
+
+
+class _EntryPickler(pickle.Pickler):
+    """Pickles an entry with the program's objects as references (the
+    traced aten graphs of the analysis are left out: only the span
+    kernel's generator reads them, and it re-traces)."""
+
+    def __init__(self, fh, parts: dict):
+        super().__init__(fh, protocol=pickle.HIGHEST_PROTOCOL)
+        self._parts = parts
+
+    def persistent_id(self, obj):
+        from repro_torch.core.context import BodyTrace
+
+        token = self._parts.get(id(obj))
+        if token is not None:
+            return token
+        if isinstance(obj, BodyTrace):
+            return ("trace",)
+        return None
+
+
+class _EntryUnpickler(pickle.Unpickler):
+    def __init__(self, fh, objs: dict):
+        super().__init__(fh)
+        self._objs = objs
+
+    def persistent_load(self, pid):
+        if pid == ("trace",):
+            return None
+        return self._objs[pid]
+
+
+def _encode(program, stored: _Stored) -> bytes | None:
+    """The entry's body, or None where the plan holds something that is
+    not data (its key then builds cold in every process)."""
+    buf = io.BytesIO()
+    try:
+        _EntryPickler(buf, {id(obj): tok for tok, obj in
+                            _program_objects(program).items()}).dump(stored)
+    except (pickle.PicklingError, TypeError, AttributeError, RuntimeError):
+        return None
+    return buf.getvalue()
+
+
+def _decoder(program):
+    """The decoder of an entry whose references resolve into
+    ``program``."""
+    objs = _program_objects(program)
+
+    def decode(body: bytes) -> _Stored:
+        out = _EntryUnpickler(io.BytesIO(body), objs).load()
+        if not isinstance(out, _Stored):
+            raise ValueError("not a compile entry")
+        return out
+    return decode
 
 
 # ---------------------------------------------------------------------------
@@ -673,31 +836,35 @@ def _build_region_staged(region, env_shapes, num, axis, options,
         program=region)
 
 
-def _make_executor(program, mesh, axis, options: Options, art: _Artifacts):
-    """The **lower** pass: bind the planned artifacts to the mesh."""
+def _kernel_pass(passes):
+    return next((pr.output for pr in passes if pr.name == "kernel"), None)
+
+
+def _make_executor(program, mesh, axis, options: Options, exe_plan,
+                   kernel_plan):
+    """The **lower** pass: bind the planned artifacts (the plan and the
+    ``kernel`` pass's plan) to the mesh."""
     from repro_torch.core import region as region_mod
     from repro_torch.core import transform as tf
 
-    kernel_plan = next((pr.output for pr in art.passes
-                        if pr.name == "kernel"), None)
     if isinstance(program, pragma.ParallelRegion):
         fused = options.lowering in (Lowering.FUSED, Lowering.KERNEL)
         return region_mod.DistributedRegion(
             region=program, mesh=mesh,
-            plan=art.exe_plan if fused else None,
+            plan=exe_plan if fused else None,
             axis=axis, fuse=fused,
             shard_inputs=options.shard is ShardPolicy.SLICE,
             comm=options.comm.value,
             comm_schedule=options.comm_schedule,
             schedule_override=options.schedule,
-            stage_plans=None if fused else art.exe_plan,
+            stage_plans=None if fused else exe_plan,
             lowering=_lowering_str(options),
             paper_master_excluded=options.paper_master_excluded,
             use_kernel=options.lowering is Lowering.KERNEL,
             kernel_plan=kernel_plan,
             chunk_weights=options.chunk_weights)
     return tf.DistributedProgram(
-        program=program, mesh=mesh, plan=art.exe_plan,
+        program=program, mesh=mesh, plan=exe_plan,
         comm_schedule=options.comm_schedule,
         use_kernel=options.lowering is Lowering.KERNEL,
         kernel_plan=kernel_plan)
@@ -731,6 +898,12 @@ class Compiled:
     _exe: Any = dataclasses.field(default=None, repr=False)
     _passes: tuple | None = dataclasses.field(default=None, repr=False)
     _env_sig: tuple | None = dataclasses.field(default=None, repr=False)
+    # Persistent-store state: after a restore that skipped planning, the
+    # env specs to rebuild the pass records with when inspected; after a
+    # cold build on the card, the entry whose span kernels' cubins the
+    # first run adds.
+    _restored_env: Any = dataclasses.field(default=None, repr=False)
+    _cubins_due: Any = dataclasses.field(default=None, repr=False)
 
     def run(self, env: Mapping[str, Any]) -> dict:
         """Execute on the mesh's device; an env tensor on another device
@@ -742,13 +915,22 @@ class Compiled:
         env = tf.check_env(env, self.mesh.device)
         self._ensure(env)
         out = self._exe(env)
+        if self._cubins_due is not None:
+            self._store_cubins()
         if _fault_hook is not None:
             out = _fault_hook("run_exit", out)
         return out
 
     __call__ = run
 
-    def _ensure(self, env_like: Mapping[str, Any]) -> None:
+    @property
+    def restored(self) -> bool:
+        """Whether this artifact was served from the persistent store
+        (planning skipped; the pass records rebuild when inspected)."""
+        return self._restored_env is not None
+
+    def _ensure(self, env_like: Mapping[str, Any], *,
+                allow_restore: bool = True) -> None:
         sig = _env_signature(env_like)
         if sig == self._env_sig and self._exe is not None:
             return
@@ -761,6 +943,9 @@ class Compiled:
             self.cache_hit = True
             self._bind(entry.art, sig)
             return
+        if (allow_restore and _PERSISTENT is not None
+                and self._try_restore(sig)):
+            return
         _MISSES.inc()
         self.cache_hit = False
         env_shapes = {k: spec_of(v) for k, v in env_like.items()}
@@ -772,16 +957,95 @@ class Compiled:
                 oldest = min(_CACHE, key=lambda k: _CACHE[k].stamp)
                 del _CACHE[oldest]
         self._bind(art, sig)
+        if _PERSISTENT is not None:
+            self._save(sig, art)
 
     def _bind(self, art: _Artifacts, sig: tuple) -> None:
         exe = _make_executor(self.program, self.mesh, self.axis,
-                             self.options, art)
+                             self.options, art.exe_plan,
+                             _kernel_pass(art.passes))
         self._passes = art.passes + (PassRecord(
             "lower", input="planned artifacts + mesh", output=exe),)
         self._exe = exe
         self._env_sig = sig
 
+    # -- the persistent store ----------------------------------------------
+
+    def _disk_key(self, sig: tuple) -> str:
+        return aot_store_mod.fingerprint(
+            "compiled-run", aot_store_mod.STORE_VERSION,
+            _stable_program_token(self.program),
+            _mesh_signature(self.mesh), self.options, self.axis, sig)
+
+    def _save(self, sig: tuple, art: _Artifacts) -> None:
+        """Store a cold build's planned artifacts (a staged plan deferred
+        to run time, or a plan that is not data, cannot be stored: its
+        key builds cold in every process).  On the card, the first run
+        adds the span kernels' cubins (:meth:`_store_cubins`)."""
+        dkey = self._disk_key(sig)
+        if dkey in _UNEXPORTABLE or dkey in _RESTORED:
+            return
+        stored = _Stored(art.exe_plan, _kernel_pass(art.passes))
+        body = (None if art.exe_plan is None
+                else _encode(self.program, stored))
+        if body is None:
+            _UNEXPORTABLE.add(dkey)
+            return
+        _PERSISTENT.save(dkey, body, self.mesh.device)
+        _RESTORED[dkey] = stored
+        if (self.mesh.device.type == "cuda" and stored.kernel is not None
+                and stored.kernel.spans):
+            self._cubins_due = dkey, stored
+
+    def _store_cubins(self) -> None:
+        """After the first run of a cold build on the card: the entry
+        again, with the cubin Triton compiled for each span kernel."""
+        from repro_torch.kernels import span_kernel
+
+        dkey, stored = self._cubins_due
+        self._cubins_due = None
+        stored.cubins = span_kernel.export_cubins(stored.kernel)
+        body = _encode(self.program, stored)
+        if _PERSISTENT is not None and body is not None and stored.cubins:
+            _PERSISTENT.save(dkey, body, self.mesh.device)
+
+    def _try_restore(self, sig: tuple) -> bool:
+        """Serve this compile from the persistent store: planning is
+        skipped (the pass records rebuild when inspected), and on the
+        card each stored cubin is loaded for K1's launcher, so no span
+        kernel is compiled.  A cubin that does not load counts as a store
+        error, and its span kernel then builds cold through Triton (the
+        same kernel)."""
+        dkey = self._disk_key(sig)
+        if dkey in _UNEXPORTABLE:
+            return False
+        stored = _RESTORED.get(dkey)
+        if stored is None:
+            stored = _PERSISTENT.load(dkey, self.mesh.device,
+                                      _decoder(self.program))
+            if stored is None:
+                return False
+            _RESTORED[dkey] = stored
+            if stored.cubins and self.mesh.device.type == "cuda":
+                from repro_torch.kernels import span_kernel
+
+                _PERSISTENT.stats["disk_errors"] += span_kernel.import_cubins(
+                    stored.kernel, stored.cubins, self.mesh.device)
+        self.cache_hit = True
+        self._exe = _make_executor(self.program, self.mesh, self.axis,
+                                   self.options, stored.exe_plan,
+                                   stored.kernel)
+        self._passes = None
+        self._env_sig = sig
+        self._restored_env = {
+            k: TensorSpec(tuple(sh), getattr(torch, dt.replace("torch.", "")))
+            for k, sh, dt in sig}
+        return True
+
     def _built(self) -> None:
+        if self._passes is None and self._restored_env is not None:
+            self._env_sig = None
+            self._ensure(self._restored_env, allow_restore=False)
         if self._passes is None:
             raise CompileError(
                 "the pass pipeline has not run yet: call the compiled "

@@ -161,15 +161,27 @@ class _ZeroDimRoll(torch.overrides.TorchFunctionMode):
     one or more dims) indexes as ``jnp`` does: a negative index wraps
     once, then every index clamps into bounds (torch would raise).  A
     lane's scalar index is left alone: its reads are classified, and
-    clamped where sliced, by Context Analysis (:class:`ClampedArray`)."""
+    clamped where sliced, by Context Analysis (:class:`ClampedArray`).
+
+    A sort (or argsort) is stable, as ``jnp.sort``/``jnp.argsort`` are:
+    equal values keep their order, so the indices equal the reference's
+    (torch's default sort may reorder them)."""
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         if func in (torch.roll, torch.Tensor.roll) and args \
                 and isinstance(args[0], torch.Tensor) and args[0].dim() == 0:
             return args[0]
+        if func in _SORTS and args:
+            kw = dict(zip(("dim", "descending"), args[1:]))
+            kw.update(kwargs or {})
+            kw["stable"] = True
+            return func(args[0], **kw)
         if func is torch.Tensor.__getitem__ and len(args) == 2:
             args = (args[0], _clamped_index(args[0], args[1]))
         return func(*args, **(kwargs or {}))
+
+
+_SORTS = (torch.sort, torch.Tensor.sort, torch.argsort, torch.Tensor.argsort)
 
 
 def _clamped_index(x: torch.Tensor, idx):

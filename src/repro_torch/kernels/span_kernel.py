@@ -206,9 +206,75 @@ _VIEWS = ctx_mod.VIEW_OPS | {aten.squeeze_.dims, aten.squeeze_.dim,
 _MEM_VIEWS = (aten.t.default, aten.permute.default, aten.transpose.int)
 
 
-#: A scan along a per-lane value axis: Triton's scan, the identity a
-#: masked position holds, and how two partial results combine.
-_SCAN_OPS = {"sum": ("tl.cumsum", "0", "+"), "prod": ("tl.cumprod", "1", "*")}
+#: The scans along a per-lane value axis, by the aten op that asks for
+#: one: sums and products are Triton's own scans, the others
+#: ``tl.associative_scan`` with a combine function of
+#: :data:`_COMBINERS`.
+_SCAN_OPS = {"sum": "aten.cumsum", "prod": "aten.cumprod",
+             "max": "aten.cummax", "min": "aten.cummin",
+             "lse": "aten.logcumsumexp"}
+
+#: ``@triton.jit`` combine functions of the associative scans, placed in
+#: a generated source that uses them: max and min keep a float NaN, as
+#: ``torch.cummax``/``cummin`` and ``lax.cummax`` do; log-add-exp gives
+#: ``-inf`` (never NaN) where both sides are ``-inf``, and ``+inf`` where
+#: both are ``+inf``, as ``torch.logcumsumexp`` does.
+_COMBINERS = {
+    "_scan_maxf": "    return tl.maximum(a, b, propagate_nan="
+                  "tl.PropagateNan.ALL)\n",
+    "_scan_minf": "    return tl.minimum(a, b, propagate_nan="
+                  "tl.PropagateNan.ALL)\n",
+    "_scan_maxi": "    return tl.maximum(a, b)\n",
+    "_scan_mini": "    return tl.minimum(a, b)\n",
+    "_scan_lse": (
+        "    hi = tl.maximum(a, b, propagate_nan=tl.PropagateNan.ALL)\n"
+        "    lo = tl.minimum(a, b, propagate_nan=tl.PropagateNan.ALL)\n"
+        "    return tl.where((lo != hi) | (tl.abs(lo) < float(\"inf\")),\n"
+        "                    hi + libdevice.log1p(tl.exp(lo - hi)), a)\n"),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class _Scan:
+    """Scan ``op`` (a key of :data:`_SCAN_OPS`) in type ``at``: its
+    expression over a tile, the identity a masked position holds, and how
+    two partial results combine."""
+
+    op: str
+    at: Any
+
+    @property
+    def fn(self) -> str | None:
+        """The combine function of an associative scan (None: Triton's
+        own sum or product scan)."""
+        if self.op in ("sum", "prod"):
+            return None
+        if self.op == "lse":
+            return "_scan_lse"
+        return f"_scan_{self.op}{'f' if self.at.is_floating_point else 'i'}"
+
+    def scan(self, e: str, axis: int = 1) -> str:
+        if self.op == "sum":
+            return f"tl.cumsum({e}, axis={axis})"
+        if self.op == "prod":
+            return f"tl.cumprod({e}, axis={axis})"
+        return f"tl.associative_scan({e}, {axis}, {self.fn})"
+
+    @property
+    def ident(self) -> str:
+        if self.op in ("sum", "prod"):
+            return "0" if self.op == "sum" else "1"
+        if self.at.is_floating_point:
+            return 'float("inf")' if self.op == "min" else '-float("inf")'
+        info = torch.iinfo(self.at)
+        return str(info.max if self.op == "min" else info.min)
+
+    def comb(self, a: str, b: str) -> str:
+        if self.op == "sum":
+            return f"({a} + {b})"
+        if self.op == "prod":
+            return f"({a} * {b})"
+        return f"{self.fn}({a}, {b})"
 
 _TL = {
     torch.float32: "tl.float32", torch.float16: "tl.float16",
@@ -486,6 +552,7 @@ class _Gen:
         self.fwd_reads: list = []
         self.iter_vecs: dict[tuple, str] = {}
         self.libdevice = False      # the body calls CUDA's libdevice
+        self.combiners: dict = {}   # scan combine functions the body uses
         self.barriers: set = set()  # stages that re-load stored rows
         chs = plan0.chunks_axes
         chunks = tuple(ch.chunk for ch in chs)
@@ -968,6 +1035,7 @@ class _Gen:
               aten.clamp_max.Tensor: (None, 1)}
     _POW = (aten.pow.Tensor_Scalar, aten.pow.Tensor_Tensor, aten.pow.Scalar)
     _SORT = (aten.sort.default, aten.sort.stable)
+    _CUM_EXTREME = {aten.cummax.default: "max", aten.cummin.default: "min"}
     _REDUCE = {aten.sum.dim_IntList: "sum", aten.sum.default: "sum",
                aten.mean.dim: "mean", aten.mean.default: "mean",
                aten.amax.default: "max", aten.amin.default: "min"}
@@ -1035,17 +1103,22 @@ class _Gen:
         if t is aten.roll.default:
             self.vals[n] = self._roll(n)
             return
+        # an op of two results: each emitted when a getitem asks for it
         if t in self._SORT:
-            self.vals[n] = (self._sort(n), None)
+            self.vals[n] = [lambda: self._sort(n), lambda: self._argsort(n)]
             return
-        if t is operator.getitem and isinstance(self.vals[args[0]], tuple):
-            got = self.vals[args[0]][args[1]]
-            if got is None:
-                raise CompileError(
-                    f"span kernel: aten.sort's indices in {self.plan.name!r} "
-                    "are not supported by the Triton template (its sorted "
-                    "values are)")
-            self.vals[n] = got
+        if t in self._CUM_EXTREME:
+            self.vals[n] = [
+                lambda: self._cumsum(n, self.value(args[0]),
+                                     n.meta["val"][0].dtype,
+                                     self._CUM_EXTREME[t]),
+                lambda: self._refuse_indices(t)]
+            return
+        if t is operator.getitem and isinstance(self.vals[args[0]], list):
+            pair = self.vals[args[0]]
+            if callable(pair[args[1]]):
+                pair[args[1]] = pair[args[1]]()
+            self.vals[n] = pair[args[1]]
             return
         od = n.meta["val"].dtype
         lane, k = self._form(n)
@@ -1184,24 +1257,33 @@ class _Gen:
             self.vals[n] = self._cumsum(n, self.value(args[0]), od)
         elif t is aten.cumprod.default:
             self.vals[n] = self._cumsum(n, self.value(args[0]), od, "prod")
+        elif t is aten.logcumsumexp.default:
+            self.vals[n] = self._cumsum(n, self.value(args[0]), od, "lse")
         else:
             raise CompileError(
                 f"span kernel: aten op {t} in the body of {self.plan.name!r} "
                 "is not supported by the Triton template (supported: "
                 "pointwise arithmetic and math, comparisons, where, clamp, "
                 "affine env reads and gathers from replicated arrays, "
-                "sum/mean/amax/amin, cumsum, cumprod and roll along a value "
-                "axis, the values of a sort of a row that fits one register "
-                "tile, mm/mv of a per-lane row and a replicated array)")
+                "sum/mean/amax/amin, cumsum, cumprod, logcumsumexp, the "
+                "values of cummax/cummin and roll along a value axis, the "
+                "values and indices of a sort of a row that fits one "
+                "register tile, mm/mv of a per-lane row and a replicated "
+                "array)")
+
+    def _refuse_indices(self, t):
+        raise CompileError(
+            f"span kernel: {t}'s indices in {self.plan.name!r} are not "
+            "supported by the Triton template (its values are; the "
+            "reference has no jnp twin of the indices)")
 
     def _pow(self, n, od, lane, k) -> _Val:
         """``pow`` with a tensor or a scalar exponent (or base): a square
-        is one multiply, anything else CUDA's ``pow`` in float32."""
+        is one multiply, anything else CUDA's ``pow`` in float32; of
+        integers, :meth:`_int_pow`."""
         t, args = n.target, n.args
         if not od.is_floating_point:
-            raise CompileError(
-                f"span kernel: {t} of integers in {self.plan.name!r} is not "
-                "supported by the Triton template (floating pow is)")
+            return self._int_pow(n, od, lane, k)
         wd = od if od == torch.float64 else torch.float32
         tail = "" if wd == od else f".to({_TL[od]})"
         if t is aten.pow.Tensor_Scalar and args[1] == 2:
@@ -1223,11 +1305,38 @@ class _Gen:
             return f"libdevice.pow({a}, {b}){tail}"
         return self.pointwise(fmt, vals, od, lane, k, 4)
 
-    def _sort(self, n) -> _Val:
-        """The values of ``sort(x)`` along a per-lane value axis that fits
-        one register tile: ``tl.sort`` of the row padded to a power of two
-        with +inf (-inf descending), so the padding sorts last.  A row
-        longer than one register tile, or a sort across lanes, raises."""
+    def _int_pow(self, n, od, lane, k) -> _Val:
+        """An integer ``pow`` by a constant non-negative exponent: repeated
+        squaring in the integer type, so it wraps as int32 products do in
+        torch and ``jnp``.  A tensor exponent, or an integer base raised
+        to a tensor, raises naming itself."""
+        t, args = n.target, n.args
+        e = args[1] if t is aten.pow.Tensor_Scalar else None
+        if isinstance(e, bool) or not isinstance(e, int) or e < 0:
+            what = ("a tensor exponent" if e is None
+                    else f"the exponent {e!r}")
+            raise CompileError(
+                f"span kernel: {t} of integers with {what} in "
+                f"{self.plan.name!r} is not supported by the Triton template "
+                "(an integer pow by a constant non-negative exponent is)")
+
+        def squarings(x):
+            terms, p = [], e
+            while p:
+                if p & 1:
+                    terms.append(x)
+                p >>= 1
+                if p:
+                    x = f"({x} * {x})"
+            return f"({' * '.join(terms)})" if terms else f"({x} * 0 + 1)"
+        return self.pointwise(squarings, [(self.value(args[0]), od)], od,
+                              lane, k, max(1, 2 * e.bit_length() - 1))
+
+    def _sort_row(self, n):
+        """``(x, descending, scope)`` of ``sort(x)`` along a per-lane value
+        axis that fits one register tile (the scope holds it whole);
+        ``(x, descending, None)`` for a sort of one element.  A row longer
+        than one register tile, or a sort across lanes, raises."""
         args = n.args
         roles = self.roles[args[0]]
         dim = args[1] if len(args) > 1 else n.kwargs.get("dim", -1)
@@ -1240,13 +1349,66 @@ class _Gen:
                                "sorts a per-lane value axis only")
         x = self.value(args[0])
         if x.k is None or not roles or roles[dim] != "v":
+            return x, desc, None
+        if not self.fits(x.k):
+            raise CompileError(
+                f"{where} sorts a row of {x.k} elements, longer than one "
+                "register tile; the template sorts a row held whole")
+        return x, desc, self.full_scope(x.k)
+
+    def _argsort(self, n) -> _Val:
+        """The indices of ``sort(x)``: ``tl.sort`` of one 64-bit key per
+        position of the row held in one register tile.  The key's high half
+        is the value's bits mapped so that integer order is the values'
+        order (-0.0 equal to 0.0, every NaN after +inf, as ``torch.sort``
+        and ``jnp.argsort`` order them; complemented for a descending
+        sort), its low half the position, so equal values keep their order
+        (stable, as ``jnp.argsort`` is and the plain path's sorts are made,
+        :class:`~repro_torch.core.context._ZeroDimRoll`); padding takes the
+        largest key.  The indices are the sorted keys' low half."""
+        x, desc, sc = self._sort_row(n)
+        it = n.meta["val"][1].dtype
+        if sc is None:                      # a sort of one element
+            return _Val(const=0, dtype=it)
+        od, k = x.dtype, x.k
+        if od in (torch.float32, torch.float16, torch.bfloat16):
+            xf = self.emit(self.cast(x, torch.float32, sc), torch.float32,
+                           x.lane, k).expr
+            xf = self.emit(f"tl.where({xf} == 0, 0.0, {xf})", torch.float32,
+                           x.lane, k).expr
+            b = self.emit(f"tl.where({xf} != {xf}, 2147483647, "
+                          f"{xf}.to(tl.int32, bitcast=True))", torch.int32,
+                          x.lane, k).expr
+            hi = f"tl.where({b} < 0, {b} ^ 2147483647, {b})"
+        elif od in (torch.int32, torch.int16, torch.int8, torch.uint8,
+                    torch.bool):
+            hi = self.cast(x, torch.int32, sc)
+        else:
+            raise CompileError(
+                f"span kernel: aten.sort's indices of {od} values in "
+                f"{self.plan.name!r} are not supported by the Triton "
+                "template (a value must fit the 32-bit half of a key)")
+        hi = self.emit(f"(-1 - {hi})" if desc else hi, torch.int32, x.lane,
+                       k).expr
+        key = self.emit(
+            f"tl.where({sc.m}, ({hi}.to(tl.int64) << 32) | "
+            f"{sc.r}.to(tl.int64), 9223372036854775807)", torch.int64,
+            x.lane, k).expr
+        self.flops += k * (4 + max(1, sc.bt.bit_length() - 1))
+        srt = self.emit(f"tl.sort({key}, dim=1)", torch.int64, x.lane,
+                        k).expr
+        v = self.emit(f"({srt} & 4294967295).to({_TL[it]})", it, x.lane, k)
+        v.scope = sc
+        return v
+
+    def _sort(self, n) -> _Val:
+        """The values of ``sort(x)`` along a per-lane value axis that fits
+        one register tile: ``tl.sort`` of the row padded to a power of two
+        with +inf (-inf descending), so the padding sorts last."""
+        x, desc, sc = self._sort_row(n)
+        if sc is None:
             return x                        # a sort of one element
         k, od = x.k, x.dtype
-        if not self.fits(k):
-            raise CompileError(
-                f"{where} sorts a row of {k} elements, longer than one "
-                "register tile; the template sorts a row held whole")
-        sc = self.full_scope(k)
         if od.is_floating_point:
             pad = '-float("inf")' if desc else 'float("inf")'
         else:
@@ -1315,9 +1477,18 @@ class _Gen:
                 scope.start)
         return rolled
 
+    def _scan_of(self, op: str, at) -> _Scan:
+        """Scan ``op`` in type ``at``; its combine function (and CUDA's
+        libdevice, which log-add-exp calls) is placed in the source."""
+        s = _Scan(op, at)
+        if s.fn is not None:
+            self.combiners[s.fn] = None
+            self.libdevice |= op == "lse"
+        return s
+
     def _rolled_scan(self, c: _Val, shift: int) -> _Val:
         """``roll(scan(x), s)`` along a value axis of length ``k``, in
-        linear time (``scan``: a cumsum or a cumprod).  Position ``r``
+        linear time (``scan``: any of :data:`_SCAN_OPS`).  Position ``r``
         holds the scan at ``p = (r - s) mod k``: for ``r >= s`` the scan
         of ``x`` at the rolled positions ``s..r``, for ``r < s`` the
         aggregate ``P`` of ``x`` before position ``k - s`` combined with
@@ -1328,7 +1499,7 @@ class _Gen:
         scans its own positions (:meth:`_tile_scan`); one position takes
         the scan's own value there."""
         x, at, op = c.scan
-        scan, ident, comb = _SCAN_OPS[op]
+        so = self._scan_of(op, at)
         k, od = c.k, c.dtype
         rows = self.block if x.lane else 1
         self.flops += k
@@ -1347,72 +1518,73 @@ class _Gen:
                     scope, lambda: self._sums_before(x, at, bound, op))
             xr = self.cast(x, at, rolled)
             hi = f"({scope.r} >= {shift})"
-            e_hi = self.emit(f"tl.where({scope.m} & {hi}, {xr}, {ident})",
+            e_hi = self.emit(f"tl.where({scope.m} & {hi}, {xr}, {so.ident})",
                              at, x.lane, k).expr
             e_lo = self.emit(f"tl.where({scope.m} & ({scope.r} < {shift}), "
-                             f"{xr}, {ident})", at, x.lane, k).expr
-            cs_hi = self.emit(f"{scan}({e_hi}, axis=1)", at, x.lane,
-                              k).expr
-            cs_lo = self.emit(f"{scan}({e_lo}, axis=1)", at, x.lane,
-                              k).expr
+                             f"{xr}, {so.ident})", at, x.lane, k).expr
+            cs_hi = self.emit(so.scan(e_hi), at, x.lane, k).expr
+            cs_lo = self.emit(so.scan(e_lo), at, x.lane, k).expr
             if scope.pre is None:
-                out = f"tl.where({hi}, {cs_hi}, {cs_lo} {comb} {pv})"
+                out = f"tl.where({hi}, {cs_hi}, {so.comb(cs_lo, pv)})"
             else:
                 c_hi, c_lo = f"c{self.n}", f"c{self.n + 1}"
                 self.n += 2
                 pre, ind = scope.pre
-                pre.append(f"{ind}{c_hi} = {self._filled(op, rows, at)}")
+                pre.append(f"{ind}{c_hi} = {self._filled(so, rows)}")
                 pre.append(f"{ind}{c_lo} = {pv}")
-                out = (f"tl.where({hi}, {cs_hi} {comb} {c_hi}, "
-                       f"{cs_lo} {comb} {c_lo})")
+                out = (f"tl.where({hi}, {so.comb(cs_hi, c_hi)}, "
+                       f"{so.comb(cs_lo, c_lo)})")
             v = self.emit(out if at == od else f"({out}).to({_TL[od]})", od,
                           x.lane, k).expr
             if scope.pre is not None:
                 for cv, e, cs in ((c_hi, e_hi, cs_hi), (c_lo, e_lo, cs_lo)):
-                    self._line(f"{cv} = {cv} {comb} "
-                               f"{self._total(op, e, cs, scope.bt)}")
+                    self._line(f"{cv} = "
+                               + so.comb(cv, self._total(so, e, cs,
+                                                         scope.bt)))
             return v
         return _Val(dtype=od, lane=c.lane, k=k, lazy=emit_in, loop=c.loop)
 
     @staticmethod
-    def _filled(op: str, rows: int, at) -> str:
-        """A ``[rows, 1]`` column of the identity of scan ``op``."""
-        if op == "sum":
-            return f"tl.zeros([{rows}, 1], {_TL[at]})"
-        return f"tl.full([{rows}, 1], {_lit(1, at)}, {_TL[at]})"
+    def _filled(so: _Scan, rows: int) -> str:
+        """A ``[rows, 1]`` column of the identity of scan ``so``."""
+        if so.op == "sum":
+            return f"tl.zeros([{rows}, 1], {_TL[so.at]})"
+        return f"tl.full([{rows}, 1], {so.ident}, {_TL[so.at]})"
 
     @staticmethod
-    def _total(op: str, e: str, cs: str, bt: int) -> str:
-        """The aggregate of tile ``e`` per lane (``cs``: its scan): its
-        sum, or its product, the scan's last position (padding positions
-        hold the identity)."""
-        if op == "sum":
-            return f"tl.sum({e}, axis=1)[:, None]"
-        return (f"tl.sum(tl.where(tl.arange(0, {bt})[None, :] == {bt - 1}, "
-                f"{cs}, 0), axis=1)[:, None]")
+    def _total(so: _Scan, e: str, cs: str, bt: int, axis: int = 1) -> str:
+        """The aggregate of tile ``e`` per lane along ``axis`` (``cs``: its
+        scan there): its sum, or the scan's last position (padding
+        positions hold the identity)."""
+        if so.op == "sum":
+            return f"tl.sum({e}, axis={axis})" + ("[:, None]" if axis == 1
+                                                  else "")
+        last = (f"tl.arange(0, {bt})[None, :]" if axis == 1
+                else f"tl.arange(0, {bt})[None, None, :]")
+        out = f"tl.sum(tl.where({last} == {bt - 1}, {cs}, 0), axis={axis})"
+        return out + ("[:, None]" if axis == 1 else "")
 
     def _sums_before(self, x: _Val, at, bounds, op: str = "sum") -> list:
-        """Per lane, the aggregate (sum or product) of ``x`` over its
+        """Per lane, the aggregate (of scan ``op``) of ``x`` over its
         positions below each of ``bounds`` (expressions), in type ``at``:
         one pass over the axis, the whole tile where it fits, else tile by
         tile."""
         k, rows = x.k, self.block if x.lane else 1
-        scan, ident, comb = _SCAN_OPS[op]
+        so = self._scan_of(op, at)
 
         def part(sc, b):
             e = f"tl.where({sc.m} & ({sc.r} < {b}), {self.cast(x, at, sc)}, " \
-                f"{ident})"
-            return (f"tl.sum({e}, axis=1)[:, None]" if op == "sum" else
-                    self._total(op, e, f"{scan}({e}, axis=1)", sc.bt))
+                f"{so.ident})"
+            return self._total(so, e, so.scan(e), sc.bt)
         if self.fits(k):
             sc = self.full_scope(k)
             return [self.emit(part(sc, b), at, x.lane, None).expr
                     for b in bounds]
-        sums = [self.emit(self._filled(op, rows, at), at, x.lane,
+        sums = [self.emit(self._filled(so, rows), at, x.lane,
                           None).expr for _ in bounds]
         with self.tiles_of(k) as sc:
             for v, b in zip(sums, bounds):
-                self._line(f"{v} = {v} {comb} {part(sc, b)}")
+                self._line(f"{v} = {so.comb(v, part(sc, b))}")
         return sums
 
     def _before_loop(self, scope: _Scope, emit):
@@ -1438,7 +1610,7 @@ class _Gen:
         two segments where the roll wraps inside it (positions below
         ``shift`` read the row's end), each segment starting from the
         aggregate of ``x`` before its first position, found in one pass."""
-        scan, ident, comb = _SCAN_OPS[op]
+        so = self._scan_of(op, at)
         k = scope.length
         start = scope.start
         hi = f"({scope.r} >= {shift})"
@@ -1450,29 +1622,29 @@ class _Gen:
         segs = []
         conds = (f" & {hi}", f" & ({scope.r} < {shift})") if shift else ("",)
         for cond, b in zip(conds, base):
-            e = self.emit(f"tl.where({scope.m}{cond}, {xr}, {ident})", at,
+            e = self.emit(f"tl.where({scope.m}{cond}, {xr}, {so.ident})", at,
                           x.lane, k).expr
-            segs.append(self.emit(f"({scan}({e}, axis=1) {comb} {b})", at,
-                                  x.lane, k).expr)
+            segs.append(self.emit(so.comb(so.scan(e), b), at, x.lane,
+                                  k).expr)
         out = segs[0] if len(segs) == 1 else \
             f"tl.where({hi}, {segs[0]}, {segs[1]})"
         return self.emit(out if at == od else f"({out}).to({_TL[od]})", od,
                          x.lane, k).expr
 
     def _cumsum(self, n, x: _Val, od, op: str = "sum") -> _Val:
-        """``cumsum(x)`` (``op`` "sum") or ``cumprod(x)`` ("prod") along a
-        per-lane value axis of length ``k``, in float32 (integers in their
-        own type).  In a scope whose tiles run in order from position 0
-        (the whole axis, or a loop over its tiles) it is ``tl.cumsum`` /
-        ``tl.cumprod`` of the tile combined with the running aggregate of
-        the tiles before, carried from tile to tile; in the grid's value
-        tile the scan of the tile from the aggregate of the positions
-        before it (:meth:`_tile_scan`); in any other scope (one position,
-        rolled positions that :meth:`_rolled_scan` does not scan again)
-        the aggregate over every tile of ``x`` of its positions at or
-        before each of the scope's.  A scan across lanes raises."""
-        scan, ident, comb = _SCAN_OPS[op]
-        name = f"aten.{'cumsum' if op == 'sum' else 'cumprod'}"
+        """A scan of ``x`` along a per-lane value axis of length ``k``
+        (``op``, a key of :data:`_SCAN_OPS`: ``cumsum``, ``cumprod``, the
+        values of ``cummax``/``cummin``, ``logcumsumexp``), in float32
+        (integers in their own type).  In a scope whose tiles run in order
+        from position 0 (the whole axis, or a loop over its tiles) it is
+        the scan of the tile combined with the running aggregate of the
+        tiles before, carried from tile to tile; in the grid's value tile
+        the scan of the tile from the aggregate of the positions before it
+        (:meth:`_tile_scan`); in any other scope (one position, rolled
+        positions that :meth:`_rolled_scan` does not scan again) the
+        aggregate over every tile of ``x`` of its positions at or before
+        each of the scope's.  A scan across lanes raises."""
+        name = _SCAN_OPS[op]
         roles = self.roles[n.args[0]]
         dim = n.args[1] % len(roles) if roles else 0
         if roles and roles[dim] == "lane":
@@ -1484,8 +1656,9 @@ class _Gen:
             # a scan over an axis of one element: the value itself
             return self.pointwise(lambda e: e, [(x, od)], od, x.lane, x.k, 0)
         k = x.k
-        self.flops += k
+        self.flops += k * (4 if op == "lse" else 1)
         at = torch.float32 if od.is_floating_point else od
+        so = self._scan_of(op, at)
         rows = self.block if x.lane else 1
 
         def done(e):
@@ -1494,40 +1667,38 @@ class _Gen:
         def emit_in(scope):
             if scope.seq:
                 e = self.emit(f"tl.where({scope.m}, {self.cast(x, at, scope)}"
-                              f", {ident})", at, x.lane, k).expr
-                cs = self.emit(f"{scan}({e}, axis=1)", at, x.lane, k).expr
+                              f", {so.ident})", at, x.lane, k).expr
+                cs = self.emit(so.scan(e), at, x.lane, k).expr
                 if scope.pre is None:       # the whole axis in one tile
                     return cs if at == od else self.emit(
                         done(cs), od, x.lane, k).expr
                 carry = f"c{self.n}"
                 self.n += 1
                 pre, ind = scope.pre
-                pre.append(f"{ind}{carry} = {self._filled(op, rows, at)}")
-                out = self.emit(done(f"({cs} {comb} {carry})"), od, x.lane,
+                pre.append(f"{ind}{carry} = {self._filled(so, rows)}")
+                out = self.emit(done(so.comb(cs, carry)), od, x.lane,
                                 k).expr
-                self._line(f"{carry} = {carry} {comb} "
-                           f"{self._total(op, e, cs, scope.bt)}")
+                self._line(f"{carry} = " + so.comb(
+                    carry, self._total(so, e, cs, scope.bt)))
                 return out
             if scope is self.grid_scope:
                 return self._tile_scan(x, at, od, scope, 0, op)
-            fill = "zeros" if op == "sum" else "full"
-            one = "" if op == "sum" else f"{_lit(1, at)}, "
-            acc = self.emit(f"tl.{fill}([{rows}, {scope.bt}], {one}"
-                            f"{_TL[at]})", at, x.lane, k).expr
+            acc = self.emit(
+                f"tl.zeros([{rows}, {scope.bt}], {_TL[at]})" if op == "sum"
+                else f"tl.full([{rows}, {scope.bt}], {so.ident}, {_TL[at]})",
+                at, x.lane, k).expr
             cap = max(1, _MAX_TILE_ELEMS // (rows * scope.bt))
             bt = min(pow2_at_least(k), 1 << (cap.bit_length() - 1))
             with self.tiles_of(k, bt) as sx:
                 e = self.cast(x, at, sx)
                 sel = (f"tl.where(({sx.r}[:, None, :] <= "
                        f"({scope.r})[:, :, None]) & {sx.m}[:, None, :], "
-                       f"({e})[:, None, :], {ident})")
+                       f"({e})[:, None, :], {so.ident})")
                 if op == "sum":
                     self._line(f"{acc} += tl.sum({sel}, axis=2)")
                 else:
-                    self._line(
-                        f"{acc} *= tl.sum(tl.where(tl.arange(0, {bt})"
-                        f"[None, None, :] == {bt - 1}, tl.cumprod({sel}, "
-                        "axis=2), 0), axis=2)")
+                    self._line(f"{acc} = " + so.comb(acc, self._total(
+                        so, sel, so.scan(sel, 2), bt, axis=2)))
             return self.emit(done(acc), od, x.lane, k).expr
         return _Val(dtype=od, lane=x.lane, k=k, lazy=emit_in, loop=x.loop,
                     scan=(x, at, op))
@@ -2051,7 +2222,9 @@ def generate_span(stages, device=None) -> SpanSource:
         "import triton\nimport triton.language as tl\n"
         + ("from triton.language.extra import libdevice\n"
            if gen.libdevice else "") + "\n\n"
-        f"@triton.jit\ndef {fn_name}({', '.join(params)}):\n{body}")
+        + "".join(f"@triton.jit\ndef {name}(a, b):\n{_COMBINERS[name]}\n\n"
+                  for name in gen.combiners)
+        + f"@triton.jit\ndef {fn_name}({', '.join(params)}):\n{body}")
     n_prog = math.prod(live_slots(plan0)) \
         * math.prod(t.n_tiles for t in gen.tiles) * gen.value_tiles
     return SpanSource(fn_name=fn_name, text=text, inputs=tuple(gen.inputs),
@@ -2149,6 +2322,9 @@ ALIGN = 16
 def _bind_launch(lib) -> None:
     lib.k1_launch.argtypes = [ctypes.c_void_p]
     lib.k1_launch.restype = ctypes.c_int
+    lib.k1_load.argtypes = [ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int,
+                            ctypes.POINTER(ctypes.c_uint64)]
+    lib.k1_load.restype = ctypes.c_int
     lib.k1_error_string.argtypes = [ctypes.c_int]
     lib.k1_error_string.restype = ctypes.c_char_p
 
@@ -2194,6 +2370,14 @@ class _Compiled:
     shared: int
     extra: tuple
     scratch: bool = False    # whether any appended buffer has a size
+    cubin: bytes = b""       # the compiled image and its entry's name,
+    name: str = ""           # for the persistent compile store
+
+
+#: Span kernels compiled (or fetched from Triton's cache) through
+#: Triton's own path by K1's launcher; a kernel restored from the
+#: persistent store (:func:`import_cubins`) counts none.
+COMPILES = 0
 
 
 def _compile(source: SpanSource, args, outs) -> _Compiled:
@@ -2204,6 +2388,8 @@ def _compile(source: SpanSource, args, outs) -> _Compiled:
     declares beyond the user's pointers are the scratch buffers its
     metadata sizes (``*_scratch_size``, in the metadata's field order,
     which is the order Triton's launcher passes them in)."""
+    global COMPILES
+    COMPILES += 1
     k = _warm(source, args, outs)
     meta = k.metadata
     if meta.num_ctas != 1 or meta.launch_cooperative_grid \
@@ -2225,7 +2411,8 @@ def _compile(source: SpanSource, args, outs) -> _Compiled:
                   for f in scratch)
     return _Compiled(function=k.function, threads=32 * meta.num_warps,
                      shared=meta.shared, extra=extra,
-                     scratch=any(size for size, _ in extra))
+                     scratch=any(size for size, _ in extra),
+                     cubin=k.asm["cubin"], name=meta.name)
 
 
 class _Launcher:
@@ -2275,10 +2462,16 @@ class _Launcher:
         key = (device_index, specialisation(ptrs))
         entry = self.kernels.get(key)
         if entry is None:
-            entry = self.kernels[key] = _compile(self.source, args, outs)
-            self.blob_t = ctypes.c_uint64 * (6 + len(ptrs) + len(entry.extra))
-            self.tail = [0] * len(entry.extra)
+            self.add(key, _compile(self.source, args, outs))
+            entry = self.kernels[key]
         return entry
+
+    def add(self, key, entry: _Compiled) -> None:
+        """Keep ``entry`` as the compiled kernel of ``key``."""
+        self.kernels[key] = entry
+        n_ptrs = len(self.source.inputs) + len(self.source.outputs)
+        self.blob_t = ctypes.c_uint64 * (6 + n_ptrs + len(entry.extra))
+        self.tail = [0] * len(entry.extra)
 
     def launch(self, args, outs, device_index) -> None:
         ptrs = [t.data_ptr() for t in args]
@@ -2322,6 +2515,53 @@ def launcher_key(source: SpanSource) -> tuple:
     any of these get a launcher each."""
     return (source.fn_name, source.n_programs, source.num_warps,
             source.num_stages, source.outputs)
+
+
+def export_cubins(kernel_plan) -> dict:
+    """What the persistent store keeps of the span kernels of
+    ``kernel_plan`` that K1's launcher compiled in this process: per span
+    (by index), per pointer specialisation, the cubin, its entry's name
+    and the launch metadata."""
+    out = {}
+    for i, span in enumerate(kernel_plan.spans):
+        launcher = _LAUNCHERS.get(launcher_key(span.source))
+        if launcher is None:
+            continue
+        out[i] = {spec: dict(cubin=c.cubin, name=c.name, threads=c.threads,
+                             shared=c.shared, extra=c.extra)
+                  for (_, spec), c in launcher.kernels.items() if c.cubin}
+    return out
+
+
+def import_cubins(kernel_plan, cubins: dict, device) -> int:
+    """Load the stored cubins of ``kernel_plan``'s span kernels for K1's
+    launcher on ``device`` (``cuModuleLoadData``, ``csrc/span_launch.cu``),
+    so that their launches compile nothing; returns how many failed to
+    load (their span kernels then build cold through Triton)."""
+    device = torch.device(device)
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    lib = _LAUNCH_LIB.load()
+    failed = 0
+    with torch.cuda.device(index):
+        for i, span in enumerate(kernel_plan.spans):
+            for spec, meta in cubins.get(i, {}).items():
+                fn = ctypes.c_uint64()
+                if lib.k1_load(meta["cubin"], meta["name"].encode(),
+                               meta["shared"], ctypes.byref(fn)):
+                    failed += 1
+                    continue
+                key = launcher_key(span.source)
+                launcher = _LAUNCHERS.get(key)
+                if launcher is None:
+                    launcher = _LAUNCHERS[key] = _Launcher(span.source)
+                extra = tuple(tuple(e) for e in meta["extra"])
+                launcher.add((index, spec), _Compiled(
+                    function=fn.value, threads=meta["threads"],
+                    shared=meta["shared"], extra=extra,
+                    scratch=any(size for size, _ in extra),
+                    cubin=meta["cubin"], name=meta["name"]))
+    return failed
 
 
 def launch_span(source: SpanSource, stage_io, device: torch.device) -> list:

@@ -6,12 +6,17 @@ on the CPU)::
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \\
       --requests 8 --max-new 16
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch qwen2-moe-a2.7b --weights-dtype bfloat16 --requests 8
 
 The weights are random, drawn from a ``torch.Generator`` seeded with
-``--seed``; prompts are random token ids.  The engine computes in
-float32, and every prefill's attention runs K2 (its plain version on
-the CPU); an SSM model (``--arch mamba2-130m``) prefills with the
-chunked scan and decodes with its recurrence.
+``--seed`` and stored as ``--weights-dtype`` (qwen2-moe-a2.7b's 14.3 B
+parameters take 29 GB in bfloat16); prompts are random token ids.  The
+engine computes in float32, and every prefill's attention runs K2 (its
+plain version on the CPU); an SSM model (``--arch mamba2-130m``)
+prefills with the chunked scan and decodes with its recurrence, a
+hybrid (``--arch jamba-1.5-large-398b --smoke``) keeps both caches, and
+an MoE model dispatches each call's tokens to its experts.
 """
 from __future__ import annotations
 
@@ -37,6 +42,8 @@ def main(argv=None) -> list:
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--weights-dtype", default="float32",
+                    choices=("float32", "bfloat16"))
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")
@@ -53,7 +60,7 @@ def main(argv=None) -> list:
                          "(the vlm stub arch serves via the embeds API)")
     model = build_model(cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    params, _ = model.init(gen)
+    params, _ = model.init(gen, dtype=getattr(torch, args.weights_dtype))
     engine = ServeEngine(model, params, n_slots=args.slots,
                          cache_len=args.cache_len,
                          temperature=args.temperature,

@@ -1,13 +1,14 @@
 """Transformer blocks and the layer-interleave structure — counterpart of
-:mod:`repro.models.blocks`, for the attention kinds and the SSM mixer.
+:mod:`repro.models.blocks`, for the attention kinds, the SSM mixer and
+the dense and MoE FFNs (:mod:`repro_torch.models.moe`).
 
-A heterogeneous stack (gemma3's 5:1 local:global interleave) is a
+A heterogeneous stack (gemma3's 5:1 local:global interleave, jamba's
+1:7 attention:SSM interleave with an MoE FFN every other layer) is a
 repeating *period* of block kinds; the model loops over periods (params
 stacked over a leading LAYERS dim) and then over the remainder.  A block
 kind is the string "<mixer>:<flavour>:<ffn>", e.g. "attn:global:dense".
-The MoE FFN and cross-attention wait for their modules
-(:mod:`repro_torch.models.moe`, the encoder-decoder model); a block that
-needs one raises ``NotImplementedError`` naming it.
+Cross-attention waits for the encoder-decoder model; a block that needs
+it raises ``NotImplementedError`` naming it.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import math
 import torch
 
 from repro_torch.core import tensor_plan as tp
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     INT32_MAX,
@@ -104,11 +106,12 @@ def init_attn(gen, cfg, *, cross: bool = False):
 def init_ffn(gen, cfg, kind_ffn: str):
     if kind_ffn == "none":
         return None
-    if kind_ffn == "moe":
-        raise not_ported("an MoE FFN", "repro_torch.models.moe")
     t = {"norm": zeros_param((cfg.d_model,), (tp.D_MODEL,),
                              device=gen.device)}
-    t.update(init_mlp(gen, cfg.d_model, cfg.d_ff, gated=cfg.gated_mlp))
+    if kind_ffn == "moe":
+        t.update(moe_mod.init_moe(gen, cfg.d_model, cfg.moe))
+    else:
+        t.update(init_mlp(gen, cfg.d_model, cfg.d_ff, gated=cfg.gated_mlp))
     return t
 
 
@@ -240,10 +243,10 @@ def ffn_apply(p, x, cfg, kind: str):
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     if ffn == "none" or "ffn" not in p:
         return torch.zeros_like(x), zero
-    if ffn == "moe":
-        raise not_ported("an MoE FFN", "repro_torch.models.moe")
     fp = p["ffn"]
     h = rms_norm(x, fp["norm"], cfg.norm_eps)
+    if ffn == "moe":
+        return moe_mod.moe_apply(fp, h, cfg.moe)
     return mlp_apply(fp, h, gated=cfg.gated_mlp), zero
 
 

@@ -1,6 +1,6 @@
 """The decoder-only LM — counterpart of :mod:`repro.models.model`'s
-``DecoderLM`` (its training loss and the encoder-decoder model belong to
-later slices of the port).
+``DecoderLM``, for the dense, SSM, MoE and hybrid families (its training
+loss and the encoder-decoder model belong to later slices of the port).
 
 The parameter tree has the reference's keys and shapes: ``embed``,
 ``final_norm``, ``head`` (untied), ``slots/slot<s>`` with every leaf
@@ -10,8 +10,9 @@ walks the leading dim.
 
 API (used by :mod:`repro_torch.serving` and :mod:`repro_torch.launch`):
 
-* ``model.init(generator) -> (params, axes)`` — the tensors lie on the
-  generator's device; axes are the logical-axis twins;
+* ``model.init(generator, dtype=float32) -> (params, axes)`` — the
+  tensors lie on the generator's device; axes are the logical-axis
+  twins;
 * ``model.forward(params, batch) -> (hidden, aux)``;
 * ``model.init_cache(batch, cache_len, dtype, device) -> cache``;
 * ``model.prefill(params, batch, cache) -> (logits, cache)``;
@@ -44,6 +45,14 @@ def _stack_trees(trees):
     return {k: _stack_trees([t[k] for t in trees]) for k in first}
 
 
+def _cast_tree(tree, dtype):
+    """An init tree's (tensor, axes) leaves as ``dtype``."""
+    if is_param_leaf(tree):
+        return (tree[0] if tree[0].dtype == dtype else tree[0].to(dtype),
+                tree[1])
+    return {k: _cast_tree(v, dtype) for k, v in tree.items()}
+
+
 def _stack_caches(caches):
     return {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
 
@@ -62,21 +71,27 @@ class DecoderLM:
          self.tail_kinds) = blk.period_structure(cfg)
 
     # ------------------------------------------------------------- init --
-    def init(self, gen: torch.Generator):
-        """Random parameters drawn from ``gen``, on its device; layer by
-        layer in order, then the embeddings."""
+    def init(self, gen: torch.Generator, dtype=torch.float32):
+        """Random parameters drawn from ``gen`` (in float32), on its
+        device, stored as ``dtype``; layer by layer in order, then the
+        embeddings.  Each layer is cast as soon as it is drawn, so a
+        16-bit model never holds all its weights in float32 (qwen2-moe's
+        14.3 B parameters fit the card in bfloat16)."""
         cfg = self.cfg
-        layers = [blk.init_block(gen, cfg, blk.kind_of_layer(cfg, i))
+        layers = [_cast_tree(blk.init_block(gen, cfg,
+                                            blk.kind_of_layer(cfg, i)), dtype)
                   for i in range(cfg.n_layers)]
         tree: dict = {
-            "embed": make_param(gen, (cfg.vocab_size, cfg.d_model),
-                                (tp.VOCAB, tp.D_MODEL), scale=0.02),
+            "embed": _cast_tree(make_param(gen, (cfg.vocab_size, cfg.d_model),
+                                           (tp.VOCAB, tp.D_MODEL),
+                                           scale=0.02), dtype),
             "final_norm": zeros_param((cfg.d_model,), (tp.D_MODEL,),
-                                      device=gen.device),
+                                      dtype=dtype, device=gen.device),
         }
         if not cfg.tie_embeddings:
-            tree["head"] = make_param(gen, (cfg.d_model, cfg.vocab_size),
-                                      (tp.D_MODEL, tp.VOCAB), scale=0.02)
+            tree["head"] = _cast_tree(make_param(
+                gen, (cfg.d_model, cfg.vocab_size), (tp.D_MODEL, tp.VOCAB),
+                scale=0.02), dtype)
         tree["slots"] = {
             f"slot{s}": _stack_trees([layers[per * self.period + s]
                                       for per in range(self.n_periods)])
@@ -185,9 +200,7 @@ class DecoderLM:
         return logits, new_caches
 
 
-_MISSING = {"moe": "repro_torch.models.moe",
-            "hybrid": "repro_torch.models.moe",
-            "encdec": "repro_torch.models.model.EncDecLM"}
+_MISSING = {"encdec": "repro_torch.models.model.EncDecLM"}
 
 
 def build_model(cfg):

@@ -13,7 +13,9 @@ Mirrors :mod:`repro.omp`:
   lower``, plus ``kernel`` under ``lowering="kernel"``) and returns the
   distributed program as a :class:`~repro_torch.core.api.Compiled`;
 * ``omp.make_mesh(shape, axis_names, device=None)`` builds the
-  stacked-rank mesh — on the CUDA card unless ``device`` says otherwise.
+  stacked-rank mesh — on the CUDA card unless ``device`` says otherwise;
+* ``omp.enable_persistent_cache(path)`` keeps compiles across processes
+  in an :class:`~repro_torch.core.aot_store.AOTStore`.
 """
 from repro_torch.core.api import (  # noqa: F401
     CommMode,
@@ -26,7 +28,10 @@ from repro_torch.core.api import (  # noqa: F401
     clear_compile_cache,
     compile,
     compile_cache_stats,
+    disable_persistent_cache,
+    enable_persistent_cache,
 )
+from repro_torch.core.aot_store import AOTStore  # noqa: F401
 from repro_torch.core.comm import (  # noqa: F401
     ALPHA_LAUNCH_BYTES,
     BoundaryComm,

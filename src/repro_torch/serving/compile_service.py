@@ -26,8 +26,10 @@ translation requests) submit concurrently; the service
   (:func:`~repro_torch.runtime.elastic.plan_elastic_remesh`) and surface
   it via :meth:`CompileService.health` / the ``on_evict`` callback.
 
-The port has no persistent (AOT) store yet: ``persistent_dir`` raises
-``NotImplementedError`` rather than being ignored.
+``persistent_dir`` turns on the persistent store
+(:func:`~repro_torch.core.api.enable_persistent_cache`), as the
+reference's does: a fresh service process restores compiles instead of
+planning them (and, on the card, of compiling their span kernels).
 """
 from __future__ import annotations
 
@@ -101,10 +103,7 @@ class CompileService:
         self.mesh = mesh
         self.options = options if options is not None else api_mod.Options()
         if persistent_dir is not None:
-            raise NotImplementedError(
-                "CompileService(persistent_dir=...): the persistent AOT "
-                "store (repro.core.aot_store) is not ported yet; the port "
-                "keeps compiles in its in-process cache only")
+            api_mod.enable_persistent_cache(persistent_dir)
         self._compiled: dict[tuple, Any] = {}     # key -> Compiled (warm)
         self._inflight: dict[tuple, _Flight] = {}
         self._lock = threading.Lock()

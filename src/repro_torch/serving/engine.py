@@ -14,6 +14,10 @@ version on CPU tensors); decode attends with materialised scores over
 the cache, as in the reference.  An SSM layer's cache is its state ``h``
 and conv history ``conv``, scattered into the slot like a KV cache; it
 prefills with the chunked scan and decodes with the one-step recurrence.
+A hybrid model (jamba) keeps both kinds side by side, one per layer.  An
+MoE layer dispatches the tokens of each call: a prefill's own tokens, or
+one token per slot in a decode tick, so an expert's capacity follows the
+tokens of that call, as in the reference's engine.
 """
 from __future__ import annotations
 

@@ -496,7 +496,15 @@ def test_compile_cache_hits_on_same_shapes():
     a = omp.compile(prog, mesh, env_like=env)
     b = omp.compile(prog, mesh, env_like={k: v + 1 for k, v in env.items()})
     assert (a.cache_hit, b.cache_hit) == (False, True)
-    assert omp.compile_cache_stats() == {"hits": 1, "misses": 1, "size": 1}
+    stats = omp.compile_cache_stats()
+    assert {k: stats[k] for k in ("hits", "misses", "size")} == {
+        "hits": 1, "misses": 1, "size": 1}
+    # the reference's keys, the persistent store's counters at zero (off)
+    from repro.core import api as japi
+
+    assert set(stats) == set(japi.compile_cache_stats())
+    assert stats["persistent_dir"] is None and not any(
+        v for k, v in stats.items() if k.startswith(("disk_", "evict")))
 
 
 # ---------------------------------------------------------------------------

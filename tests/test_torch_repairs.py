@@ -155,6 +155,11 @@ def _assert_env(got, want, label):
     got = convert.env_to_numpy(got)
     assert set(got) == set(want), label
     for k in want:
+        if np.issubdtype(np.asarray(want[k]).dtype, np.integer):
+            # indices and wrapped integer products: bit for bit
+            np.testing.assert_array_equal(got[k], want[k],
+                                          err_msg=f"{label} key={k!r}")
+            continue
         np.testing.assert_allclose(got[k], want[k], **TOL,
                                    err_msg=f"{label} key={k!r}")
 
@@ -552,17 +557,56 @@ def test_former_refusals_match_reference(body, cap, monkeypatch):
     omp.clear_compile_cache()
 
 
-def test_sort_indices_stay_refused_naming_themselves():
+def test_sort_indices_stay_refused_naming_themselves(monkeypatch):
+    """The indices of a sort of a row held in one register tile compile
+    and equal the reference's ``jnp.argsort`` (ties kept in order); what
+    stays refused names itself: the indices of a row longer than one
+    register tile, the indices of ``cummax``/``cummin`` (no ``jnp`` twin),
+    and an integer ``pow`` by a tensor exponent."""
+    import jax.numpy as jnp
+
+    from repro import omp as jomp
     from repro_torch import convert, omp
+    from repro_torch.kernels import span_kernel
 
-    @omp.parallel_for(stop=5, name="si1")
-    def si1(i, env):
-        return {"Y": omp.at(i, torch.sort(env["A"][i]).indices.float())}
+    def body(o, lib):
+        @o.parallel_for(stop=5, name="si1")
+        def si1(i, env):
+            return {"Y": o.at(i, _scan_fns(lib)["argsort"](env["A"][i]))}
+        return si1
 
-    env = convert.env_from_numpy({"A": np.ones((5, 4), np.float32),
-                                  "Y": np.zeros((5, 4), np.float32)}, "cpu")
-    with pytest.raises(omp.CompileError, match="aten.sort's indices"):
-        omp.compile(si1, _mesh(1, 2)[0], lowering="kernel", env_like=env)
+    env_np = {"A": np.tile(np.asarray([2.0, 1.0, 2.0, 1.0], np.float32),
+                           (5, 1)), "Y": np.zeros((5, 4), np.int32)}
+    env = convert.env_from_numpy(env_np, "cpu")
+    got = omp.compile(body(omp, torch), _mesh(1, 2)[0], lowering="kernel")(
+        env)["Y"].numpy()
+    np.testing.assert_array_equal(got, _jax_block(body(jomp, jnp),
+                                                  env_np)["Y"])
+    np.testing.assert_array_equal(got, np.tile([1, 3, 0, 2], (5, 1)))
+
+    @omp.parallel_for(stop=5, name="ci1")
+    def ci1(i, env):
+        return {"Y": omp.at(i, torch.cummin(env["A"][i], 0).indices)}
+
+    @omp.parallel_for(stop=5, name="tp1")
+    def tp1(i, env):
+        k = env["A"][i].to(torch.int32)
+        return {"Y": omp.at(i, k ** k)}
+
+    for prog, match in ((ci1, "aten.cummin.default's indices"),
+                        (tp1, "of integers with a tensor exponent")):
+        omp.clear_compile_cache()
+        with pytest.raises(omp.CompileError, match=match):
+            omp.compile(prog, _mesh(1, 2)[0], lowering="kernel",
+                        env_like=env)
+    monkeypatch.setattr(span_kernel, "_MAX_TILE_ELEMS", 16)
+    omp.clear_compile_cache()
+    with pytest.raises(omp.CompileError, match="aten.sort .* 21 elements, "
+                       "longer than one register tile"):
+        omp.compile(body(omp, torch), _mesh(1, 2)[0], lowering="kernel",
+                    env_like={"A": torch.zeros(5, 21),
+                              "Y": torch.zeros(5, 21, dtype=torch.int32)})
+    omp.clear_compile_cache()
 
 
 @pytest.mark.parametrize("p", [1, 2])
@@ -607,4 +651,151 @@ def test_row_handed_over_tile_by_tile_matches_reference(p, monkeypatch):
     with pytest.raises(omp.CompileError, match="lane's own row"):
         span_kernel.generate_span([(plans[0], lagged.stages[0], ()),
                                    (plans[1], lagged.stages[1], ("V",))])
+    omp.clear_compile_cache()
+
+
+# ---------------------------------------------------------------------------
+# The ninth slice's repairs: associative scans (logcumsumexp, the values of
+# cummax/cummin), the indices of a sort, an integer pow by a constant
+# ---------------------------------------------------------------------------
+
+
+def _scan_fns(lib):
+    if lib is torch:
+        return dict(lse=lambda x: torch.logcumsumexp(x, 0),
+                    cummax=lambda x: torch.cummax(x, 0).values,
+                    cummin=lambda x: torch.cummin(x, 0).values,
+                    argsort=lambda x, desc=False: torch.argsort(
+                        x, descending=desc))
+    import jax
+
+    return dict(lse=lambda x: jax.lax.cumlogsumexp(x, axis=0),
+                cummax=lambda x: jax.lax.cummax(x, axis=0),
+                cummin=lambda x: jax.lax.cummin(x, axis=0),
+                argsort=lambda x, desc=False: lib.argsort(x,
+                                                          descending=desc))
+
+
+def _assoc_scan_body(o, lib):
+    f = _scan_fns(lib)
+
+    @o.parallel_for(start=1, stop=22, reduction={"s": "+"}, name="as1")
+    def as1(i, env):
+        b = env["B"][i]
+        mx, mn = f["cummax"](b), f["cummin"](b * env["w"])
+        ln = f["cummax"](env["N"][i]) - f["cummin"](env["N"][i])
+        return {"Y": o.at(i, f["lse"](env["A"][i])),
+                "Z": o.at(i, lib.roll(mx, 2) + mn - lib.roll(
+                    f["lse"](b), -3)),
+                "W": o.at(i, ln),
+                "P": o.at(i, f["lse"](b) @ env["M"]),
+                "s": o.red(mx[3] + lib.roll(mn, -1)[0] + f["lse"](b)[5])}
+    return as1
+
+
+def _argsort_body(o, lib):
+    f = _scan_fns(lib)
+
+    @o.parallel_for(stop=(5, 6), collapse=2, name="ag2")
+    def ag2(i, j, env):
+        row = env["A"][i] * env["B"][j]
+        return {"I": o.at((i, j), f["argsort"](row)),
+                "J": o.at((i, j), f["argsort"](env["K"][i] - env["L"][j],
+                                               True)),
+                "T": o.at((i, j), f["argsort"](env["B"][j], True)[0]
+                          + f["argsort"](row)[-1])}
+    return ag2
+
+
+def _int_pow_body(o, lib):
+    @o.parallel_for(stop=15, name="ip1")
+    def ip1(i, env):
+        k = env["K"][i]
+        return {"Q": o.at(i, k ** 5 + k ** 0 - k ** 1 * k ** 2),
+                "q": o.at(i, env["k"][i] ** 7 + (k ** 3).sum())}
+    return ip1
+
+
+def _assoc_scan_env():
+    g = np.random.default_rng(36)
+    n = 19
+    a = _normal(g, 23, n)
+    a[::4, 0] = -np.inf                 # -inf leading a row: -inf, not NaN
+    a[1::5, 7] = -np.inf
+    a[2::6, :3] = -np.inf
+    nan = _normal(g, 23, n)
+    nan[g.random((23, n)) < 0.1] = np.nan
+    z = np.zeros((23, n), np.float32)
+    return {"A": a, "B": _normal(g, 23, n), "N": nan, "w": _normal(g, n),
+            "M": _normal(g, n, n), "Y": z, "Z": z, "W": z, "P": z,
+            "s": np.zeros((), np.float32)}
+
+
+def _argsort_env():
+    g = np.random.default_rng(37)
+    # few distinct values: many ties, signed zeros, and NaN
+    a = g.integers(-2, 3, size=(6, 21)).astype(np.float32)
+    b = g.integers(-1, 2, size=(6, 21)).astype(np.float32)
+    a[1, ::4] = np.nan
+    b[2, 3] = -0.0
+    return {"A": a, "B": b,
+            "K": g.integers(-3, 3, size=(6, 21)).astype(np.int32),
+            "L": g.integers(-3, 3, size=(6, 21)).astype(np.int32),
+            "I": np.zeros((5, 6, 21), np.int32),
+            "J": np.zeros((5, 6, 21), np.int32),
+            "T": np.zeros((5, 6), np.int32)}
+
+
+def _int_pow_env():
+    g = np.random.default_rng(38)
+    # |k|^5 passes 2^31: the products wrap, as int32's do in both packages
+    return {"K": g.integers(-400, 400, size=(15, 9)).astype(np.int32),
+            "k": g.integers(-30, 30, size=15).astype(np.int32),
+            "Q": np.zeros((15, 9), np.int32), "q": np.zeros(15, np.int32)}
+
+
+@pytest.mark.parametrize("cap", [None, 16])
+@pytest.mark.parametrize("body", ["scan", "argsort", "intpow"])
+def test_scan_sort_index_and_int_pow_repairs_match_reference(body, cap,
+                                                             monkeypatch):
+    """``logcumsumexp`` (rows led by -inf give -inf, not NaN) and the
+    values of ``cummax``/``cummin`` (a NaN carried on) along a row as
+    ``tl.associative_scan`` — whole, carried tile to tile with the cap
+    lowered to 16, rolled, at one position, in a product's grid value
+    tile; the indices of a sort of a row with ties, signed zeros and NaN
+    (ascending and descending, float and int32, rank 2) from one sorted
+    64-bit key; and an int32 ``pow`` by constants 0-7 whose products wrap,
+    as repeated squaring — each equal to the reference's
+    ``run_reference`` and its Pallas lowering, and emulated."""
+    import jax.numpy as jnp
+
+    from repro import omp as jomp
+    from repro_torch import convert, omp
+    from repro_torch.kernels import span_kernel
+
+    make, env_np = {"scan": (_assoc_scan_body, _assoc_scan_env),
+                    "argsort": (_argsort_body, _argsort_env),
+                    "intpow": (_int_pow_body, _int_pow_env)}[body]
+    env_np = env_np()
+    prog, jprog = make(omp, torch), make(jomp, jnp)
+    if cap is not None:
+        monkeypatch.setattr(span_kernel, "_MAX_TILE_ELEMS", cap)
+        if body == "argsort":       # a row longer than one register tile
+            env = convert.env_from_numpy(env_np, "cpu")
+            with pytest.raises(omp.CompileError, match="aten.sort .* 21 "
+                               "elements, longer than one register tile"):
+                _text(prog, env, 2)
+            omp.clear_compile_cache()
+            return
+    omp.clear_compile_cache()
+    _check_block(prog, jprog, env_np)
+    text = _text(prog, convert.env_from_numpy(env_np, "cpu"), prog.rank)
+    marks = {"scan": ("tl.associative_scan(", "def _scan_lse(a, b):",
+                      "def _scan_maxf(a, b):", "def _scan_minf(a, b):",
+                      "libdevice.log1p("),
+             "argsort": ("tl.sort(", "<< 32", "bitcast=True"),
+             "intpow": ("* 0 + 1)",)}[body]
+    assert all(m in text for m in marks), text
+    if body == "intpow":
+        assert "libdevice" not in text, text
     omp.clear_compile_cache()

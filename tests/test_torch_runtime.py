@@ -169,7 +169,7 @@ def test_injector_fires_at_each_site_and_restores_hooks():
 # ---------------------------------------------------------------------------
 
 
-def test_sixteen_threads_one_cold_compile():
+def test_sixteen_threads_one_cold_compile(tmp_path):
     from repro_torch import omp
     from repro_torch.serving import CompileService
 
@@ -211,8 +211,17 @@ def test_sixteen_threads_one_cold_compile():
         futs = [svc2.submit(blk, env) for _ in range(3)]
         assert all(torch.equal(f.result(timeout=60)["y"], want)
                    for f in futs)
-    with pytest.raises(NotImplementedError, match="AOT store"):
-        CompileService(_mesh(), persistent_dir="aot")
+    # persistent_dir turns the store on: the cold compile lands on disk
+    try:
+        with CompileService(_mesh(), persistent_dir=str(tmp_path)) as svc3:
+            assert omp.compile_cache_stats()["persistent_dir"] == str(
+                tmp_path)
+            omp.clear_compile_cache()
+            assert torch.equal(svc3.run(blk, env)["y"], want)
+        assert list(tmp_path.glob("*.aot"))
+        assert omp.compile_cache_stats()["disk_bytes_written"] > 0
+    finally:
+        omp.disable_persistent_cache()
 
 
 def test_straggler_escalates_to_weights_then_to_a_degraded_plan():

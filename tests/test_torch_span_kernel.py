@@ -31,8 +31,9 @@ class _Arr(np.ndarray):
     """A block value: an ndarray with Triton's ``.to(dtype)``, kept an
     array even when 0-d."""
 
-    def to(self, dtype):
-        return np.asarray(self).astype(dtype).view(_Arr)
+    def to(self, dtype, bitcast=False):
+        a = np.asarray(self)
+        return (a.view(dtype) if bitcast else a.astype(dtype)).view(_Arr)
 
     def __array_wrap__(self, out, context=None, return_scalar=False):
         return np.asarray(out).view(_Arr)
@@ -89,6 +90,17 @@ def _fake_modules(state):
         np.flip(np.sort(x, axis=dim), axis=dim) if descending
         else np.sort(x, axis=dim))
     tl.debug_barrier = lambda: None
+
+    def associative_scan(x, axis, combine_fn, reverse=False):
+        # Triton's scan with a @triton.jit combine function, in order
+        assert not reverse
+        fn = getattr(combine_fn, "fn", combine_fn)
+        a = np.moveaxis(np.array(x), axis, 0)
+        for i in range(1, a.shape[0]):
+            a[i] = np.asarray(fn(_arr(a[i - 1]), _arr(a[i])))
+        return _arr(np.moveaxis(a, 0, axis))
+
+    tl.associative_scan = associative_scan
     tl.sin, tl.cos = (lambda x: _arr(np.sin(x))), (lambda x: _arr(np.cos(x)))
     tl.rsqrt = lambda x: _arr(1.0 / np.sqrt(x))
     tl.erf = lambda x: _arr(_erf(x))
@@ -142,6 +154,9 @@ def _fake_modules(state):
     class _Jit:
         def __init__(self, fn):
             self.fn = fn
+
+        def __call__(self, *args):          # one jit function calls another
+            return self.fn(*args)
 
         def __getitem__(self, grid):
             def run(*args, num_warps=4, num_stages=3):
@@ -201,7 +216,10 @@ def emulate_span(source, stage_io, fill=0.0):
     args = span_kernel.kernel_args(source, stage_io)
     outs = [{} for _ in stage_io]
     for si, key, shape, dtype in source.outputs:
-        outs[si][key] = torch.full(shape, fill, dtype=dtype)
+        # an integer output cannot hold a NaN fill: its least value instead
+        f = fill if dtype.is_floating_point or np.isfinite(fill) \
+            else torch.iinfo(dtype).min
+        outs[si][key] = torch.full(shape, f, dtype=dtype)
     ns[source.fn_name][(source.n_programs,)](
         *args, *(outs[si][key] for si, key, _, _ in source.outputs))
     return outs
@@ -256,6 +274,11 @@ def _check_family(case, mesh_shape, axes, shard):
     mask = kernel_lower.lane_mask(comp.plan, "cpu")
     tol = REDUCING if source.text.count("tl.sum(") else POINTWISE
     for k in want:
+        if not want[k].is_floating_point():     # integers: bit for bit
+            np.testing.assert_array_equal(got[k][mask].numpy(),
+                                          want[k][mask].numpy(),
+                                          err_msg=f"{prog.name} key={k}")
+            continue
         np.testing.assert_allclose(got[k][mask].numpy(),
                                    want[k][mask].numpy(), **tol,
                                    err_msg=f"{prog.name} key={k}")
@@ -446,24 +469,26 @@ def test_generated_product_forms(monkeypatch):
 
 
 def test_op_outside_the_template_raises_compile_error_naming_it():
-    """An op the template cannot express (a log-sum-exp scan along the
-    row: ``cumsum`` and ``cumprod`` are in the template, ``logcumsumexp``
-    is not) is refused at compile time by the kernel lowering, naming the
-    op; the collective lowering still runs it."""
+    """An op the template cannot express (the indices of ``cummax`` along
+    the row: its values, ``cumsum``, ``cumprod`` and ``logcumsumexp`` are
+    in the template, the indices have no ``jnp`` twin in the reference)
+    is refused at compile time by the kernel lowering, naming the op; the
+    collective lowering still runs it."""
     from repro_torch import omp
 
     @omp.parallel_for(stop=6)
     def scan(i, env):
-        return {"Y": omp.at(i, torch.logcumsumexp(env["X"][i], 0))}
+        return {"Y": omp.at(i, torch.cummax(env["X"][i], 0).indices)}
 
-    env = {"X": torch.zeros(6, 5), "Y": torch.zeros(6, 5)}
+    env = {"X": torch.arange(5.0).repeat(6, 1),
+           "Y": torch.zeros(6, 5, dtype=torch.int64)}
     mesh = omp.make_mesh((2,), ("data",), device="cpu")
-    with pytest.raises(omp.CompileError, match="aten.logcumsumexp"):
+    with pytest.raises(omp.CompileError,
+                       match="aten.cummax.default's indices"):
         omp.compile(scan, mesh, lowering="kernel", env_like=env)
     out = omp.compile(scan, mesh, lowering="collective")(env)
-    np.testing.assert_allclose(out["Y"].numpy(),
-                               np.tile(np.log(np.arange(1.0, 6.0)), (6, 1)),
-                               rtol=1e-6)
+    np.testing.assert_array_equal(out["Y"].numpy(),
+                                  np.tile(np.arange(5), (6, 1)))
 
 
 def _roll_bodies(s):
