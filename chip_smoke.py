@@ -211,8 +211,11 @@ non-zero (no phase catches an error and carries on):
     stored tile by tile); the ninth slice's ``logcumsumexp`` and the
     values of ``cummax``/``cummin`` along 2000 rows of 2600, the indices
     of a sort of 16384 tied rows of 512 and an int32 ``x ** 5`` (N =
-    2^24), each beside its one ``torch`` call, integers held bit for
-    bit: each under
+    2^24), each beside its one ``torch`` call; the tenth slice's
+    product one column wide (2000 rows of 2600 times a one-column slice)
+    and int32 product (2000 x 2600 by 2600 x 64, wrapping; its plain
+    version on the host: torch has no CUDA int32 product), integers
+    held bit for bit: each under
     ``lowering="kernel"`` against its shared-memory run (``agree`` at
     1e-4: a scan of 2600 normal values reaches ~100, where two float32
     sums in another order differ by more than a fixed 1e-4),
@@ -259,7 +262,25 @@ non-zero (no phase catches an error and carries on):
     capacity factor ``MOE_SERVE_CF``;
 24. **jamba-1.5-large-398b and arctic-480b** at ``smoke_config`` size:
     prefill + one decode step == forward at capacity factor 8, and the
-    engine serves 3 requests (``moe_smoke_phase``).
+    engine serves 3 requests (``moe_smoke_phase``);
+25. **whisper-small** at full width and depth (``whisper_phase``): 4
+    requests of 1500 frames and 4-64 prompt tokens, the kernel prefill
+    (K2 for the encoder's bidirectional attention, the decoder's causal
+    self-attention and its cross-attention) against impl="full" in
+    float32 and bfloat16, K2's launches per encode / prefill / decode
+    step, 32 greedy decode steps against a teacher-forced reference,
+    times;
+26. **K2 at whisper's three shapes** (``whisper_k2_rows``): Sq = Sk =
+    1500, Sq 64 / Sk 1500, Sq 1 / Sk 1500, no mask, hd 64, bfloat16 and
+    float32, against the plain version, timed beside SDPA and the bound;
+27. **training** (``train_phase``): one float32 train step of gemma3-1b
+    at full width and 2 layers on the card against the same step on the
+    host; gemma3-1b and whisper-small at full width and depth, 30 steps
+    on one repeated 8 x 256 batch (AdamW, remat, bf16 compute): the loss
+    falls to at most ``TRAIN_LOSS_SHARE`` of the first, ms per step and
+    tokens/s; a ``FaultTolerantLoop`` run with a planted failure and a
+    restore equal to an uninterrupted run, bit for bit, in a fresh
+    process under deterministic algorithms (``ft_child``).
 
 In phases 4, 15, 17 and 18 every span is also launched by K1's launcher
 and by Triton's launch path on the same feeds, equal bit for bit.
@@ -341,6 +362,17 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def host_ms(fn, reps=3) -> float:
+    """Milliseconds of one host call of ``fn`` (the median of ``reps``)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
 
 
 def cuda_ms(torch, fn, reps=REPS, inner=INNER, warmup=3) -> float:
@@ -806,10 +838,10 @@ def k2_phase(torch, dev, card):
     return errs
 
 
-def k2_bound(torch, b, h, kv, sq, sk, hd, window, dtype):
+def k2_bound(torch, b, h, kv, sq, sk, hd, window, dtype, causal=True):
     """(bound in s, what bounds it, flops, bytes, allowed pairs per
-    head) of one K2 call at these shapes, causal."""
-    pairs = band_pairs(sq, sk, True, window)
+    head) of one K2 call at these shapes."""
+    pairs = band_pairs(sq, sk, causal, window)
     flops = 4 * hd * h * b * pairs
     size = torch.empty((), dtype=dtype).element_size()
     nbytes = size * (2 * b * h * sq * hd + 2 * b * kv * sk * hd)
@@ -1437,19 +1469,10 @@ def worst_gap(pairs):
                 name) for name, g, w in pairs)
 
 
-def hold_prefill(torch, got, want, tol, label, names=("k", "v"),
-                 tokens=None):
-    """A prefill's (logits, cache) under ``agree`` against another's, the
-    cache's positions equal where it keeps them; returns
-    :func:`worst_gap` of the logits and every layer's cache entries
-    ``names`` (on ``tokens`` only, given: see :func:`prefill_pairs`).
-    Every reading is taken before a failure raises, so a failure names
-    them all."""
-    for key in want[1]:
-        if "pos" in want[1][key] and not torch.equal(got[1][key]["pos"],
-                                                     want[1][key]["pos"]):
-            raise AssertionError(f"{label}: cache {key}/pos differ")
-    pairs = prefill_pairs(got, want, names, tokens)
+def hold_pairs(torch, pairs, tol, label):
+    """Every (name, got, want) pair under ``agree`` at ``tol``; returns
+    :func:`worst_gap`.  Every reading is taken before a failure raises,
+    so a failure names them all."""
     worst = worst_gap(pairs)
     bad = [name for name, g, w in pairs if not agree(torch, g, w, tol)]
     if bad:
@@ -1458,6 +1481,21 @@ def hold_prefill(torch, got, want, tol, label, names=("k", "v"),
             f"{', '.join(bad)}; worst err / scale {worst[0]:.3e} in "
             f"{worst[1]}")
     return worst
+
+
+def hold_prefill(torch, got, want, tol, label, names=("k", "v"),
+                 tokens=None):
+    """A prefill's (logits, cache) under ``agree`` against another's, the
+    cache's positions equal where it keeps them; returns
+    :func:`worst_gap` of the logits and every layer's cache entries
+    ``names`` (on ``tokens`` only, given: see :func:`prefill_pairs`),
+    held by :func:`hold_pairs`."""
+    for key in want[1]:
+        if "pos" in want[1][key] and not torch.equal(got[1][key]["pos"],
+                                                     want[1][key]["pos"]):
+            raise AssertionError(f"{label}: cache {key}/pos differ")
+    return hold_pairs(torch, prefill_pairs(got, want, names, tokens), tol,
+                      label)
 
 
 def serving_phase(torch, dev, card, model, params):
@@ -1974,20 +2012,32 @@ def pb_library(name, torch, env, block):
 
 def rows_of(values, mask):
     """The rows ``agree_rows`` holds: one per lane that holds an
-    iteration (its vector of values), or, for one value a lane, the lanes
-    of a chunk."""
+    iteration (its vector of values), or, for one value a lane (a
+    trailing dim of one too: a product one column wide), the lanes of a
+    chunk."""
+    if values.dim() > mask.dim() and values[mask].shape[1:].numel() == 1:
+        values = values.reshape(mask.shape)
     return values[mask] if values.dim() > mask.dim() else values
 
 
+def tree_to(tree, dev):
+    """A dict of tensors (nested) copied to ``dev``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
 def check_pb_span(torch, span_kernel, kernel_lower, comp, prog, env, dev,
-                  label, mm, lane_dim=None) -> tuple[float, float]:
+                  label, mm, lane_dim=None,
+                  host=False) -> tuple[float, float]:
     """The block's span kernel against its plain version on the same
     inputs: ``hold_lanes`` (``agree`` and its rejections, given
     ``lane_dim`` the plain values moved by one lane too) and
     ``hold_rows`` (one row per lane) at ``span_tol``; for a matrix
     product (``mm``) both checks must also reject the plain values
     computed with TF32 allowed, and ``agree`` holds it at PB_MM_TOL.
-    Returns (max abs err, worst row-relative err)."""
+    ``host``: the plain version runs on the host's copy of the inputs
+    (``HOST_PLAIN``).  Returns (max abs err, worst row-relative err)."""
     from repro_torch.core import transform
 
     repl, slabs = transform.stage_inputs(comp.plan, env)
@@ -1995,7 +2045,13 @@ def check_pb_span(torch, span_kernel, kernel_lower, comp, prog, env, dev,
     (got,) = span_kernel.span_stage_values(
         one_stage(kernel_lower, comp.plan, prog, slabs, repl), span.source,
         dev)
-    want = span_kernel.span_values_plain(comp.plan, prog, slabs, repl, dev)
+    if host:
+        want = {k: v.to(dev) for k, v in span_kernel.span_values_plain(
+            comp.plan, prog, tree_to(slabs, "cpu"), tree_to(repl, "cpu"),
+            torch.device("cpu")).items()}
+    else:
+        want = span_kernel.span_values_plain(comp.plan, prog, slabs, repl,
+                                             dev)
     mask = kernel_lower.lane_mask(comp.plan, dev)
     tol = span_tol(span.source)
     err = hold_lanes(torch, got, want, mask, PB_MM_TOL if mm else tol, label,
@@ -2008,8 +2064,8 @@ def check_pb_span(torch, span_kernel, kernel_lower, comp, prog, env, dev,
         if not want[k].is_floating_point():
             continue                    # held bit for bit by hold_lanes
         # lanes that hold no iteration take the plain value
-        g = torch.where(mask, got[k], want[k]) if want[k].dim() == \
-            mask.dim() else got[k]
+        g = torch.where(mask.reshape(mask.shape + (1,) * (
+            want[k].dim() - mask.dim())), got[k], want[k])
         worst = max(worst, hold_rows(torch, rows_of(g, mask),
                                      rows_of(want[k], mask), tol,
                                      f"{label} {k}"))
@@ -2259,6 +2315,11 @@ REPAIR_SORT = (16384, 512)     # the sort: lanes, row (one register tile)
 REPAIR_HANDOFF = (8192, 4096)  # the tile-by-tile hand-off: lanes, row
 REPAIR_ARGSORT = (16384, 512)  # the sort's indices: lanes, row (one tile)
 REPAIR_POW = 5                 # the constant exponent of the int32 pow
+REPAIR_ONE_COL = 8             # columns of the matrix whose one is taken
+REPAIR_INT_N = 64              # columns of the int32 product's matrix
+#: programs whose plain version runs on the host: torch has no CUDA
+#: integer matrix product ("addmm_cuda" / "mv" not implemented for 'Int')
+HOST_PLAIN = {"int_mm"}
 K2_WIDE_HD = (288, 512)        # head dims over 256 (the wide kernel)
 
 
@@ -2398,6 +2459,14 @@ def repair_programs(omp, torch, dev):
     def int_pow1(i, env):
         return {"y": omp.at(i, env["x"][i] ** REPAIR_POW)}
 
+    @omp.parallel_for(stop=n, name="one_col1")
+    def one_col1(i, env):
+        return {"Y": omp.at(i, env["A"][i] @ env["M"][:, 2:3])}
+
+    @omp.parallel_for(stop=n, name="int_mm1")
+    def int_mm1(i, env):
+        return {"Q": omp.at(i, env["K"][i] @ env["L"])}
+
     x1, x2 = rnd(N1), rnd(N2, N2)
     near1 = 1.0 + 0.01 * rnd(n, w)
     scan_a = rnd(n, w)
@@ -2411,6 +2480,11 @@ def repair_programs(omp, torch, dev):
     idx = torch.randint(-N1 - 64, N1 + 64, (N1, REPAIR_GATHER), generator=g,
                         device=dev, dtype=torch.int32)
     sort_a = rnd(sort_lanes, sort_w)
+    one_a, one_m = rnd(n, w), rnd(w, REPAIR_ONE_COL)
+    # |K L| passes 2^31: the products and their sums wrap in int32
+    int_k, int_l = (torch.randint(-60000, 60000, shape, generator=g,
+                                  device=dev, dtype=torch.int32)
+                    for shape in ((n, w), (w, REPAIR_INT_N)))
     return {
         "cumsum1": (cumsum1, {"A": rnd(n, w), "w": rnd(w), "M": rnd(w, w),
                               "Y": zeros(n, w), "P": zeros(n, w),
@@ -2465,6 +2539,16 @@ def repair_programs(omp, torch, dev):
                     (PB_RANKS,), ("data",),
                     lambda: torch.pow(ints, REPAIR_POW),
                     f"torch.pow (x ** {REPAIR_POW}, int32)"),
+        "one_column": (one_col1, {"A": one_a, "M": one_m,
+                                  "Y": zeros(n, 1)}, (PB_RANKS,),
+                       ("data",), lambda: torch.mm(one_a, one_m[:, 2:3]),
+                       "torch.mm (rows times one column)"),
+        "int_mm": (int_mm1, {"K": int_k, "L": int_l, "Q": torch.zeros(
+                       n, REPAIR_INT_N, dtype=torch.int32, device=dev)},
+                   (PB_RANKS,), ("data",), None,
+                   "null: torch has no CUDA int32 matrix product (addmm_cuda "
+                   "not implemented for 'Int'); the plain version runs on "
+                   "the host"),
         "handoff": (omp.region(h1, h2, name="handoff"),
                     {"X": rnd(h_lanes, h_w), "w": rnd(h_w),
                      "V": zeros(h_lanes, h_w), "y": zeros(h_lanes),
@@ -2507,7 +2591,9 @@ def repair_phase(torch, dev, card):
             omp, torch, dev).items():
         t0 = time.perf_counter()
         mesh = omp.make_mesh(shape, axes, device=dev)
-        ref = prog(env)
+        host = name in HOST_PLAIN
+        ref = ({k: v.to(dev) for k, v in prog(tree_to(env, "cpu")).items()}
+               if host else prog(env))
         comp = omp.compile(prog, mesh, lowering="kernel", env_like=env)
         comp(env)                       # first run: Triton builds K1
         torch.cuda.synchronize()
@@ -2552,10 +2638,13 @@ def repair_phase(torch, dev, card):
         else:
             err, worst = check_pb_span(torch, span_kernel, kernel_lower,
                                        comp, prog, env, dev,
-                                       f"repair {name}", False)
+                                       f"repair {name}", False, host=host)
             repl, slabs = transform.stage_inputs(comp.plan, env)
             calls = [(one_stage(kernel_lower, comp.plan, prog, slabs, repl),
                       comp.kernel_plan.spans[0].source)]
+            if host:
+                host_stages = one_stage(kernel_lower, comp.plan, prog,
+                                        tree_to(slabs, "cpu"), tree_to(repl, "cpu"))
         worst_s = "n/a (region: per stage above)" if region else f"{worst:.3e}"
         print(f"repair {name}: {prog.name} on a "
               f"{'x'.join(map(str, shape))} mesh: kernel == prog(env) "
@@ -2571,7 +2660,9 @@ def repair_phase(torch, dev, card):
               f"{sum(t.count('libdevice.') - 1 for t in texts if 'libdevice' in t)}"
               f", barriers {sum(t.count('tl.debug_barrier()') for t in texts)}"
               f", rolled reads "
-              f"{sum(t.count(') % ') for t in texts)}; shared memory "
+              f"{sum(t.count(') % ') for t in texts)}, tl.dot "
+              f"{sum(t.count('tl.dot(') for t in texts)}, row-sum products "
+              f"{sum(t.count('[:, :, None] *') for t in texts)}; shared memory "
               f"{span_shared(span_kernel, comp.kernel_plan.spans)} B at "
               f"{[sp.source.num_stages for sp in comp.kernel_plan.spans]} "
               f"stages; {time.perf_counter() - t0:.2f} s")
@@ -2580,9 +2671,14 @@ def repair_phase(torch, dev, card):
         for stages, source in calls:
             ms += cuda_ms(torch, lambda: span_kernel.span_stage_values(
                 stages, source, dev))
-            plain_ms += cuda_ms(torch, lambda: span_kernel.
-                                span_values_plain_stages(stages, dev),
-                                reps=3, inner=2, warmup=1)
+            if host:                    # host time: no CUDA int mm
+                plain_ms += host_ms(lambda: span_kernel.
+                                    span_values_plain_stages(
+                                        host_stages, torch.device("cpu")))
+            else:
+                plain_ms += cuda_ms(torch, lambda: span_kernel.
+                                    span_values_plain_stages(stages, dev),
+                                    reps=3, inner=2, warmup=1)
             b, f = span_bound(torch, stages, source)
             nbytes, flops = nbytes + b, flops + f
             bound_s += max(b / HBM_BYTES_PER_S, f / FP32_FLOPS_PER_S)
@@ -2590,7 +2686,7 @@ def repair_phase(torch, dev, card):
         bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S
                     >= flops / FP32_FLOPS_PER_S else "operations")
         print(f"times repair {name}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, library "
+              f"{plain_ms:.4f} ms{' (on the host)' if host else ''}, library "
               + ("null" if library_ms is None else f"{library_ms:.4f} ms")
               + f" ({note}), bound {bound_s * 1e3:.4f} ms ({bound_by}: "
               f"{nbytes} B, {flops} flops) on {card}")
@@ -2599,7 +2695,8 @@ def repair_phase(torch, dev, card):
             "source": SOURCE, "replaces": REPLACES, "launches": launches,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_s * 1e3, "bound_by": bound_by,
-            "library_ms": library_ms, "library_note": note})
+            "library_ms": library_ms, "library_note": note,
+            **({"plain_on": "host"} if host else {})})
         del comp, out, ref, env, calls
         torch.cuda.empty_cache()
     return rows
@@ -3500,6 +3597,522 @@ def moe_smoke_phase(torch, dev, card):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# The encoder-decoder family: whisper-small and K2's three regimes there
+# ---------------------------------------------------------------------------
+
+ENCDEC_ARCH = "whisper-small"
+WHISPER = dict(requests=4, shortest=4, longest=64, max_new=32,
+               cache_len=448)  # 448: the real decoder's cap of positions
+WHISPER_TOL = {"float32": PREFILL_TOL, "bfloat16": PREFILL_TOL_BF16}
+
+
+def arch_config(arch):
+    from repro_torch.configs import get_config
+
+    return get_config(arch)
+
+
+def whisper_config():
+    return arch_config(ENCDEC_ARCH)
+
+
+def whisper_pairs(got, want):
+    """(name, got, want) over two whisper prefills' logits and every
+    decoder layer's self k/v and cross k/v, as float32."""
+    (gl, gc), (wl, wc) = got, want
+    pairs = [("logits", gl, wl)]
+    for name in ("k", "v"):
+        pairs += [(f"self[{i}]/{name}", gc["self"][name][i],
+                   wc["self"][name][i])
+                  for i in range(wc["self"][name].shape[0])]
+    for key in ("cross_k", "cross_v"):
+        pairs += [(f"{key}[{i}]", gc[key][i], wc[key][i])
+                  for i in range(wc[key].shape[0])]
+    return [(n, g.float(), w.float()) for n, g, w in pairs]
+
+
+def whisper_requests(torch, cfg, dev):
+    """``WHISPER["requests"]`` requests: each (frames (1, F, d_model),
+    prompt (1, n)), frames normal from seed 0, prompts of 4-64 tokens
+    (the first two the shortest and the longest)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    lens = rng.integers(WHISPER["shortest"], WHISPER["longest"] + 1,
+                        size=WHISPER["requests"])
+    lens[:2] = WHISPER["shortest"], WHISPER["longest"]
+    g = torch.Generator(device=dev).manual_seed(0)
+    return [(torch.randn((1, cfg.encoder.n_frames, cfg.d_model), generator=g,
+                         device=dev),
+             torch.as_tensor(rng.integers(1, cfg.vocab_size, size=(1, int(n))),
+                             dtype=torch.int32, device=dev))
+            for n in lens]
+
+
+def whisper_phase(torch, dev, card):
+    """Phase 25: whisper-small at full width and depth (12 encoder and 12
+    decoder layers, d_model 768, 12 heads of 64), float32 weights drawn on
+    the card from seed 0, computed in float32 and in bfloat16.  For each
+    of 4 requests (1500 random frames, a prompt of 4-64 tokens): the
+    prefill with impl="kernel" (K2 for the encoder's bidirectional
+    self-attention, the decoder's causal self-attention and its
+    cross-attention) against impl="full" (``agree`` at ``WHISPER_TOL`` on
+    the logits and every layer's self k/v and cross k/v; positions equal;
+    in bfloat16 the kernel's gap to float32 at most ``BF16_GAP_RATIO`` x
+    the plain path's); K2's launches per encode (12), per prefill (36:
+    12 of the encoder, 24 of the decoder) and per decode step (12: the
+    cross-attention; the cached self-attention takes impl="full"); then
+    32 greedy decode steps, each against a teacher-forced impl="full"
+    decode: in float32 every token within ``SERVE_TOL`` x max|logit| of
+    the reference's best, in bfloat16 the logits under ``agree`` at
+    ``PREFILL_TOL_BF16``; times.  Returns (K2 launches by call, the
+    longest prompt)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import build_model
+
+    cfg = whisper_config()
+    f32, bf16 = torch.float32, torch.bfloat16
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    params, _ = model.init(torch.Generator(device=dev).manual_seed(0))
+    reqs = whisper_requests(torch, cfg, dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"whisper {cfg.name}: {n_params} parameters (float32, seed 0) "
+          f"built on the card in {time.perf_counter() - t0:.2f} s; "
+          f"{model.n_enc} encoder + {model.n_dec} decoder layers, "
+          f"{cfg.encoder.n_frames} frames, prompts "
+          f"{[int(p.shape[1]) for _, p in reqs]} tokens, cache_len "
+          f"{WHISPER['cache_len']}")
+
+    def prefill(impl, dtype, frames, prompt):
+        cache = model.init_cache(1, WHISPER["cache_len"], dtype=dtype,
+                                 device=dev)
+        return model.prefill(params, {"frames": frames, "tokens": prompt},
+                             cache, impl=impl, compute_dtype=dtype)
+
+    def counted(fn):
+        fa.LAUNCHES.clear()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, sum(fa.LAUNCHES.values())
+
+    want = {"encode": model.n_enc, "prefill": model.n_enc + 2 * model.n_dec,
+            "decode": model.n_dec}
+    launches = {}
+    for dtype in (f32, bf16):
+        tname = dtname(dtype)
+        tol = WHISPER_TOL[tname]
+        worst = (0.0, "")
+        tok_worst, exact, dec_worst = 0.0, 0, 0.0
+        for r, (frames, prompt) in enumerate(reqs):
+            _, n_enc = counted(lambda: model.encode(
+                params, frames, impl="kernel", compute_dtype=dtype))
+            got, n_pre = counted(lambda: prefill("kernel", dtype, frames,
+                                                 prompt))
+            ref = prefill("full", dtype, frames, prompt)
+            if got[0].shape != (1, cfg.vocab_size) or not bool(
+                    torch.isfinite(got[0]).all()):
+                raise AssertionError(f"whisper {tname} request {r}: logits "
+                                     f"{tuple(got[0].shape)} not finite")
+            if not torch.equal(got[1]["self"]["pos"], ref[1]["self"]["pos"]):
+                raise AssertionError(f"whisper {tname} request {r}: "
+                                     "self/pos differ")
+            worst = max(worst, hold_pairs(
+                torch, whisper_pairs(got, ref), tol,
+                f"whisper {tname} request {r}: prefill impl=kernel != "
+                "impl=full"))
+            if dtype == bf16:
+                ref32 = prefill("full", f32, frames, prompt)
+                gaps = {impl: worst_gap(whisper_pairs(out, ref32))[0]
+                        for impl, out in (("kernel", got), ("full", ref))}
+                if gaps["kernel"] > BF16_GAP_RATIO * gaps["full"]:
+                    raise AssertionError(
+                        f"whisper bf16 request {r}: impl=kernel lies "
+                        f"{gaps['kernel']:.3e} from float32, over "
+                        f"{BF16_GAP_RATIO} x impl=full's {gaps['full']:.3e}")
+                del ref32
+            (lk, ck), (lf, cf) = got, ref
+            pos = prompt.shape[1]
+            n_dec = set()
+            for t in range(WHISPER["max_new"]):
+                tok = int(lk[0].argmax())
+                if dtype == f32:
+                    row = lf[0]
+                    gap = (row.max() - row[tok]).item() / \
+                        row.abs().max().item()
+                    if gap > SERVE_TOL:
+                        raise AssertionError(
+                            f"whisper request {r} step {t}: token {tok} "
+                            f"scores {gap:.2e} x max|logit| below the "
+                            f"teacher-forced reference's best (token "
+                            f"{int(row.argmax())}); tolerance {SERVE_TOL}")
+                    tok_worst = max(tok_worst, gap)
+                    exact += int(row.argmax()) == tok
+                else:
+                    dec_worst = max(dec_worst, hold_pairs(
+                        torch, [("logits", lk.float(), lf.float())], tol,
+                        f"whisper bf16 request {r} step {t}: decode "
+                        "impl=kernel != impl=full")[0])
+                step = (torch.tensor([tok], device=dev),
+                        torch.tensor([pos], device=dev))
+                (lk, ck), n = counted(lambda: model.decode_step(
+                    params, ck, *step, impl="kernel", compute_dtype=dtype))
+                n_dec.add(n)
+                lf, cf = model.decode_step(params, cf, *step, impl="full",
+                                           compute_dtype=dtype)
+                pos += 1
+            got_n = {"encode": n_enc, "prefill": n_pre,
+                     "decode": n_dec.pop() if len(n_dec) == 1 else n_dec}
+            if got_n != want:
+                raise AssertionError(f"whisper {tname} request {r}: K2 "
+                                     f"launches {got_n}, want {want}")
+            del got, ref, ck, cf
+        launches[tname] = want
+        n_new = WHISPER["requests"] * WHISPER["max_new"]
+        tail = (f"every greedy token within {SERVE_TOL} x max|logit| of the "
+                f"teacher-forced impl=full reference's best (worst "
+                f"{tok_worst:.2e}; {exact} of {n_new} equal its argmax)"
+                if dtype == f32 else
+                f"decode logits impl=kernel == impl=full (agree at {tol}; "
+                f"worst err / scale {dec_worst:.3e})")
+        print(f"whisper {cfg.name} {tname}: prefill impl=kernel == impl=full "
+              f"on {WHISPER['requests']} requests (logits, self k/v and "
+              f"cross k/v of all {model.n_dec} decoder layers: rtol={tol}, "
+              f"atol={tol} x max|value|; worst err / scale {worst[0]:.3e} "
+              f"in {worst[1]}); K2 launches per encode {want['encode']}, "
+              f"per prefill {want['prefill']} ({want['encode']} encoder + "
+              f"{want['prefill'] - want['encode']} decoder), per decode step "
+              f"{want['decode']}; {WHISPER['max_new']} decode steps each: "
+              + tail)
+    frames, prompt = reqs[1]            # the longest prompt
+    for dtype in (bf16, f32):
+        tname = dtname(dtype)
+        ms = {}
+        for impl in ("kernel", "full"):
+            ms["encode", impl] = cuda_ms(torch, lambda: model.encode(
+                params, frames, impl=impl, compute_dtype=dtype), reps=5,
+                inner=3, warmup=1)
+            ms["prefill", impl] = cuda_ms(torch, lambda: prefill(
+                impl, dtype, frames, prompt), reps=5, inner=3, warmup=1)
+        _, cache = prefill("kernel", dtype, frames, prompt)
+        step = (torch.tensor([7], device=dev),
+                torch.tensor([prompt.shape[1]], device=dev))
+        for impl in ("kernel", "full"):
+            ms["decode", impl] = cuda_ms(torch, lambda: model.decode_step(
+                params, cache, *step, impl=impl, compute_dtype=dtype),
+                reps=5, inner=5, warmup=2)
+        print(f"end-to-end whisper {tname} (1 request, {prompt.shape[1]}-"
+              f"token prompt): encode {ms['encode', 'kernel']:.2f} ms "
+              f"(impl=full {ms['encode', 'full']:.2f}), prefill "
+              f"{ms['prefill', 'kernel']:.2f} ms (impl=full "
+              f"{ms['prefill', 'full']:.2f}), decode step "
+              f"{ms['decode', 'kernel']:.3f} ms = "
+              f"{1e3 / ms['decode', 'kernel']:.1f} tokens/s (impl=full "
+              f"{ms['decode', 'full']:.3f}) on {card}")
+        del cache
+    del model, params, reqs
+    torch.cuda.empty_cache()
+    return launches, WHISPER["longest"]
+
+
+def whisper_k2_rows(torch, dev, card, launches, prompt_len):
+    """Phase 26: K2 at whisper's three shapes (B=1, H=KV=12, hd 64, 1500
+    keys, no causal mask: the encoder's Sq = 1500 with its ragged last key
+    tile, the decoder's cross-attention over the longest prompt, a decode
+    step's Sq = 1), bfloat16 and float32, each against its plain version
+    (phase 6's ``hold``/``hold_rows`` and their planted faults), then
+    timed beside the plain version, SDPA and the bound.  ``launches``:
+    phase 25's counts (the decoder-prefill row's 24 are its 12 causal
+    self-attention launches and its 12 cross-attention launches).
+    Returns the kernel-table rows."""
+    from repro_torch.kernels import flash_attention as fa
+
+    cfg = whisper_config()
+    h, kv, hd, f = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, \
+        cfg.encoder.n_frames
+    tols = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+    rows = []
+    for label, sq, call in (("encoder", f, "encode"),
+                            ("decoder prefill cross", prompt_len, "prefill"),
+                            ("decode cross", 1, "decode")):
+        for dtype in (torch.bfloat16, torch.float32):
+            tname = dtname(dtype)
+            q, k, v = k2_inputs(torch, dev, 1, h, kv, sq, f, hd, dtype, sq)
+            err, row_err = check_k2(torch, fa, q, k, v, False, None,
+                                    tols[dtype], f"whisper {label} {tname}")
+            ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v,
+                                                           causal=False))
+            plain_ms = cuda_ms(torch, lambda: fa.flash_attention_plain(
+                q, k, v, causal=False), reps=5, inner=5)
+            library_ms = cuda_ms(torch, lambda: torch.nn.functional.
+                                 scaled_dot_product_attention(
+                                     q, k, v, enable_gqa=True), reps=5,
+                                 inner=5)
+            bound_s, bound_by, flops, nbytes, _ = k2_bound(
+                torch, 1, h, kv, sq, f, hd, None, dtype, causal=False)
+            n = launches[tname][call] - (launches[tname]["encode"]
+                                         if call == "prefill" else 0)
+            rows.append({
+                "name": f"flash_attention[{ENCDEC_ARCH} {label} Sq={sq} "
+                        f"Sk={f} {tname}]",
+                "route": "cuda", "source": K2_SOURCE,
+                "replaces": K2_REPLACES, "launches": n,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+                "library_ms": library_ms})
+            print(f"K2 whisper {label} {tname} B=1 H=KV={h} Sq={sq} Sk={f} "
+                  f"hd={hd} bidirectional: kernel == plain (max_abs_err "
+                  f"{err:.3e}, worst row-relative {row_err:.3e}, tol "
+                  f"{tols[dtype]}); launches per {call} {n}; kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+                  f"{library_ms:.4f} ms, bound {bound_s * 1e3:.4f} ms "
+                  f"({bound_by}: {flops} flops, {nbytes} B) on {card}")
+            del q, k, v
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Training on one card
+# ---------------------------------------------------------------------------
+
+TRAIN_STEP_TOL = 2e-3          # one float32 step, card vs host (sum order)
+TRAIN_STEP = dict(arch=ARCH, layers=2, batch=4, seq_len=32)
+TRAIN_RUN = dict(archs=(ARCH, ENCDEC_ARCH), batch=8, seq_len=256, steps=30,
+                 lr=1e-3)
+#: the 30th step's loss on one repeated batch at most this share of the
+#: first's (read in a development call; see PERF.md)
+TRAIN_LOSS_SHARE = 0.75
+FT = dict(steps=8, every=3, fail_at=5, batch=2, seq_len=64, layers=2)
+
+
+def train_batch(torch, cfg, batch, seq_len, step, dev):
+    """The data pipeline's batch of ``step`` on ``dev``."""
+    from repro_torch.data import make_batch_iterator
+
+    encdec = cfg.family == "encdec"
+    out = next(make_batch_iterator(
+        vocab_size=cfg.vocab_size, batch=batch, seq_len=seq_len,
+        start_step=step, embed_dim=cfg.d_model if cfg.embedding_stub else None,
+        frames=cfg.encoder.n_frames if encdec else None))
+    return {k: v.to(dev) for k, v in out.items()}
+
+
+def train_step_check(torch, dev, card):
+    """Phase 27(a): gemma3-1b at full width and 2 layers, one float32
+    train step (microbatch 2, remat, AdamW from a state whose second
+    moment is filled with 1e-2, clipping, the schedule) on the card and
+    the same step on the host's CPU from the same parameters and batch:
+    the metrics, every parameter's update, and AdamW's m and v under
+    ``agree`` at ``TRAIN_STEP_TOL`` (float32 sums in another order; at a
+    zero second moment Adam's first update is lr x g / (|g| + eps), which
+    rounding of a gradient near eps could move anywhere in [-lr, lr])."""
+    import dataclasses
+
+    from repro_torch.configs import ShapeConfig, TrainConfig
+    from repro_torch.launch.steps import make_train_cell
+    from repro_torch.pytree import flatten_with_paths, tree_map
+
+    cfg = dataclasses.replace(arch_config(TRAIN_STEP["arch"]),
+                              n_layers=TRAIN_STEP["layers"])
+    b, s = TRAIN_STEP["batch"], TRAIN_STEP["seq_len"]
+    cell = make_train_cell(cfg, ShapeConfig("check", s, b, "train"),
+                           TrainConfig(compute_dtype="float32", microbatch=2,
+                                      warmup_steps=2, total_steps=10,
+                                      learning_rate=1e-3))
+    params, _ = cell.model.init(torch.Generator(device=dev).manual_seed(0))
+    state = cell.optimizer.init(params)
+    state["v"] = tree_map(lambda t: torch.full_like(t, 1e-2), state["v"])
+    batch = train_batch(torch, cfg, b, s, 0, dev)
+    host = torch.device("cpu")
+    hp, hs, hb = (tree_to(t, host) for t in (params, state, batch))
+    t0 = time.perf_counter()
+    gp, gs, gm = cell.step_fn(params, state, batch, 3)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    wp, ws, wm = cell.step_fn(hp, hs, hb, 3)
+    host_s = time.perf_counter() - t0
+    pairs = [(k, gm[k].float().cpu().reshape(1), wm[k].float().reshape(1))
+             for k in ("loss", "ce", "grad_norm", "lr")]
+    for tag, (g_tree, w_tree, base) in {
+            "update": (gp, wp, hp), "m": (gs["m"], ws["m"], None),
+            "v": (gs["v"], ws["v"], None)}.items():
+        gn, gl = flatten_with_paths(g_tree)
+        _, wl = flatten_with_paths(w_tree)
+        bl = flatten_with_paths(base)[1] if base is not None else None
+        for i, (n, g, w) in enumerate(zip(gn, gl, wl)):
+            g = g.float().cpu()
+            if bl is not None:
+                g, w = g - bl[i], w - bl[i]
+            pairs.append((f"{tag} {n}", g, w.float()))
+    worst = hold_pairs(torch, pairs, TRAIN_STEP_TOL,
+                       "train step card != host")
+    print(f"train step {cfg.name} ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab_size}; batch {b} x {s}, "
+          f"microbatch 2, remat, float32): card == host CPU ({len(pairs)} "
+          f"arrays: the metrics, every parameter's update, AdamW's m and "
+          f"v: agree at {TRAIN_STEP_TOL}; worst err / scale "
+          f"{worst[0]:.3e} in {worst[1]}); loss {float(gm['loss']):.4f}; "
+          f"card {card_s:.2f} s (first call), host {host_s:.2f} s on {card}")
+
+
+def train_run(torch, dev, card, arch):
+    """Phase 27(b): ``arch`` at full width and depth, AdamW, remat,
+    bfloat16 compute, one batch of 8 x 256 from the data pipeline taken
+    30 times (lr 1e-3, warm-up 3): the last loss at most
+    ``TRAIN_LOSS_SHARE`` of the first; ms per step and tokens/s.
+    Returns (first loss, last loss)."""
+    from repro_torch.configs import ShapeConfig, TrainConfig
+    from repro_torch.launch.steps import make_train_cell
+
+    cfg = arch_config(arch)
+    b, s, n = TRAIN_RUN["batch"], TRAIN_RUN["seq_len"], TRAIN_RUN["steps"]
+    cell = make_train_cell(cfg, ShapeConfig("run", s, b, "train"),
+                           TrainConfig(compute_dtype="bfloat16", remat=True,
+                                      warmup_steps=3, total_steps=n,
+                                      learning_rate=TRAIN_RUN["lr"]))
+    torch.cuda.reset_peak_memory_stats()
+    params, _ = cell.model.init(torch.Generator(device=dev).manual_seed(0))
+    state = cell.optimizer.init(params)
+    batch = train_batch(torch, cfg, b, s, 0, dev)
+    losses, times = [], []
+    for step in range(n):
+        t0 = time.perf_counter()
+        params, state, m = cell.step_fn(params, state, batch, step)
+        losses.append(float(m["loss"]))         # waits for the step
+        times.append(time.perf_counter() - t0)
+        if not math.isfinite(losses[-1]):
+            raise AssertionError(f"train {arch} step {step}: loss "
+                                 f"{losses[-1]}")
+    step_ms = statistics.median(times[2:]) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"train {arch}: {n_params} parameters (float32), AdamW, remat, "
+          f"bfloat16 compute, microbatch {cell.n_micro}, one batch of "
+          f"{b} x {s} tokens {n} times: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} ({losses[-1] / losses[0]:.3f} of the first; "
+          f"every 5th: {[round(x, 3) for x in losses[::5]]}); "
+          f"{step_ms:.1f} ms a step (median of steps 3-{n}), "
+          f"{b * s / step_ms * 1e3:.0f} tokens/s, first step "
+          f"{times[0] * 1e3:.0f} ms, peak memory {peak:.1f} GiB on {card}")
+    if not losses[-1] <= TRAIN_LOSS_SHARE * losses[0]:
+        raise AssertionError(
+            f"train {arch}: loss {losses[0]:.4f} -> {losses[-1]:.4f}, above "
+            f"{TRAIN_LOSS_SHARE} of the first")
+    del params, state, batch, cell
+    torch.cuda.empty_cache()
+    return losses[0], losses[-1]
+
+
+def ft_child(out: str, device: str = "cuda") -> None:
+    """Phase 27(c), in a fresh process (``CUBLAS_WORKSPACE_CONFIG`` set and
+    ``torch.use_deterministic_algorithms(True)`` before the card is
+    touched): whisper-small at full width with 2 encoder and 2 decoder
+    layers, ``FT["steps"]`` float32 train steps on the data pipeline's
+    batches under ``FaultTolerantLoop`` (async checkpoints every
+    ``FT["every"]`` steps), once uninterrupted and once with a
+    ``StepFailure`` planted at step ``FT["fail_at"]`` and a restore from
+    the last checkpoint; writes the comparison as JSON to ``out``."""
+    import dataclasses
+    import os
+    import tempfile
+
+    torch = _setup() if device == "cuda" else __import__("torch")
+    torch.use_deterministic_algorithms(True)
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import ShapeConfig, TrainConfig
+    from repro_torch.launch.steps import make_train_cell
+    from repro_torch.pytree import flatten_with_paths
+    from repro_torch.runtime import FaultTolerantLoop, StepFailure
+
+    dev = torch.device(device)
+    base = whisper_config()
+    cfg = dataclasses.replace(base, n_layers=FT["layers"], encoder=dataclasses.
+                              replace(base.encoder, n_layers=FT["layers"]))
+    cell = make_train_cell(cfg, ShapeConfig("ft", FT["seq_len"], FT["batch"],
+                                            "train"),
+                           TrainConfig(compute_dtype="float32", warmup_steps=2,
+                                      total_steps=FT["steps"],
+                                      learning_rate=1e-3))
+
+    def run(ckpt_dir, fail_at):
+        params, _ = cell.model.init(torch.Generator(device=dev).manual_seed(0))
+        failed = []
+
+        def hook(step):
+            if step == fail_at and not failed:
+                failed.append(step)
+                raise StepFailure(f"planted at step {step}")
+
+        def step_fn(state, step):
+            batch = train_batch(torch, cfg, FT["batch"], FT["seq_len"], step,
+                                dev)
+            p, s, _ = cell.step_fn(*state, batch, step)
+            return p, s
+
+        loop = FaultTolerantLoop(step_fn=step_fn,
+                                 checkpointer=Checkpointer(ckpt_dir,
+                                                           keep=1),
+                                 checkpoint_every=FT["every"], backoff_s=0.0,
+                                 failure_hook=hook)
+        t0 = time.perf_counter()
+        state = loop.run((params, cell.optimizer.init(params)), start_step=0,
+                         num_steps=FT["steps"])
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return state, loop.restores, time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        want, r0, s0 = run(os.path.join(tmp, "a"), None)
+        got, r1, s1 = run(os.path.join(tmp, "b"), FT["fail_at"])
+    names, gl = flatten_with_paths(got)
+    wl = flatten_with_paths(want)[1]
+    differ = [n for n, g, w in zip(names, gl, wl) if not torch.equal(g, w)]
+    with open(out, "w") as f:
+        json.dump({"leaves": len(names), "differ": differ,
+                   "restores": [r0, r1], "seconds": [s0, s1],
+                   "deterministic": torch.are_deterministic_algorithms_enabled()
+                   }, f)
+
+
+def train_phase(torch, dev, card):
+    """Phase 27: training on one card — (a) ``train_step_check``, (b)
+    ``train_run`` for gemma3-1b and whisper-small, (c) ``ft_child`` in a
+    fresh process: the recovered run equals the uninterrupted one bit for
+    bit."""
+    import os
+    import tempfile
+
+    train_step_check(torch, dev, card)
+    torch.cuda.empty_cache()
+    for arch in TRAIN_RUN["archs"]:
+        train_run(torch, dev, card, arch)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "ft.json")
+        env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-c",
+                        f"import chip_smoke as c; c.ft_child({out!r})"],
+                       cwd=Path(__file__).resolve().parent, env=env,
+                       check=True, timeout=600)
+        with open(out) as f:
+            got = json.load(f)
+    if got["differ"] or got["restores"] != [0, 1] \
+            or not got["deterministic"]:
+        raise AssertionError(f"fault-tolerant loop: {got}")
+    print(f"fault-tolerant loop {ENCDEC_ARCH} ({FT['layers']} + "
+          f"{FT['layers']} layers, full width, float32, deterministic "
+          f"algorithms): {FT['steps']} steps, checkpoints every "
+          f"{FT['every']}, a StepFailure at step {FT['fail_at']} restored "
+          f"once: all {got['leaves']} parameter and state leaves equal the "
+          f"uninterrupted run's bit for bit; runs {got['seconds'][0]:.2f} / "
+          f"{got['seconds'][1]:.2f} s; child {time.perf_counter() - t0:.1f} "
+          f"s on {card}")
+
+
 def main(device: str = "cuda") -> int:
     sys.stdout.reconfigure(line_buffering=True)
     torch = _setup()
@@ -3683,6 +4296,13 @@ def main(device: str = "cuda") -> int:
     # -- MoE and hybrid: qwen2-moe-a2.7b at full width, jamba and arctic -----
     rows += moe_phase(torch, dev, card)
     moe_smoke_phase(torch, dev, card)
+
+    # -- the encoder-decoder family: whisper-small, K2 without a mask ------
+    launches, prompt_len = whisper_phase(torch, dev, card)
+    rows += whisper_k2_rows(torch, dev, card, launches, prompt_len)
+
+    # -- training on one card -----------------------------------------------
+    train_phase(torch, dev, card)
 
     print(card)
     print(json.dumps({"kernels": rows}))

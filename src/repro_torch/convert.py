@@ -7,8 +7,12 @@ into the port with :func:`env_from_numpy` and back with
 of arrays, the same keys and shapes in both packages: an MoE layer's
 ``router``, ``w_gate``/``w_up``/``w_down``, ``shared``, ``shared_gate``
 and ``dense`` as well, and a hybrid's SSM ``h``/``conv`` caches beside
-the KV caches) map in with :func:`params_from_numpy` /
-:func:`cache_from_numpy` and back with :func:`tree_to_numpy`.  JAX computes in 32 bits by default (float32,
+the KV caches; an encoder-decoder's ``encoder``/``decoder`` stacks with
+their ``cross`` sub-trees, and its ``self``/``cross_k``/``cross_v``
+cache) map in with :func:`params_from_numpy` / :func:`cache_from_numpy`
+and back with :func:`tree_to_numpy`; so do the optimizers' states
+(AdamW's ``m``/``v``/``count``, Adafactor's ``per_param`` ``v`` or
+``vr``/``vc`` and bfloat16 ``m``).  JAX computes in 32 bits by default (float32,
 int32), so 64-bit numpy values narrow to 32 bits on the way in, as
 ``jnp.asarray`` would narrow them; a 0-d value stays a 0-d tensor.
 """
@@ -32,6 +36,9 @@ def to_tensor(value: Any, device) -> torch.Tensor:
     if isinstance(value, torch.Tensor):
         return value.to(device)
     arr = np.asarray(value)
+    if arr.dtype.name == "bfloat16":    # JAX's numpy bfloat16: by its bits
+        bits = np.ascontiguousarray(arr).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
     arr = arr.astype(_NARROW.get(arr.dtype, arr.dtype), copy=False)
     return torch.as_tensor(arr.copy(order="C"), device=device)
 
@@ -68,7 +75,10 @@ def cache_from_numpy(tree, device=None) -> dict:
 
 
 def tree_to_numpy(tree):
-    """A nested dict of tensors as the same dict of numpy arrays."""
+    """A nested dict of tensors as the same dict of numpy arrays (a
+    bfloat16 tensor, which numpy has no type for, as its float32
+    values)."""
     if isinstance(tree, Mapping):
         return {k: tree_to_numpy(v) for k, v in tree.items()}
-    return tree.detach().cpu().numpy()
+    t = tree.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()

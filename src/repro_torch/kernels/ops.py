@@ -16,7 +16,10 @@ def flash_attention(q, k, v, *, kind="causal", window=None,
     the reference's wrapper, it ignores explicit position arrays and
     aligns queries on the keys' suffix (query row i is position
     i + Sk - S).  In prefill the positions are 0..S-1 for both, so the
-    two agree; a caller with other positions takes another path.
+    two agree; a caller with other positions takes another path.  With
+    ``kind="bidir"`` and no window (the encoder's self-attention, the
+    decoder's cross-attention over the frames, S != Sk) every query sees
+    every key, and the alignment plays no part.
     """
     del q_positions, k_positions
     out = fa.flash_attention(q.transpose(1, 2).contiguous(),

@@ -54,9 +54,12 @@ the Pallas kernel traced the body into its own body:
   scanned again in two segments), a ``roll``
   along it (the rolled value emitted again at the wrapped positions; a
   lane scalar's roll is the identity), ``aten.mm`` of a per-lane
-  operand and a replicated array
-  (either side, transposed or not) as K-loops of ``tl.dot`` and
-  ``aten.mv`` as K-loops of row sums; a rank-2
+  operand and a replicated array (either side, transposed or not, a
+  step-1 slice of it read in place) as K-loops of ``tl.dot`` and
+  ``aten.mv`` as K-loops of row sums — so is a product one position
+  wide (a one-column matrix, one position of a wider output), and a
+  product of integer operands is row sums in their integer type, which
+  wrap as ``jnp.dot``'s do (``tl.dot`` takes floats); a rank-2
   nest's ``A[i] . B[:, j]`` is the outer tile ``A[tile_i, K] @ B[K,
   tile_j]``.  Lane scalars are emitted once, in order; a value with a
   per-lane value axis is emitted per value *tile* where it is consumed
@@ -355,6 +358,12 @@ class _Mem:
     shape: tuple
     fixed: dict
     remaining: list
+    dtype: Any = None           # the type the body casts it to (None: its own)
+    # dims the body slices with step 1: dim -> (first position, length)
+    starts: dict = dataclasses.field(default_factory=dict)
+
+    def extent(self, d: int) -> int:
+        return self.starts[d][1] if d in self.starts else self.shape[d]
 
 
 @dataclasses.dataclass
@@ -465,10 +474,11 @@ def _roles(ta, tb, name) -> dict:
 @dataclasses.dataclass(frozen=True)
 class _Shape:
     """What a span's bodies need of the tiling: whether they hold a
-    matrix product on ``tl.dot`` (``dot``) or a matrix-vector product
-    (``mv``), the output length of the first row-times-matrix product
-    (``vec``: the grid's value axis), and whether a value axis is too
-    long for the default tile (``long``)."""
+    matrix product on ``tl.dot`` (``dot``) or a product of row sums
+    (``mv``: a matrix-vector product, a product one position wide, an
+    integer product), the output length of the first row-times-matrix
+    product on ``tl.dot`` (``vec``: the grid's value axis), and whether a
+    value axis is too long for the default tile (``long``)."""
 
     dot: bool
     vec: int | None
@@ -495,15 +505,22 @@ def _span_shape(stage_roles, default_block) -> _Shape:
                 long = True
             if n.op != "call_function" or n.target not in _PRODUCTS:
                 continue
-            if n.target is aten.mv.default:
+            one_col = not vdims and r.count("lane") == 1
+            if n.target is aten.mm.default and r.count("lane") == 2:
+                outer = True
+                if n.meta["val"].dtype.is_floating_point:
+                    dot, products = True, products + 1
+                continue
+            if n.target is aten.mv.default or one_col \
+                    or not n.meta["val"].dtype.is_floating_point:
+                # row sums: a matrix-vector product, a product one
+                # position wide, an integer product (no tl.dot)
                 mv = True
                 continue
             dot = True
             products += 1
             if n.target is aten.mm.default and len(vdims) == 1:
                 vec = vdims[0] if vec is None else vec
-            elif n.target is aten.mm.default and r.count("lane") == 2:
-                outer = True
     return _Shape(dot=dot, vec=vec, outer=outer, long=long, mv=mv,
                   products=products)
 
@@ -799,6 +816,8 @@ class _Gen:
         for d, size in enumerate(shape):
             if d in mem.fixed:
                 exprs.append(str(mem.fixed[d]))
+            elif mem.starts.get(d, (0,))[0]:
+                exprs.append(f"({mem.starts[d][0]} + {parts[d]})")
             elif isinstance(parts[d], str):
                 exprs.append(parts[d])
             else:
@@ -812,6 +831,18 @@ class _Gen:
         return self.ptr(kind or ("win" if sharded else "repl"), key), off
 
     def load(self, mem: _Mem, indices: list) -> _Val:
+        v = self._load(mem, indices)
+        if mem.dtype is None or mem.dtype == v.dtype:
+            return v
+        return self.pointwise(lambda e: e, [(v, mem.dtype)], mem.dtype,
+                              v.lane, v.k, 0)
+
+    def _load(self, mem: _Mem, indices: list) -> _Val:
+        if mem.starts:
+            raise CompileError(
+                f"span kernel: a slice of env[{mem.key!r}] in "
+                f"{self.plan.name!r} is read outside a product; the template "
+                "reads a slice only as a product's operand")
         if mem.key in self.forwarded:
             return self._forwarded(mem, indices)
         plan, key = self.plan, mem.key
@@ -1069,10 +1100,12 @@ class _Gen:
             if src.mem is not None:
                 m = src.mem
                 d = m.remaining[args[1]]
-                idx = args[2] + m.shape[d] if args[2] < 0 else args[2]
-                self.vals[n] = _Val(mem=_Mem(
-                    m.key, m.shape, {**m.fixed, d: idx},
-                    m.remaining[:args[1]] + m.remaining[args[1] + 1:]))
+                idx = args[2] + m.extent(d) if args[2] < 0 else args[2]
+                starts = dict(m.starts)
+                idx += starts.pop(d, (0, 0))[0]
+                self.vals[n] = _Val(mem=dataclasses.replace(
+                    m, fixed={**m.fixed, d: idx}, starts=starts,
+                    remaining=m.remaining[:args[1]] + m.remaining[args[1] + 1:]))
             else:
                 self.vals[n] = self._select(n, self.value(args[0]))
             return
@@ -1087,7 +1120,31 @@ class _Gen:
                 rem[a], rem[b] = rem[b], rem[a]
             else:
                 rem = rem[::-1]
-            self.vals[n] = _Val(mem=_Mem(m.key, m.shape, m.fixed, rem))
+            self.vals[n] = _Val(mem=dataclasses.replace(m, remaining=rem))
+            return
+        src = self.vals.get(args[0]) if args and isinstance(
+            args[0], torch.fx.Node) else None
+        m = src.mem if isinstance(src, _Val) else None
+        if t is aten.slice.Tensor and m is not None:
+            # a step-1 slice of an env array: a product reads the sub-range
+            dim, lo, hi, step = (list(args[1:]) + [0, None, None, 1][
+                len(args) - 1:])
+            if step != 1:
+                raise CompileError(
+                    f"span kernel: a slice of env[{m.key!r}] with step "
+                    f"{step} in {self.plan.name!r}")
+            d = m.remaining[dim]
+            first, length = m.starts.get(d, (0, m.shape[d]))
+            r = range(length)[lo:hi]
+            self.vals[n] = _Val(mem=dataclasses.replace(
+                m, starts={**m.starts, d: (first + r.start, len(r))}))
+            return
+        if t is aten._to_copy.default and m is not None \
+                and len(m.remaining) == 2:
+            # a replicated matrix cast for a product (the body's twin of a
+            # mixed jnp.dot): it stays unloaded, the product reads it cast
+            self.vals[n] = _Val(mem=dataclasses.replace(
+                m, dtype=n.meta["val"].dtype))
             return
         if t is aten.index.Tensor:
             src = self.vals[args[0]]
@@ -1774,19 +1831,35 @@ class _Gen:
     # -- products -----------------------------------------------------------
 
     def _dot_type(self, *dts) -> tuple:
-        """The operand type of a product and its ``tl.dot`` options:
-        16-bit operands of one type as they are (tensor cores, float32
-        accumulator); anything else in float32 at
+        """The operand type of a product and its ``tl.dot`` options, by
+        the reference's promotion (``jnp.dot``): integer operands alone
+        multiply in their promoted integer type, as row sums (options
+        ``None``: no ``tl.dot`` takes them), and wrap as int32 products
+        do in both packages; an integer beside a float takes the float's
+        type; 16-bit floats of one type stay as they are (tensor cores,
+        float32 accumulator); anything else is float32 at
         :data:`_F32_PRECISION`, stated on every such dot."""
-        if dts[0] in (torch.float16, torch.bfloat16) and len(set(dts)) == 1:
-            return dts[0], ""
-        for dt in dts:
+        if torch.bool in dts:
+            raise CompileError(
+                f"span kernel: a product of torch.bool operands in "
+                f"{self.plan.name!r}")
+        floats = {dt for dt in dts if dt.is_floating_point}
+        if not floats:
+            return functools.reduce(torch.promote_types, dts), None
+        for dt in floats:
             if dt not in (torch.float32, torch.float16, torch.bfloat16):
                 raise CompileError(
                     f"span kernel: a product of {dt} operands in "
                     f"{self.plan.name!r}; tl.dot takes float32 and 16-bit "
                     "floats")
+        if len(floats) == 1 and floats <= {torch.float16, torch.bfloat16}:
+            return floats.pop(), ""
         return torch.float32, f', input_precision="{_F32_PRECISION}"'
+
+    def _mem_type(self, mem: _Mem):
+        """The type a product reads ``env[mem.key]`` in: the body's cast
+        of it, else its own."""
+        return mem.dtype or self.plan.context.vars[mem.key].dtype
 
     def _product(self, n) -> _Val:
         """``aten.mm``/``aten.mv`` with one per-lane operand (a row of the
@@ -1861,27 +1934,34 @@ class _Gen:
 
     def _mm(self, row: _Val, mem: _Mem, d_k: int, d_n: int, od) -> _Val:
         self._replicated(mem, "matrix")
-        k, nn = mem.shape[d_k], mem.shape[d_n]
+        k, nn = mem.extent(d_k), mem.extent(d_n)
         if row.k != k:
             raise CompileError(
                 f"span kernel: a product in {self.plan.name!r} contracts a "
                 f"per-lane row of {row.k} with {k} rows of env[{mem.key!r}]")
-        dt, opts = self._dot_type(row.dtype, self.plan.context.vars[
-            mem.key].dtype)
+        if nn == 1:
+            # one output position a lane: the matrix's one column is a
+            # vector, and the product a matrix-vector row sum
+            starts = dict(mem.starts)
+            first = starts.pop(d_n, (0, 1))[0]
+            return self._mv(row, dataclasses.replace(
+                mem, fixed={**mem.fixed, d_n: first}, starts=starts,
+                remaining=[d_k]), d_k, od)
+        dt, opts = self._dot_type(row.dtype, self._mem_type(mem))
         bk = min(max(pow2_at_least(k), _DOT_MIN),
                  _BK_ONE if self.shape.products == 1 else _BK)
-        self.flops += 2 * k * nn
-        self.dot_flops += 2 * k * nn
         last = len(mem.shape) - 2
-        if self._k_contiguous(mem, d_k, d_n) != self._wants_k_major(dt) \
-                and {d_k, d_n} == {last, last + 1}:
+        if opts is not None and not mem.starts \
+                and self._k_contiguous(mem, d_k, d_n) != self._wants_k_major(
+                    dt) and {d_k, d_n} == {last, last + 1}:
             # a matrix whose tiles run the other way than the dot reads
             # them fastest (under 3xTF32 gemm's B; in IEEE, A.T in syrk
             # and covariance's rows): the kernel is handed its transpose,
             # copied by kernel_args, and reads that the fast way
             swap = {last: last + 1, last + 1: last}
-            mem = _Mem(mem.key, mem.shape[:last] + mem.shape[last:][::-1],
-                       mem.fixed, [])
+            mem = dataclasses.replace(
+                mem, shape=mem.shape[:last] + mem.shape[last:][::-1],
+                remaining=[])
             d_k, d_n, kind = swap[d_k], swap[d_n], "replT"
         else:
             kind = None
@@ -1889,10 +1969,12 @@ class _Gen:
         block = self.block
 
         def emit_in(scope):
-            if scope.bt < _DOT_MIN:
-                raise CompileError(
-                    f"span kernel: one position of a product's output in "
-                    f"{self.plan.name!r}; tl.dot needs 16 columns")
+            # the output positions this scope computes: one, or all nn
+            work = 2 * k * (nn if scope.start is not None else scope.bt)
+            self.flops += work
+            if opts is None or scope.bt < _DOT_MIN:
+                return self._row_sums(row, p, off, k, scope, dt, od)
+            self.dot_flops += work
             acc = f"acc{self.n}"
             self.n += 1
             self._line(f"{acc} = tl.zeros([{block}, {scope.bt}], tl.float32)")
@@ -1910,31 +1992,61 @@ class _Gen:
             return self.emit(f"{acc}.to({_TL[od]})", od, True, nn).expr
         return _Val(dtype=od, lane=True, k=nn, lazy=emit_in, loop=True)
 
+    def _row_sums(self, row: _Val, p: str, off: str, k: int, scope: _Scope,
+                  dt, od) -> str:
+        """``row @ matrix`` at the output positions of ``scope`` without
+        ``tl.dot`` (integer operands, or fewer than 16 positions): each K
+        tile of the row times the matrix's ``[bk, bt]`` tile, summed over
+        K per position in float32 (an integer type: in it, wrapping as
+        ``jnp.dot``'s int32 products do), then over the tile's K positions
+        once; ``bk`` keeps the ``[lanes, bk, bt]`` sums within one
+        register tile."""
+        at = dt if not dt.is_floating_point else torch.float32
+        cap = max(1, _MAX_TILE_ELEMS // (self.block * scope.bt))
+        bk = min(pow2_at_least(k), _BK_MV, 1 << (cap.bit_length() - 1))
+        acc = f"acc{self.n}"
+        self.n += 1
+        self._line(f"{acc} = tl.zeros([{self.block}, {bk}, {scope.bt}], "
+                   f"{_TL[at]})")
+        with self.tiles_of(k, bk, _MV_STAGES) as ks:
+            kcol = f"{ks.r}c"
+            self._line(f"{kcol} = {ks.start} + tl.arange(0, {bk})[:, None]")
+            a = self.emit(f"tl.where({ks.m}, {self.cast(row, at, ks)}, 0)",
+                          at, True, k).expr
+            o = off.replace("@K@", kcol).replace("@R@", scope.r)
+            b = self.emit(f"tl.load({p} + {o}, mask=({kcol} < {k}) & "
+                          f"{scope.m}, other=0).to({_TL[at]})", at, False,
+                          None).expr
+            self._line(f"{acc} += {a}[:, :, None] * {b}[None, :, :]")
+        return self.emit(f"tl.sum({acc}, axis=1).to({_TL[od]})", od, True,
+                         scope.length).expr
+
     def _mv(self, row: _Val, mem: _Mem, d_k: int, od) -> _Val:
         """A per-lane row times a replicated vector: the rows' K tiles
         times the vector's (``[lanes, bk] * [1, bk]``, the vector tile
-        loaded once a K step for every lane), summed over K in float32
-        per position, then over the tile's positions once; the loop's
-        loads pipelined ``_MV_STAGES`` deep.  The order of the sums is
-        fixed, so repeated launches give the same bits."""
+        loaded once a K step for every lane), summed over K per position
+        in float32 (integer operands: in their integer type, wrapping),
+        then over the tile's positions once; the loop's loads pipelined
+        ``_MV_STAGES`` deep.  The order of the sums is fixed, so repeated
+        launches give the same bits."""
         self._replicated(mem, "vector")
-        k = mem.shape[d_k]
+        k = mem.extent(d_k)
         if row.k != k:
             raise CompileError(
                 f"span kernel: a product in {self.plan.name!r} contracts a "
                 f"per-lane row of {row.k} with env[{mem.key!r}] of {k}")
-        self._dot_type(row.dtype, self.plan.context.vars[mem.key].dtype)
+        dt, opts = self._dot_type(row.dtype, self._mem_type(mem))
+        at = torch.float32 if opts is not None else dt
         bk = min(pow2_at_least(k), _BK_MV)
         self.flops += 2 * k
         p, off = self._address(mem, {d_k: "@K@"})
-        f32 = _TL[torch.float32]
         acc = f"acc{self.n}"
         self.n += 1
-        self._line(f"{acc} = tl.zeros([{self.block}, {bk}], {f32})")
+        self._line(f"{acc} = tl.zeros([{self.block}, {bk}], {_TL[at]})")
         with self.tiles_of(k, bk, _MV_STAGES) as ks:
-            a = self.cast(row, torch.float32, ks)
+            a = self.cast(row, at, ks)
             b = self.emit(f"tl.load({p} + {off.replace('@K@', ks.r)}, "
-                          f"mask={ks.m}, other=0).to({f32})", torch.float32,
+                          f"mask={ks.m}, other=0).to({_TL[at]})", at,
                           False, None).expr
             self._line(f"{acc} += {a} * {b}")
         return self.emit(f"tl.sum({acc}, axis=1)[:, None].to({_TL[od]})", od,
@@ -1974,7 +2086,7 @@ class _Gen:
         # the index over this tile's lanes of one axis: a * iterator + b
         e = self.emit(f"({a} * {iv} + {b})", torch.int32, True, None)
         p, off = self._address(mem, {d: e, d_k: "@K@"})
-        return p, off, mem.shape[d_k], self.plan.context.vars[mem.key].dtype
+        return p, off, mem.shape[d_k], self._mem_type(mem)
 
     def _outer(self, x: _Val, y: _Val, od, where) -> _Val:
         pa, offa, k, dta = self._outer_operand(x, 0, where)
@@ -1982,13 +2094,19 @@ class _Gen:
         if k != kb:
             raise CompileError(f"{where}: operands of {k} and {kb}")
         dt, opts = self._dot_type(dta, dtb)
-        bk = min(max(pow2_at_least(k), _DOT_MIN), _BK)
         ti, tj = (t.tile for t in self.tiles)
         self.flops += 2 * k
-        self.dot_flops += 2 * k
         acc = f"acc{self.n}"
         self.n += 1
-        self._line(f"{acc} = tl.zeros([{ti}, {tj}], tl.float32)")
+        if opts is None:
+            # integer operands: [ti, bk] x [bk, tj] row sums in their type
+            cap = max(1, _MAX_TILE_ELEMS // (ti * tj))
+            bk = min(pow2_at_least(k), 1 << (cap.bit_length() - 1))
+            self._line(f"{acc} = tl.zeros([{ti}, {bk}, {tj}], {_TL[dt]})")
+        else:
+            bk = min(max(pow2_at_least(k), _DOT_MIN), _BK)
+            self.dot_flops += 2 * k
+            self._line(f"{acc} = tl.zeros([{ti}, {tj}], tl.float32)")
 
         def body(ks, kcol):
             a = self.emit(f"tl.load({pa} + {offa.replace('@K@', ks.r)}, "
@@ -1998,7 +2116,16 @@ class _Gen:
                           f"mask={kcol} < {k}, other=0).to({_TL[dt]})", dt,
                           True, k).expr
             return a, b, opts
-        self._k_loop(acc, k, bk, body, ti, tj, dt)
+        if opts is None:
+            with self.tiles_of(k, bk) as ks:
+                kcol = f"{ks.r}c"
+                self._line(f"{kcol} = {ks.start} + tl.arange(0, {bk})"
+                           "[:, None]")
+                a, b, _ = body(ks, kcol)
+                self._line(f"{acc} += {a}[:, :, None] * {b}[None, :, :]")
+            acc = self.emit(f"tl.sum({acc}, axis=1)", dt, True, None).expr
+        else:
+            self._k_loop(acc, k, bk, body, ti, tj, dt)
         # [tile_i, tile_j] is the flat block's own order (f = li * tj + lj)
         return self.emit(f"tl.reshape({acc}, [{self.block}, 1])"
                          f".to({_TL[od]})", od, True, None)

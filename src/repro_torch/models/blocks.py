@@ -1,14 +1,13 @@
 """Transformer blocks and the layer-interleave structure — counterpart of
-:mod:`repro.models.blocks`, for the attention kinds, the SSM mixer and
-the dense and MoE FFNs (:mod:`repro_torch.models.moe`).
+:mod:`repro.models.blocks`, for the attention kinds (self-attention,
+causal or bidirectional, and the encoder-decoder's cross-attention), the
+SSM mixer and the dense and MoE FFNs (:mod:`repro_torch.models.moe`).
 
 A heterogeneous stack (gemma3's 5:1 local:global interleave, jamba's
 1:7 attention:SSM interleave with an MoE FFN every other layer) is a
 repeating *period* of block kinds; the model loops over periods (params
 stacked over a leading LAYERS dim) and then over the remainder.  A block
 kind is the string "<mixer>:<flavour>:<ffn>", e.g. "attn:global:dense".
-Cross-attention waits for the encoder-decoder model; a block that needs
-it raises ``NotImplementedError`` naming it.
 """
 from __future__ import annotations
 
@@ -117,9 +116,6 @@ def init_ffn(gen, cfg, kind_ffn: str):
 
 def init_block(gen, cfg, kind: str, *, with_cross: bool = False):
     mixer, _, ffn = kind.split(":")
-    if with_cross:
-        raise not_ported("cross-attention",
-                         "repro_torch.models.model.EncDecLM")
     t: dict = {}
     if mixer == "attn":
         t["attn"] = init_attn(gen, cfg)
@@ -127,6 +123,8 @@ def init_block(gen, cfg, kind: str, *, with_cross: bool = False):
         t["ssm"] = {"norm": zeros_param((cfg.d_model,), (tp.D_MODEL,),
                                         device=gen.device),
                     **ssm_mod.init_ssm_block(gen, cfg.d_model, cfg.ssm)}
+    if with_cross:
+        t["cross"] = init_attn(gen, cfg, cross=True)
     f = init_ffn(gen, cfg, ffn)
     if f is not None:
         t["ffn"] = f
@@ -190,15 +188,17 @@ def _scatter(buf, index, values):
 
 
 def attn_apply(p, x, cfg, kind: str, *, positions, cache=None,
-               decode_pos=None, impl="auto"):
-    """Self-attention sub-block. Returns (out, new_cache)."""
+               decode_pos=None, impl="auto", attn_mode="causal"):
+    """Self-attention sub-block. Returns (out, new_cache).  Without a
+    cache ``attn_mode`` is "causal" or "bidir" (the encoder's; rope still
+    turns q and k by their positions)."""
     _, flavour, _ = kind.split(":")
     window = cfg.sliding_window if flavour == "local" else None
     h = rms_norm(x, p["norm"], cfg.norm_eps)
     q, k, v = _project_qkv(p, h, cfg, rope_positions=positions)
 
     if cache is None:
-        out = attention(q, k, v, kind="causal", window=window,
+        out = attention(q, k, v, kind=attn_mode, window=window,
                         q_positions=positions, k_positions=positions,
                         impl=impl)
         new_cache = None
@@ -237,6 +237,17 @@ def attn_apply(p, x, cfg, kind: str, *, positions, cache=None,
     return out, new_cache
 
 
+def cross_attn_apply(p, x, enc_kv, cfg, *, impl="auto"):
+    """Cross-attention against precomputed encoder K/V ``enc_kv``
+    ((B, F, KV, hd) each): every query sees every frame, no positions."""
+    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    dtype = x.dtype
+    q = torch.einsum("bsd,dhk->bshk", h, p["wq"].to(dtype))
+    k, v = enc_kv
+    out = attention(q, k.to(dtype), v.to(dtype), kind="bidir", impl=impl)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dtype))
+
+
 def ffn_apply(p, x, cfg, kind: str):
     """Returns (out, aux_loss)."""
     _, _, ffn = kind.split(":")
@@ -251,24 +262,25 @@ def ffn_apply(p, x, cfg, kind: str):
 
 
 def block_apply(p, x, cfg, kind: str, *, positions, cache=None,
-                decode_pos=None, impl="auto", enc_kv=None):
-    """One full block: mixer + FFN, residual-wired.
+                decode_pos=None, impl="auto", enc_kv=None,
+                attn_mode="causal"):
+    """One full block: mixer + (optional cross) + FFN, residual-wired.
 
     Returns (x, new_cache, aux_loss)."""
     mixer, _, ffn = kind.split(":")
-    if enc_kv is not None:
-        raise not_ported("cross-attention",
-                         "repro_torch.models.model.EncDecLM")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if mixer == "attn":
         out, new_cache = attn_apply(p["attn"], x, cfg, kind,
                                     positions=positions, cache=cache,
-                                    decode_pos=decode_pos, impl=impl)
+                                    decode_pos=decode_pos, impl=impl,
+                                    attn_mode=attn_mode)
     else:
         h = rms_norm(x, p["ssm"]["norm"], cfg.norm_eps)
         sp = {k: v for k, v in p["ssm"].items() if k != "norm"}
         out, new_cache = ssm_mod.ssm_apply(sp, h, cfg.ssm, cache=cache)
     x = x + out
+    if enc_kv is not None and "cross" in p:
+        x = x + cross_attn_apply(p["cross"], x, enc_kv, cfg, impl=impl)
     if ffn != "none":
         out, aux = ffn_apply(p, x, cfg, kind)
         x = x + out

@@ -1,6 +1,5 @@
-"""Shared layers: norms, RoPE, attention (four execution paths), MLP —
-counterpart of :mod:`repro.models.layers` (its ``chunked_cross_entropy``
-belongs to the training slice, not ported yet).
+"""Shared layers: norms, RoPE, attention (four execution paths), MLP and
+the chunked cross-entropy loss — counterpart of :mod:`repro.models.layers`.
 
 Attention paths (``impl`` of :func:`attention`):
 
@@ -282,3 +281,42 @@ def init_mlp(gen, d_model, d_ff, *, gated: bool):
     t["w_up"] = make_param(gen, (d_model, d_ff), (tp.D_MODEL, tp.D_FF))
     t["w_down"] = make_param(gen, (d_ff, d_model), (tp.D_FF, tp.D_MODEL))
     return t
+
+
+# ---------------------------------------------------------------------------
+# Loss: chunked cross-entropy (never materialises (B,S,V) logits)
+# ---------------------------------------------------------------------------
+
+
+def _ce_chunk(xc, w_head, lc, mc):
+    """(sum of masked token CEs, masked token count) of one chunk, in
+    float32."""
+    logits = xc.float() @ w_head.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    # the label logit (the reference contracts a one-hot, the same value,
+    # so that a vocab-sharded head partitions; here it is gathered)
+    ll = torch.gather(logits, -1, lc.long()[..., None])[..., 0]
+    tot = torch.where(mc, lse - ll, torch.zeros_like(lse)).sum()
+    return tot, mc.sum(dtype=torch.float32)
+
+
+def chunked_cross_entropy(x, w_head, labels, *, mask=None, chunk=512):
+    """Mean CE over the tokens ``mask`` keeps. x: (B,S,D), w_head: (D,V),
+    labels: (B,S).  Tokens are taken ``chunk`` positions at a time, each
+    chunk's (B, chunk, V) logits recomputed in the backward pass
+    (``torch.utils.checkpoint``) instead of kept, as the reference's
+    checkpointed scan.  The last chunk is the remainder (the reference
+    pads it to a whole chunk with masked tokens, which add nothing)."""
+    from torch.utils.checkpoint import checkpoint
+
+    b, s, _ = x.shape
+    if mask is None:
+        mask = torch.ones((b, s), dtype=torch.bool, device=x.device)
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for j in range(0, s, chunk):
+        sl = slice(j, j + chunk)
+        t, c = checkpoint(_ce_chunk, x[:, sl], w_head, labels[:, sl],
+                          mask[:, sl].bool(), use_reentrant=False)
+        tot, cnt = tot + t, cnt + c
+    return tot / torch.clamp(cnt, min=1.0)

@@ -1,6 +1,6 @@
-"""The decoder-only LM — counterpart of :mod:`repro.models.model`'s
-``DecoderLM``, for the dense, SSM, MoE and hybrid families (its training
-loss and the encoder-decoder model belong to later slices of the port).
+"""The models — counterpart of :mod:`repro.models.model`: ``DecoderLM``
+for the dense, SSM, MoE and hybrid families, ``EncDecLM`` for the
+encoder-decoder family (whisper).
 
 The parameter tree has the reference's keys and shapes: ``embed``,
 ``final_norm``, ``head`` (untied), ``slots/slot<s>`` with every leaf
@@ -14,6 +14,7 @@ API (used by :mod:`repro_torch.serving` and :mod:`repro_torch.launch`):
   tensors lie on the generator's device; axes are the logical-axis
   twins;
 * ``model.forward(params, batch) -> (hidden, aux)``;
+* ``model.loss_fn(params, batch) -> (loss, {"ce", "aux"})``;
 * ``model.init_cache(batch, cache_len, dtype, device) -> cache``;
 * ``model.prefill(params, batch, cache) -> (logits, cache)``;
 * ``model.decode_step(params, cache, tokens, pos) -> (logits, cache)``.
@@ -24,11 +25,13 @@ reference's functional updates leave them.
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core import tensor_plan as tp
 from repro_torch.mesh import resolve_device
 from repro_torch.models import blocks as blk
 from repro_torch.models.layers import (
+    chunked_cross_entropy,
     is_param_leaf,
     make_param,
     rms_norm,
@@ -51,6 +54,20 @@ def _cast_tree(tree, dtype):
         return (tree[0] if tree[0].dtype == dtype else tree[0].to(dtype),
                 tree[1])
     return {k: _cast_tree(v, dtype) for k, v in tree.items()}
+
+
+def _closest_divisor(n: int) -> int:
+    """Divisor of n closest to sqrt(n) (for two-level remat)."""
+    best, target = 1, n ** 0.5
+    for d in range(1, n + 1):
+        if n % d == 0 and abs(d - target) < abs(best - target):
+            best = d
+    return best
+
+
+def _checkpointed(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward pass."""
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
 
 
 def _stack_caches(caches):
@@ -127,21 +144,64 @@ class DecoderLM:
 
     # ----------------------------------------------------------- forward --
     def forward(self, params, batch, *, positions=None, impl="auto",
-                compute_dtype=torch.bfloat16):
-        """Full-sequence forward. Returns (hidden, aux)."""
+                remat=False, compute_dtype=torch.bfloat16):
+        """Full-sequence forward (training). Returns (hidden, aux).
+
+        ``remat`` recomputes each period's activations in the backward
+        pass (``torch.utils.checkpoint``, non-reentrant) instead of
+        keeping them; from 8 periods on, in two levels as the reference's
+        sqrt-remat: segments of periods (a divisor of the period count
+        near its square root) are checkpointed, and each period inside
+        them, so O(sqrt(L)) activations are kept."""
         cfg = self.cfg
         x = self._embed(params, batch).to(compute_dtype)
         b, s, _ = x.shape
         if positions is None:
             positions = torch.arange(s, dtype=torch.int32,
                                      device=x.device).expand(b, s)
+
+        def period(per, x, aux):
+            for sidx, kind in enumerate(self.slot_kinds):
+                p = _index(params["slots"][f"slot{sidx}"], per)
+                x, _, a = blk.block_apply(p, x, cfg, kind,
+                                          positions=positions, impl=impl)
+                aux = aux + a
+            return x, aux
+
+        def segment(first, count, x, aux):
+            for per in range(first, first + count):
+                x, aux = _checkpointed(period, per, x, aux)
+            return x, aux
+
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for kind, p, _, _ in self._layers(params):
-            x, _, a = blk.block_apply(p, x, cfg, kind, positions=positions,
-                                      impl=impl)
-            aux = aux + a
+        if remat and self.n_periods >= 8:
+            per_seg = self.n_periods // _closest_divisor(self.n_periods)
+            for first in range(0, self.n_periods, per_seg):
+                x, aux = _checkpointed(segment, first, per_seg, x, aux)
+        else:
+            for per in range(self.n_periods):
+                x, aux = (_checkpointed(period, per, x, aux) if remat
+                          else period(per, x, aux))
+        for i, kind in enumerate(self.tail_kinds):
+            def tail(x, aux, p=params["tail"][f"tail{i}"], kind=kind):
+                x, _, a = blk.block_apply(p, x, cfg, kind,
+                                          positions=positions, impl=impl)
+                return x, aux + a
+            x, aux = _checkpointed(tail, x, aux) if remat else tail(x, aux)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return x, aux
+
+    def loss_fn(self, params, batch, *, impl="auto", remat=False,
+                compute_dtype=torch.bfloat16, aux_weight=0.01):
+        """Next-token CE (+ ``aux_weight`` x the MoE aux loss). batch:
+        tokens/embeds + labels (+ mask). Returns (loss, {"ce", "aux"})."""
+        x, aux = self.forward(params, batch, impl=impl, remat=remat,
+                              compute_dtype=compute_dtype)
+        mask = batch.get("mask")
+        loss = chunked_cross_entropy(
+            x[:, :-1], self._head_matrix(params), batch["labels"][:, 1:],
+            mask=None if mask is None else mask[:, 1:])
+        return loss + aux_weight * aux, {"ce": loss, "aux": aux}
 
     # ------------------------------------------------------------- cache --
     def init_cache(self, batch: int, cache_len: int, dtype=torch.bfloat16,
@@ -200,11 +260,172 @@ class DecoderLM:
         return logits, new_caches
 
 
-_MISSING = {"encdec": "repro_torch.models.model.EncDecLM"}
+class EncDecLM:
+    """Whisper-style encoder-decoder — counterpart of the reference's
+    ``EncDecLM``; the audio frontend is a stub: encoder inputs are
+    precomputed (B, frames, d_model) embeddings.
+
+    The parameter tree has the reference's keys and shapes: ``embed``,
+    ``head``, ``enc_final_norm``, ``final_norm``, ``encoder`` (the
+    encoder blocks, every leaf stacked over a leading LAYERS dim) and
+    ``decoder`` (the decoder blocks with their ``cross`` sub-tree,
+    stacked alike).  The cache is ``self`` (the decoder's KV caches,
+    stacked) and ``cross_k``/``cross_v`` of shape (L, B, F, KV, hd)."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self.n_enc = cfg.encoder.n_layers
+        self.n_dec = cfg.n_layers
+
+    # ------------------------------------------------------------- init --
+    def init(self, gen: torch.Generator, dtype=torch.float32):
+        """Random parameters drawn from ``gen`` (in float32), on its
+        device, stored as ``dtype``: the encoder's layers, then the
+        decoder's, then the embeddings, each layer cast as it is drawn
+        (as :meth:`DecoderLM.init`)."""
+        cfg = self.cfg
+        kind = "attn:global:dense"
+        enc = [_cast_tree(blk.init_block(gen, cfg, kind), dtype)
+               for _ in range(self.n_enc)]
+        dec = [_cast_tree(blk.init_block(gen, cfg, kind, with_cross=True),
+                          dtype) for _ in range(self.n_dec)]
+        dev = gen.device
+        tree: dict = {
+            "embed": _cast_tree(make_param(gen, (cfg.vocab_size, cfg.d_model),
+                                           (tp.VOCAB, tp.D_MODEL)), dtype),
+            "head": _cast_tree(make_param(gen, (cfg.d_model, cfg.vocab_size),
+                                          (tp.D_MODEL, tp.VOCAB)), dtype),
+            "enc_final_norm": zeros_param((cfg.d_model,), (tp.D_MODEL,),
+                                          dtype=dtype, device=dev),
+            "final_norm": zeros_param((cfg.d_model,), (tp.D_MODEL,),
+                                      dtype=dtype, device=dev),
+            "encoder": _stack_trees(enc),
+            "decoder": _stack_trees(dec),
+        }
+        return split_tree(tree)
+
+    # ----------------------------------------------------------- encoder --
+    def encode(self, params, frames, *, impl="auto",
+               compute_dtype=torch.bfloat16, remat=False):
+        """The encoder's bidirectional blocks over the frames, then
+        ``enc_final_norm``; rope turns q and k by the frame positions."""
+        cfg = self.cfg
+        x = frames.to(compute_dtype)
+        b, s, _ = x.shape
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=x.device).expand(b, s)
+
+        def layer(p, x):
+            return blk.block_apply(p, x, cfg, "attn:global:dense",
+                                   positions=positions, impl=impl,
+                                   attn_mode="bidir")[0]
+        for i in range(self.n_enc):
+            p = _index(params["encoder"], i)
+            x = _checkpointed(layer, p, x) if remat else layer(p, x)
+        return rms_norm(x, params["enc_final_norm"], cfg.norm_eps)
+
+    def _cross_kv(self, params, enc_h):
+        """Per-decoder-layer cross K/V, each (L, B, F, KV, hd)."""
+        cross = params["decoder"]["cross"]
+        dtype = enc_h.dtype
+        k = torch.einsum("bsd,ldhk->lbshk", enc_h, cross["wk"].to(dtype))
+        v = torch.einsum("bsd,ldhk->lbshk", enc_h, cross["wv"].to(dtype))
+        return k, v
+
+    def _decoder(self, params, x, positions, decode_pos, caches, enc_kv,
+                 impl, remat=False):
+        """The decoder's blocks (with a KV cache unless ``caches`` is
+        None), then ``final_norm``; returns (hidden, new self caches)."""
+        cfg = self.cfg
+        ck, cv = enc_kv
+        new = []
+        for i in range(self.n_dec):
+            p = _index(params["decoder"], i)
+            cache = None if caches is None else _index(caches, i)
+
+            def layer(p, x, ck, cv, cache=cache):
+                return blk.block_apply(
+                    p, x, cfg, "attn:global:dense", positions=positions,
+                    cache=cache, decode_pos=decode_pos, impl=impl,
+                    enc_kv=(ck, cv))[:2]
+            if remat:
+                x, nc = _checkpointed(layer, p, x, ck[i], cv[i])
+            else:
+                x, nc = layer(p, x, ck[i], cv[i])
+            new.append(nc)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return x, (None if caches is None else _stack_caches(new))
+
+    def _tokens_in(self, params, tokens, compute_dtype):
+        x = params["embed"][tokens.long()].to(compute_dtype)
+        b, s, _ = x.shape
+        return x, torch.arange(s, dtype=torch.int32,
+                               device=x.device).expand(b, s)
+
+    def loss_fn(self, params, batch, *, impl="auto", remat=False,
+                compute_dtype=torch.bfloat16):
+        """Next-token CE of the decoder over ``batch["tokens"]`` given
+        ``batch["frames"]``; returns (loss, {"ce", "aux"}), aux 0."""
+        enc_h = self.encode(params, batch["frames"], impl=impl,
+                            compute_dtype=compute_dtype, remat=remat)
+        enc_kv = self._cross_kv(params, enc_h)
+        x, positions = self._tokens_in(params, batch["tokens"],
+                                       compute_dtype)
+        x, _ = self._decoder(params, x, positions, None, None, enc_kv, impl,
+                             remat=remat)
+        mask = batch.get("mask")
+        loss = chunked_cross_entropy(
+            x[:, :-1], params["head"], batch["labels"][:, 1:],
+            mask=None if mask is None else mask[:, 1:])
+        return loss, {"ce": loss, "aux": torch.zeros_like(loss)}
+
+    # ------------------------------------------------------------- cache --
+    def init_cache(self, batch: int, cache_len: int, dtype=torch.bfloat16,
+                   device=None):
+        """Empty caches on ``device`` (``None``: the CUDA card)."""
+        cfg = self.cfg
+        device = resolve_device(device)
+        per = [blk.init_block_cache(cfg, "attn:global:dense", batch,
+                                    cache_len, dtype, device)
+               for _ in range(self.n_dec)]
+        shape = (self.n_dec, batch, cfg.encoder.n_frames, cfg.n_kv_heads,
+                 cfg.head_dim)
+        return {"self": _stack_caches(per),
+                "cross_k": torch.zeros(shape, dtype=dtype, device=device),
+                "cross_v": torch.zeros(shape, dtype=dtype, device=device)}
+
+    def prefill(self, params, batch, caches, *, impl="auto",
+                compute_dtype=torch.bfloat16):
+        """Encode frames, precompute cross KV, prefill the decoder prompt;
+        returns (last-token logits, caches)."""
+        enc_h = self.encode(params, batch["frames"], impl=impl,
+                            compute_dtype=compute_dtype)
+        ck, cv = self._cross_kv(params, enc_h)
+        x, positions = self._tokens_in(params, batch["tokens"],
+                                       compute_dtype)
+        x, new_self = self._decoder(params, x, positions, None,
+                                    caches["self"], (ck, cv), impl)
+        logits = x[:, -1].float() @ params["head"].float()
+        return logits, {"self": new_self,
+                        "cross_k": ck.to(caches["cross_k"].dtype),
+                        "cross_v": cv.to(caches["cross_v"].dtype)}
+
+    def decode_step(self, params, caches, tokens, pos, *, impl="auto",
+                    compute_dtype=torch.bfloat16):
+        """One decode step. tokens: (B,), pos: (B,) current positions.
+        Cross-attention takes ``impl`` (K2 under "kernel"); the cached
+        self-attention always takes the materialised path."""
+        x = params["embed"][tokens.long()[:, None]].to(compute_dtype)
+        pos = pos.to(torch.int32)
+        enc_kv = (caches["cross_k"].to(compute_dtype),
+                  caches["cross_v"].to(compute_dtype))
+        x, new_self = self._decoder(params, x, pos[:, None], pos,
+                                    caches["self"], enc_kv, impl)
+        logits = x[:, 0].float() @ params["head"].float()
+        return logits, {**caches, "self": new_self}
 
 
 def build_model(cfg):
-    if cfg.family in _MISSING:
-        raise blk.not_ported(f"{cfg.name} (family {cfg.family!r})",
-                             _MISSING[cfg.family])
+    if cfg.family == "encdec":
+        return EncDecLM(cfg)
     return DecoderLM(cfg)

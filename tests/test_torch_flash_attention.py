@@ -12,7 +12,8 @@ come from seeded numpy and go through both packages:
   tolerances (2e-5 in float32, 5e-2 in float16);
 * ``ops.flash_attention`` against JAX ``ops.flash_attention`` (the Pallas
   kernel in interpret mode) on the GQA+window, ragged-f16 and
-  suffix+window cases;
+  suffix+window cases, and whisper's bidirectional ones at hd 64 (a
+  ragged Sk, Sq != Sk, Sq = 1);
 * the kernels' work order (``work_order``): every (b, h, q tile) item
   once, longest band first, a band as long as the attention mask says,
   and balanced over the H100's 132 SMs at gemma3-1b's shapes; the
@@ -41,7 +42,14 @@ CASES = [
     (1, 4, 2, 200, 200, 64, True, None, np.float16, 5e-2), # ragged+fp16
     (1, 2, 1, 48, 80, 32, True, 16, np.float32, 2e-5),     # suffix+win
 ]
-PALLAS_CASES = [CASES[2], CASES[5], CASES[6]]
+# whisper's regimes at hd 64 (no causal mask): the encoder's ragged key
+# tail, the decoder's cross-attention (Sq != Sk), a decode step's (Sq = 1)
+WHISPER_CASES = [
+    (1, 2, 2, 100, 100, 64, False, None, np.float32, 2e-5),
+    (1, 2, 2, 24, 100, 64, False, None, np.float32, 2e-5),
+    (2, 2, 2, 1, 100, 64, False, None, np.float32, 2e-5),
+]
+PALLAS_CASES = [CASES[2], CASES[5], CASES[6]] + WHISPER_CASES
 
 
 def _inputs(case, seed):

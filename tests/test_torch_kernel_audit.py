@@ -71,9 +71,12 @@ def _programs():
                (trp._handoff_region, trp._handoff_env),
                (trp._assoc_scan_body, trp._assoc_scan_env),
                (trp._argsort_body, trp._argsort_env),
-               (trp._int_pow_body, trp._int_pow_env)]
+               (trp._int_pow_body, trp._int_pow_env),
+               (trp._one_column_body, trp._one_column_env)]
     repairs += [(lambda o, lib, b=b: [b(o, lib)], lambda e=e: [e()])
                 for b, e in singles]
+    repairs.append((trp._int_product_bodies,
+                    lambda: [trp._int_product_env()] * 2))
     for bodies, envs in repairs:
         for prog, env_np in zip(bodies(omp, torch), envs()):
             out.append((prog.name, prog,
@@ -101,7 +104,7 @@ def test_kernel_lowering_refuses_exactly_the_recorded_programs():
     mesh = {1: omp.make_mesh((2,), ("data",), device="cpu"),
             2: omp.make_mesh((2, 1), ("i", "j"), device="cpu")}
     progs = _programs()
-    assert len(progs) >= 57, len(progs)
+    assert len(progs) >= 60, len(progs)
     refused = {}
     for name, prog, env in progs:
         got = _refusal(prog, env, mesh)

@@ -121,17 +121,25 @@ def _flat(tree, leaf, path=()):
 
 
 def test_families_without_their_module_name_it():
-    """Only the encoder-decoder family still lacks its module, and names
-    it; the MoE and hybrid families build (``tests/test_torch_moe.py``
-    holds them against the reference)."""
-    from repro_torch.configs import get_config
+    """Every family of ``configs/`` now has its module: each registered
+    config builds, whisper-small (family ``encdec``) as an ``EncDecLM``
+    and every other as a ``DecoderLM``; none raises the port's
+    ``NotImplementedError`` (``tests/test_torch_encdec.py`` and
+    ``tests/test_torch_moe.py`` hold the models against the
+    reference)."""
+    from repro_torch.configs import get_config, list_archs
     from repro_torch.models import build_model
-    from repro_torch.models.model import DecoderLM
+    from repro_torch.models.model import DecoderLM, EncDecLM
 
-    for arch in ("jamba-1.5-large-398b", "qwen2-moe-a2.7b", "arctic-480b"):
-        assert isinstance(build_model(get_config(arch)), DecoderLM)
-    with pytest.raises(NotImplementedError, match="EncDecLM"):
-        build_model(get_config("whisper-small"))
+    families = set()
+    for arch in list_archs():
+        cfg = get_config(arch)
+        model = build_model(cfg)
+        families.add(cfg.family)
+        assert isinstance(model, EncDecLM if cfg.family == "encdec"
+                          else DecoderLM), arch
+    assert isinstance(build_model(get_config("whisper-small")), EncDecLM)
+    assert {"dense", "ssm", "moe", "hybrid", "encdec"} <= families
 
 
 # ---------------------------------------------------------------------------

@@ -799,3 +799,100 @@ def test_scan_sort_index_and_int_pow_repairs_match_reference(body, cap,
     if body == "intpow":
         assert "libdevice" not in text, text
     omp.clear_compile_cache()
+
+
+# ---------------------------------------------------------------------------
+# Products one position wide and products of integers (row sums)
+# ---------------------------------------------------------------------------
+
+
+def _one_column_body(o, lib):
+    @o.parallel_for(start=1, stop=22, reduction={"s": "+"}, name="oc1")
+    def oc1(i, env):
+        row = env["A"][i]
+        return {"Y": o.at(i, (row @ env["M"][:, 2:3]) * 2.0 + row @ env["V"]),
+                "Z": o.at(i, lib.cumsum(row, 0) @ env["M"][:, -1:]),
+                "W": o.at(i, (row @ env["M"])[3] - env["U"] @ row),
+                "s": o.red((row @ env["V"]).sum())}
+    return oc1
+
+
+def _int_product_bodies(o, lib):
+    def as_float(x):                # jnp.dot promotes; torch's @ wants a cast
+        return x.float() if lib is torch else x
+
+    @o.parallel_for(stop=15, name="ip2")
+    def ip2(i, env):
+        k = env["K"][i]
+        return {"Q": o.at(i, k @ env["L"]),
+                "q": o.at(i, k @ env["L"][:, 1] + (k * 3) @ env["L"][:, 2:3]),
+                "F": o.at(i, env["A"][i] @ as_float(env["S"]))}
+
+    @o.parallel_for(stop=(5, 6), collapse=2, name="ip3")
+    def ip3(i, j, env):
+        return {"T": o.at((i, j), env["K"][i] @ env["KT"][j])}
+    return ip2, ip3
+
+
+def _one_column_env():
+    g = np.random.default_rng(39)
+    n = 19
+    z = np.zeros((23, 1), np.float32)
+    return {"A": _normal(g, 23, n), "M": _normal(g, n, 5),
+            "V": _normal(g, n, 1),
+            "U": _normal(g, 1, n), "Y": z, "Z": z, "W": z,
+            "s": np.zeros((), np.float32)}
+
+
+def _int_product_env():
+    g = np.random.default_rng(40)
+    n = 19
+    # |K L| passes 2^31: the products and their sums wrap in int32
+    big = lambda *s: g.integers(-60000, 60000, size=s).astype(np.int32)
+    return {"K": big(15, n), "L": big(n, 3), "KT": big(6, n),
+            "A": _normal(g, 15, n),
+            "S": g.integers(-5, 6, size=(n, 4)).astype(np.int32),
+            "Q": np.zeros((15, 3), np.int32), "q": np.zeros((15, 1), np.int32),
+            "F": np.zeros((15, 4), np.float32),
+            "T": np.zeros((5, 6), np.int32)}
+
+
+@pytest.mark.parametrize("cap", [None, 16])
+@pytest.mark.parametrize("body", ["one_column", "int", "int2"])
+def test_one_column_and_integer_products_match_reference(body, cap,
+                                                         monkeypatch):
+    """A product one position wide (a one-column matrix, a one-column
+    slice, a one-row matrix times the row, one position of a wider
+    product with the cap lowered to 16) is a matrix-vector row sum, not a
+    ``tl.dot`` padded to 16 columns; a product of int32 operands (rows
+    times a matrix, a vector, a one-column slice; rank 2: an i-row times
+    a j-row) is row sums in int32 whose products and sums wrap past 2^31,
+    and an int32 matrix cast beside a float row takes the float type, as
+    ``jnp.dot`` promotes — each equal to the reference's
+    ``run_reference`` (integers bit for bit) and its Pallas lowering, and
+    emulated."""
+    import jax.numpy as jnp
+
+    from repro import omp as jomp
+    from repro_torch import convert, omp
+    from repro_torch.kernels import span_kernel
+
+    if body == "one_column":
+        prog, jprog = _one_column_body(omp, torch), _one_column_body(jomp, jnp)
+        env_np = _one_column_env()
+    else:
+        at = 0 if body == "int" else 1
+        prog = _int_product_bodies(omp, torch)[at]
+        jprog = _int_product_bodies(jomp, jnp)[at]
+        env_np = _int_product_env()
+    if cap is not None:
+        monkeypatch.setattr(span_kernel, "_MAX_TILE_ELEMS", cap)
+    omp.clear_compile_cache()
+    _check_block(prog, jprog, env_np)
+    text = _text(prog, convert.env_from_numpy(env_np, "cpu"), prog.rank)
+    # row sums: [lanes, bk] (one column) or [lanes, bk, n] (integers)
+    marks = {"one_column": ("tl.sum(acc", "tl.zeros([16, 16], tl.float32)"),
+             "int": ("[:, :, None] *", "], tl.int32)"),
+             "int2": ("[:, :, None] *", "], tl.int32)")}[body]
+    assert all(m in text for m in marks), text
+    omp.clear_compile_cache()

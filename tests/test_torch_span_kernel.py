@@ -526,6 +526,53 @@ def _roll_bodies(s):
     return n, (roll1, env1), (roll2, env2)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+def test_generated_row_sum_products_match_plain(dtype, monkeypatch):
+    """Products without ``tl.dot``, emulated against the plain version on
+    1 and 3 ranks, the register-tile cap at its default and at 16: a
+    product one position wide (a one-column matrix, a one-column slice,
+    a one-row slice of a transposed matrix times the row) is a
+    matrix-vector row sum, with no ``tl.dot`` in the span; int32
+    operands (a matrix, a one-column slice) are row sums in int32 whose
+    products and sums wrap past 2^31 — bit for bit — with no flops on
+    ``tl.dot``."""
+    from repro_torch import omp
+    from repro_torch.kernels import span_kernel
+
+    g = np.random.default_rng(41)
+    if dtype == "int32":
+        draw = lambda *s: torch.tensor(g.integers(-60000, 60000, size=s),
+                                       dtype=torch.int32)
+    else:
+        draw = lambda *s: torch.tensor(g.standard_normal(s, np.float32))
+
+    @omp.parallel_for(stop=23, reduction={"s": "+"})
+    def rows(i, env):
+        row = env["A"][i]
+        one = row @ env["M"][:, 1:2] + env["M"].t()[3:4] @ row
+        return {"y": omp.at(i, row @ env["V"] - one),
+                "Z": omp.at(i, (row * 2) @ env["M"] if dtype == "int32"
+                            else row @ env["V"] * row),
+                "s": omp.red((row @ env["V"]).sum())}
+
+    dt = getattr(torch, dtype)
+    env = {"A": draw(23, 37), "M": draw(37, 5), "V": draw(37, 1),
+           "y": torch.zeros(23, 1, dtype=dt), "s": torch.zeros((), dtype=dt),
+           "Z": torch.zeros(23, 5 if dtype == "int32" else 37, dtype=dt)}
+    for cap in (span_kernel._MAX_TILE_ELEMS, 16):
+        monkeypatch.setattr(span_kernel, "_MAX_TILE_ELEMS", cap)
+        omp.clear_compile_cache()       # compiles are cached by structure
+        comp = omp.compile(rows, omp.make_mesh((2,), ("data",),
+                                               device="cpu"),
+                           lowering="kernel", env_like=env)
+        source = comp.kernel_plan.spans[0].source
+        assert "tl.dot(" not in source.text, source.text
+        assert source.dot_flops_per_lane == 0
+        for p in (1, 3):
+            _check_family((rows, env), (p,), ("data",), "replicate")
+    omp.clear_compile_cache()
+
+
 @pytest.mark.parametrize("shift", [-1, 1, 0, "n+2"])
 def test_generated_roll_matches_plain(shift, monkeypatch):
     """``torch.roll`` along a per-lane value axis (``aten.roll``): the
