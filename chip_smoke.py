@@ -281,6 +281,39 @@ non-zero (no phase catches an error and carries on):
     tokens/s; a ``FaultTolerantLoop`` run with a planted failure and a
     restore equal to an uninterrupted run, bit for bit, in a fresh
     process under deterministic algorithms (``ft_child``).
+28. **training across ranks** (``mesh_train_phase``): gemma3-1b at full
+    width on the stacked mesh (every rank on the card), (a) at 2 layers
+    one float32 step on a (2, 2) mesh with ZeRO-3 (the batch's rows
+    split over ``data``, parameters and AdamW state stored as per-rank
+    blocks over ``data`` and ``model``, gathered before the forward,
+    gradients summed by ``psum``) against the (1, 1) step on the same
+    batch, ``agree`` at ``MESH_STEP_TOL``; (b) at full depth, bf16
+    compute, remat, 12 steps on one 8 x 256 batch on (1, 1) and (2, 2):
+    the first 3 losses within ``MESH_LOSS_SHARE``, all 12 within
+    ``MESH_LOSS_SHARE_ALL``, ms per step on both (median
+    of the last 10) and their ratio, the mesh's collectives and bytes
+    per step;
+29. **MoE groups across ranks** (``moe_mesh_phase``): qwen2-moe-a2.7b at
+    full width and 2 layers, float32, Adafactor, on a (2, 1) mesh (each
+    rank's rows one dispatch group of 2) against a one-rank step at
+    groups 2: every token's routing equal, then the step under
+    ``agree`` at ``MOE_STEP_TOL``;
+30. **GPipe** (``gpipe_phase``): whisper-small's 12 encoder blocks as 4
+    stages of 3 on a 4-rank stacked mesh, 4 microbatches of one
+    utterance of 1500 frames: bf16 with K2 == the blocks in order with
+    impl="full" (``PREFILL_TOL_BF16``), M+S-1 ``ppermute`` launches and
+    S x 3 x (M+S-1) K2 launches per forward; float32 with the plain
+    attention and checkpointed stages: outputs and gradients == the
+    blocks in order under autograd (``GPIPE_F32_TOL``); ms per pipeline
+    forward beside the blocks in order; K2 on the q, k, v of a launch
+    inside a tick against its plain version, timed (a kernel-table row);
+31. **the int8 all-reduce** (``allreduce_phase``):
+    ``compressed_allreduce_tree`` over 4 data ranks of gemma3-1b's
+    gradient shapes: every leaf's mean within its two-hop int8 bound of
+    the float mean, its counted bytes against a float ``psum``'s;
+32. **the train_lm example** (``train_lm_phase``): ``python -m
+    repro_torch.examples.train_lm --steps 200`` on the card in a fresh
+    process passes its learning check.
 
 In phases 4, 15, 17 and 18 every span is also launched by K1's launcher
 and by Triton's launch path on the same feeds, equal bit for bit.
@@ -3912,13 +3945,17 @@ def train_step_check(torch, dev, card):
     import dataclasses
 
     from repro_torch.configs import ShapeConfig, TrainConfig
+    from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.launch.steps import make_train_cell
     from repro_torch.pytree import flatten_with_paths, tree_map
 
     cfg = dataclasses.replace(arch_config(TRAIN_STEP["arch"]),
                               n_layers=TRAIN_STEP["layers"])
     b, s = TRAIN_STEP["batch"], TRAIN_STEP["seq_len"]
+    # one rank: a (1, 1) mesh lays nothing out, so the card's step takes
+    # the host's tensors' layout
     cell = make_train_cell(cfg, ShapeConfig("check", s, b, "train"),
+                           make_local_mesh(device=dev),
                            TrainConfig(compute_dtype="float32", microbatch=2,
                                       warmup_steps=2, total_steps=10,
                                       learning_rate=1e-3))
@@ -3966,11 +4003,13 @@ def train_run(torch, dev, card, arch):
     ``TRAIN_LOSS_SHARE`` of the first; ms per step and tokens/s.
     Returns (first loss, last loss)."""
     from repro_torch.configs import ShapeConfig, TrainConfig
+    from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.launch.steps import make_train_cell
 
     cfg = arch_config(arch)
     b, s, n = TRAIN_RUN["batch"], TRAIN_RUN["seq_len"], TRAIN_RUN["steps"]
     cell = make_train_cell(cfg, ShapeConfig("run", s, b, "train"),
+                           make_local_mesh(device=dev),
                            TrainConfig(compute_dtype="bfloat16", remat=True,
                                       warmup_steps=3, total_steps=n,
                                       learning_rate=TRAIN_RUN["lr"]))
@@ -4024,6 +4063,7 @@ def ft_child(out: str, device: str = "cuda") -> None:
     torch.use_deterministic_algorithms(True)
     from repro_torch.checkpoint import Checkpointer
     from repro_torch.configs import ShapeConfig, TrainConfig
+    from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.launch.steps import make_train_cell
     from repro_torch.pytree import flatten_with_paths
     from repro_torch.runtime import FaultTolerantLoop, StepFailure
@@ -4034,6 +4074,7 @@ def ft_child(out: str, device: str = "cuda") -> None:
                               replace(base.encoder, n_layers=FT["layers"]))
     cell = make_train_cell(cfg, ShapeConfig("ft", FT["seq_len"], FT["batch"],
                                             "train"),
+                           make_local_mesh(device=dev),
                            TrainConfig(compute_dtype="float32", warmup_steps=2,
                                       total_steps=FT["steps"],
                                       learning_rate=1e-3))
@@ -4111,6 +4152,524 @@ def train_phase(torch, dev, card):
           f"uninterrupted run's bit for bit; runs {got['seconds'][0]:.2f} / "
           f"{got['seconds'][1]:.2f} s; child {time.perf_counter() - t0:.1f} "
           f"s on {card}")
+
+
+# ---------------------------------------------------------------------------
+# Training across ranks on the stacked mesh, MoE groups, GPipe, the int8
+# all-reduce and the train_lm example
+# ---------------------------------------------------------------------------
+
+#: phase 28(a): gemma3-1b at full width and 2 layers, one float32 step
+MESH_STEP = dict(layers=2, batch=4, seq_len=32, mesh=(2, 2))
+#: the (2, 2) ZeRO-3 step vs the (1, 1) step: the per-rank gradients,
+#: summed by psum, are float32 sums in another order; as in phase 27(a),
+#: a gated-MLP weight's gradient sums nearly cancelling terms (a
+#: development call read 7.380e-04 there; see PERF.md)
+MESH_STEP_TOL = 2e-3
+#: phase 28(b): full depth, bf16 compute, remat, 12 steps on one batch
+#: on each mesh, the first ``warmup`` untimed: ms a step is the median of
+#: the other 10
+MESH_RUN = dict(batch=8, seq_len=256, steps=12, warmup=2, mesh=(2, 2),
+                lr=1e-3)
+#: the (2, 2) run's first 3 losses at most this share from the (1, 1)
+#: run's (development calls read 9.4e-06 and 9.5e-06; see PERF.md), and
+#: all 12 at most ``MESH_LOSS_SHARE_ALL``: bf16 sums in another order
+#: drift apart as the runs train on one batch (a development call read
+#: 3.926e-03 at step 10)
+MESH_LOSS_SHARE = 1e-3
+MESH_LOSS_SHARE_ALL = 1e-2
+#: phase 29: qwen2-moe-a2.7b at full width and 2 layers, float32, on a
+#: (2, 1) mesh (MoE groups 2) against a one-rank step at groups 2
+MOE_STEP = dict(layers=2, batch=4, seq_len=32, mesh=(2, 1))
+MOE_STEP_TOL = 1e-3
+#: phase 30: whisper-small's encoder as GPipe stages
+GPIPE = dict(stages=4, micro=4)
+GPIPE_F32_TOL = 1e-4           # pipeline vs sequential autograd, float32
+ALLREDUCE_RANKS = 4            # phase 31's data ranks
+TRAIN_LM_STEPS = 200           # phase 32
+
+
+def mesh_cell(dev, cfg, shape, mesh_shape, train_cfg):
+    """``make_train_cell`` over a ``mesh_shape`` (data, model) stacked
+    mesh on ``dev``."""
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import make_train_cell
+
+    return make_train_cell(cfg, shape, make_local_mesh(
+        mesh_shape[1], ranks=mesh_shape[0] * mesh_shape[1], device=dev),
+        train_cfg)
+
+
+def layout_note(cell) -> str:
+    """How many parameter leaves the cell stores as per-rank blocks."""
+    specs = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+        else:
+            specs.append(t)
+    walk(cell.param_specs)
+    sharded = sum(1 for sp in specs if any(
+        cell.mesh.shape[a] > 1 for e in sp
+        for a in ((e,) if isinstance(e, str) else (e or ()))))
+    return f"{sharded} of {len(specs)} parameter leaves stored as blocks"
+
+
+def step_pairs(torch, got, want, base):
+    """(name, got, want) pairs over two steps' metrics, every parameter's
+    update from ``base`` and every optimizer-state leaf, as float32."""
+    from repro_torch.pytree import flatten_with_paths
+
+    (gp, gs, gm), (wp, ws, wm) = got, want
+    pairs = [(k, gm[k].float().reshape(1), wm[k].float().reshape(1))
+             for k in ("loss", "ce", "aux", "grad_norm", "lr")]
+    names, bl = flatten_with_paths(base)
+    for n, g, w, b in zip(names, flatten_with_paths(gp)[1],
+                          flatten_with_paths(wp)[1], bl):
+        pairs.append((f"update {n}", (g - b).float(), (w - b).float()))
+    names, wl = flatten_with_paths(ws)
+    for n, g, w in zip(names, flatten_with_paths(gs)[1], wl):
+        if g.dtype.is_floating_point:
+            pairs.append((f"state {n}", g.float(), w.float()))
+    return pairs
+
+
+def mesh_step_check(torch, dev, card):
+    """Phase 28(a): gemma3-1b at full width and 2 layers, one float32
+    step (microbatch 2, AdamW from a second moment filled with 1e-2,
+    clipping, the schedule) on a (2, 2) stacked mesh with ZeRO-3 against
+    the (1, 1) step on the same batch: the metrics, every parameter's
+    update and AdamW's m and v under ``agree`` at ``MESH_STEP_TOL``; the
+    mesh's launches and bytes by collective."""
+    import dataclasses
+
+    from repro_torch.configs import ShapeConfig, TrainConfig
+    from repro_torch.pytree import tree_map
+
+    cfg = dataclasses.replace(arch_config(ARCH), n_layers=MESH_STEP["layers"])
+    b, s = MESH_STEP["batch"], MESH_STEP["seq_len"]
+    shape = ShapeConfig("mesh", s, b, "train")
+    tcfg = TrainConfig(compute_dtype="float32", microbatch=2, zero3=True,
+                       warmup_steps=2, total_steps=10, learning_rate=1e-3)
+    one = mesh_cell(dev, cfg, shape, (1, 1), tcfg)
+    many = mesh_cell(dev, cfg, shape, MESH_STEP["mesh"], tcfg)
+    params, _ = one.model.init(torch.Generator(device=dev).manual_seed(0))
+    state = one.optimizer.init(params)
+    state["v"] = tree_map(lambda t: torch.full_like(t, 1e-2), state["v"])
+    batch = train_batch(torch, cfg, b, s, 0, dev)
+    want = one.step_fn(params, state, batch, 3)
+    placed = many.place(params, state)
+    many.mesh.reset_counters()
+    t0 = time.perf_counter()
+    gp, gs, gm = many.step_fn(*placed, batch, 3)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches, nbytes = dict(many.mesh.launches), dict(many.mesh.bytes)
+    got = (*many.gather(gp, gs), gm)
+    pairs = step_pairs(torch, got, want, params)
+    worst = hold_pairs(torch, pairs, MESH_STEP_TOL,
+                       f"train step {MESH_STEP['mesh']} ZeRO-3 != (1, 1)")
+    print(f"train across ranks {cfg.name} ({cfg.n_layers} layers, full "
+          f"width; batch {b} x {s}, microbatch 2, float32): one step on a "
+          f"{MESH_STEP['mesh']} stacked mesh with ZeRO-3 ({layout_note(many)}"
+          f") == the (1, 1) step ({len(pairs)} arrays: the metrics, every "
+          f"parameter's update, AdamW's m and v: agree at {MESH_STEP_TOL}; "
+          f"worst err / scale {worst[0]:.3e} in {worst[1]}); collectives "
+          f"{launches}, bytes {nbytes}; {step_s:.2f} s (first call) on "
+          f"{card}")
+    del params, state, placed, got, want
+    torch.cuda.empty_cache()
+
+
+def mesh_run(torch, dev, card):
+    """Phase 28(b): gemma3-1b at full width and depth, bf16 compute,
+    remat, AdamW, ``MESH_RUN["steps"]`` steps on one 8 x 256 batch, on the
+    (1, 1) mesh and on a (2, 2) mesh with ZeRO-3 from the same weights:
+    the first 3 losses within ``MESH_LOSS_SHARE`` of the (1, 1) run's,
+    all within ``MESH_LOSS_SHARE_ALL``; ms per
+    step on each mesh (the median of the steps after the warm-up) and
+    their ratio, and the (2, 2) mesh's bytes per step by collective."""
+    from repro_torch.configs import ShapeConfig, TrainConfig
+
+    cfg = arch_config(ARCH)
+    b, s, n = MESH_RUN["batch"], MESH_RUN["seq_len"], MESH_RUN["steps"]
+    w = MESH_RUN["warmup"]
+    shape = ShapeConfig("mesh-run", s, b, "train")
+    tcfg = TrainConfig(compute_dtype="bfloat16", remat=True, zero3=True,
+                       warmup_steps=1, total_steps=n,
+                       learning_rate=MESH_RUN["lr"])
+    batch = train_batch(torch, cfg, b, s, 0, dev)
+    runs = {}
+    for mesh_shape in ((1, 1), MESH_RUN["mesh"]):
+        cell = mesh_cell(dev, cfg, shape, mesh_shape, tcfg)
+        torch.cuda.reset_peak_memory_stats()
+        params, _ = cell.model.init(torch.Generator(device=dev).manual_seed(0))
+        state = cell.place(params)
+        del params
+        cell.mesh.reset_counters()
+        losses, times = [], []
+        for step in range(n):
+            t0 = time.perf_counter()
+            state = cell.step_fn(*state, batch, step)
+            losses.append(float(state[2]["loss"]))  # waits for the step
+            times.append(time.perf_counter() - t0)
+            state = state[:2]
+            if not math.isfinite(losses[-1]):
+                raise AssertionError(f"train {mesh_shape} step {step}: loss "
+                                     f"{losses[-1]}")
+        runs[mesh_shape] = dict(
+            losses=losses, ms=statistics.median(times[w:]) * 1e3,
+            first_ms=times[0] * 1e3,
+            bytes={k: v // n for k, v in cell.mesh.bytes.items()},
+            launches={k: v // n for k, v in cell.mesh.launches.items()},
+            peak=torch.cuda.max_memory_allocated() / 2**30,
+            micro=cell.n_micro, note=layout_note(cell))
+        del state, cell
+        torch.cuda.empty_cache()
+    one, many = runs[(1, 1)], runs[MESH_RUN["mesh"]]
+    gaps = [abs(a - w) / abs(w) for a, w in zip(many["losses"],
+                                                one["losses"])]
+    for mesh_shape, r in runs.items():
+        print(f"train across ranks {cfg.name} on {mesh_shape} (full width "
+              f"and depth, ZeRO-3, AdamW, remat, bf16 compute, microbatch "
+              f"{r['micro']}, one batch of {b} x {s} tokens {n} times; "
+              f"{r['note']}): losses {[round(x, 4) for x in r['losses']]}; "
+              f"{r['ms']:.1f} ms a step (median of steps {w + 1}-{n}), first "
+              f"{r['first_ms']:.0f} ms, {b * s / r['ms'] * 1e3:.0f} tokens/s"
+              f", peak memory {r['peak']:.1f} GiB; collectives a step "
+              f"{r['launches']}, bytes a step {r['bytes']} on {card}")
+    for first, limit in ((3, MESH_LOSS_SHARE), (n, MESH_LOSS_SHARE_ALL)):
+        if max(gaps[:first]) > limit:
+            raise AssertionError(
+                f"train {MESH_RUN['mesh']} losses {many['losses']} lie up "
+                f"to {max(gaps[:first]):.3e} of the (1, 1) losses "
+                f"{one['losses']} in the first {first} steps, over {limit}")
+    print(f"train across ranks: the {MESH_RUN['mesh']} losses lie within "
+          f"{max(gaps[:3]):.3e} of the (1, 1) losses in the first 3 steps "
+          f"(limit {MESH_LOSS_SHARE}), {max(gaps):.3e} in all {n} (limit "
+          f"{MESH_LOSS_SHARE_ALL}); "
+          f"a step takes {many['ms'] / one['ms']:.3f}x the (1, 1) step's "
+          f"(medians of steps {w + 1}-{n} in this phase) "
+          f"on {card}")
+
+
+def mesh_train_phase(torch, dev, card):
+    """Phase 28: training across ranks on the stacked mesh."""
+    mesh_step_check(torch, dev, card)
+    mesh_run(torch, dev, card)
+
+
+def moe_mesh_phase(torch, dev, card):
+    """Phase 29: qwen2-moe-a2.7b at full width and 2 layers, float32,
+    Adafactor: one step on a (2, 1) stacked mesh (MoE groups = the
+    data-parallel degree, 2: each rank's rows are one dispatch group)
+    against a one-rank step built with groups 2 (``launch.steps.
+    _dp_degree`` bound to 2 while the cell is built), on the same batch:
+    the routing of every token equal, then the metrics, every
+    parameter's update and the factored second moments under ``agree``
+    at ``MOE_STEP_TOL``."""
+    import dataclasses
+
+    from repro_torch.configs import ShapeConfig, TrainConfig
+    from repro_torch.launch import steps
+    from repro_torch.models import moe
+
+    cfg = moe_config(n_layers=MOE_STEP["layers"])
+    b, s = MOE_STEP["batch"], MOE_STEP["seq_len"]
+    shape = ShapeConfig("moe-mesh", s, b, "train")
+    tcfg = TrainConfig(optimizer="adafactor", compute_dtype="float32",
+                       remat=False, microbatch=1, warmup_steps=2,
+                       total_steps=10, learning_rate=1e-3)
+    many = mesh_cell(dev, cfg, shape, MOE_STEP["mesh"], tcfg)
+    dp = MOE_STEP["mesh"][0]
+    old = steps._dp_degree
+    steps._dp_degree = lambda mesh: dp
+    try:
+        one = mesh_cell(dev, cfg, shape, (1, 1), tcfg)
+    finally:
+        steps._dp_degree = old
+    params, _ = one.model.init(torch.Generator(device=dev).manual_seed(0))
+    batch = train_batch(torch, cfg, b, s, 0, dev)
+    moe.ROUTES = []
+    try:
+        want = one.step_fn(params, one.optimizer.init(params), batch, 3)
+        want_routes, moe.ROUTES = moe.ROUTES, []
+        placed = many.place(params)
+        many.mesh.reset_counters()
+        t0 = time.perf_counter()
+        gp, gs, gm = many.step_fn(*placed, batch, 3)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        got_routes = moe.ROUTES
+    finally:
+        moe.ROUTES = None
+    # the one-rank step routes (groups, T, E) per layer; the mesh's ranks
+    # route their own group, rank by rank, each over every layer
+    layers = len(want_routes)
+    got = [torch.cat([got_routes[r * layers + i] for r in range(dp)])
+           for i in range(layers)]
+    flips = sum(int((g != w).any(-1).sum()) for g, w in zip(got,
+                                                            want_routes))
+    dropped = sum(int((w == 1).sum()) for w in want_routes) / max(
+        1, sum(int((w > 0).sum()) for w in want_routes))
+    if flips:
+        raise AssertionError(f"MoE across ranks: {flips} tokens routed "
+                             "otherwise than the one-rank step at groups "
+                             f"{dp}")
+    pairs = step_pairs(torch, (*many.gather(gp, gs), gm), want, params)
+    worst = hold_pairs(torch, pairs, MOE_STEP_TOL,
+                       f"MoE step {MOE_STEP['mesh']} != one rank at groups "
+                       f"{dp}")
+    print(f"MoE across ranks {cfg.name} ({cfg.n_layers} layers, full width "
+          f"(d_model {cfg.d_model}, {cfg.moe.n_experts} experts, top "
+          f"{cfg.moe.top_k}); batch {b} x {s}, float32, Adafactor): one "
+          f"step on a {MOE_STEP['mesh']} mesh (groups {dp}: each rank's rows"
+          f" one dispatch group) == a one-rank step at groups {dp}: every "
+          f"token's routing equal ({dropped:.3f} of the expert choices "
+          f"dropped over capacity), {len(pairs)} arrays agree at "
+          f"{MOE_STEP_TOL} (worst err / scale {worst[0]:.3e} in "
+          f"{worst[1]}); collectives {dict(many.mesh.launches)}; "
+          f"{step_s:.2f} s (first call) on {card}")
+    del params, placed, want, gp, gs
+    torch.cuda.empty_cache()
+
+
+def gpipe_phase(torch, dev, card):
+    """Phase 30: whisper-small's encoder at full width and depth as GPipe
+    stages: 12 blocks as 4 stages of 3 on a 4-rank stacked mesh, 4
+    microbatches of one utterance of 1500 frames.  (a) bfloat16, K2
+    (impl="kernel"), no grad: the pipeline's outputs equal the 12 blocks
+    applied in order with impl="full" under ``agree`` at
+    ``PREFILL_TOL_BF16``; M+S-1 ``ppermute`` launches; K2 launches
+    S x 3 x (M+S-1) (the lockstep bubble included); (b) float32, the
+    plain attention, ``checkpoint=True``: outputs and the gradients of
+    every stacked encoder parameter equal sequential autograd under
+    ``agree`` at ``GPIPE_F32_TOL``; (c) ms per pipeline forward beside
+    the sequential blocks; K2 on the q, k, v of one launch made inside a
+    tick against its plain version, timed beside SDPA and the bound.
+    Returns K2's kernel-table row."""
+    from repro_torch.core.pipeline import make_pipeline
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.mesh import make_mesh
+    from repro_torch.models import blocks as blk
+    from repro_torch.models import build_model
+    from repro_torch.pytree import flatten_with_paths, tree_map, unflatten_like
+
+    cfg = whisper_config()
+    n_st, m = GPIPE["stages"], GPIPE["micro"]
+    model = build_model(cfg)
+    params, _ = model.init(torch.Generator(device=dev).manual_seed(0))
+    enc = params["encoder"]
+    per = model.n_enc // n_st
+    f, d = cfg.encoder.n_frames, cfg.d_model
+    g = torch.Generator(device=dev).manual_seed(1)
+    frames = torch.randn((m, 1, f, d), generator=g, device=dev)
+    mesh = make_mesh((n_st,), ("stage",), device=dev)
+    kind = "attn:global:dense"
+
+    def blocks(p, x, first, count, impl):
+        pos = torch.arange(x.shape[1], dtype=torch.int32,
+                           device=dev).expand(x.shape[0], x.shape[1])
+        for i in range(first, first + count):
+            x = blk.block_apply(tree_map(lambda t: t[i], p), x, cfg, kind,
+                                positions=pos, impl=impl,
+                                attn_mode="bidir")[0]
+        return x
+
+    def stage(impl):
+        return lambda p, x: blocks(p, x, 0, per, impl)
+
+    def stacked(tree):
+        return tree_map(lambda t: t.reshape((n_st, per) + t.shape[1:]), tree)
+
+    def sequential(tree, x, impl):
+        return blocks(tree, x.reshape(m, f, d), 0, model.n_enc, impl)
+
+    # (a) bfloat16, K2
+    enc16 = tree_map(lambda t: t.to(torch.bfloat16), enc)
+    x16 = frames.to(torch.bfloat16)
+    run = make_pipeline(stage("kernel"), mesh, axis="stage", checkpoint=False)
+    captured = []
+    launch = fa.flash_attention
+
+    def capture(q, k, v, **kw):
+        if not captured:
+            captured.append((q.clone(), k.clone(), v.clone(), kw))
+        return launch(q, k, v, **kw)
+
+    fa.flash_attention = capture
+    try:
+        with torch.no_grad():
+            run(stacked(enc16), x16)            # warm-up
+            torch.cuda.synchronize()
+            mesh.reset_counters()
+            fa.LAUNCHES.clear()
+            got = run(stacked(enc16), x16)
+            torch.cuda.synchronize()
+    finally:
+        fa.flash_attention = launch
+    n_k2, n_pp = sum(fa.LAUNCHES.values()), mesh.launches["ppermute"]
+    want_k2 = n_st * per * (m + n_st - 1)
+    if n_pp != m + n_st - 1 or n_k2 != want_k2:
+        raise AssertionError(f"GPipe: {n_pp} ppermute launches (want "
+                             f"{m + n_st - 1}), K2 launched {n_k2} times "
+                             f"(want {want_k2})")
+    with torch.no_grad():
+        want = sequential(enc16, x16, "full")
+    worst16 = hold_pairs(torch, [("outputs", got.reshape(m, f, d).float(),
+                                  want.float())], PREFILL_TOL_BF16,
+                         "GPipe bf16 impl=kernel != sequential impl=full")
+    # (b) float32, plain attention, checkpointed stages, gradients
+    names, flat = flatten_with_paths(enc)
+    leaves = [t.detach().requires_grad_(True) for t in flat]
+    tree = unflatten_like(enc, leaves)
+    run32 = make_pipeline(stage("full"), mesh, axis="stage", checkpoint=True)
+    out = run32(stacked(tree), frames)
+    gp = torch.autograd.grad(out.square().mean(), leaves)
+    ref = sequential(tree, frames, "full")
+    gs = torch.autograd.grad(ref.square().mean(), leaves)
+    pairs = [("outputs", out.detach().reshape(m, f, d), ref.detach())]
+    pairs += [(f"grad {n}", a, b) for n, a, b in zip(names, gp, gs)]
+    worst32 = hold_pairs(torch, pairs, GPIPE_F32_TOL,
+                         "GPipe float32 != sequential autograd")
+    del out, ref, gp, gs, leaves, tree
+    # (c) times and K2 inside a tick
+    with torch.no_grad():
+        pipe_ms = cuda_ms(torch, lambda: run(stacked(enc16), x16), reps=5,
+                          inner=2, warmup=1)
+        seq_ms = cuda_ms(torch, lambda: sequential(enc16, x16, "kernel"),
+                         reps=5, inner=2, warmup=1)
+    q, k, v, kw = captured[0]
+    tol = 1e-2
+    err, row_err = check_k2(torch, fa, q, k, v, kw.get("causal", True),
+                            kw.get("window"), tol, "GPipe tick encoder bf16")
+    ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, **kw))
+    plain_ms = cuda_ms(torch, lambda: fa.flash_attention_plain(q, k, v, **kw),
+                       reps=5, inner=5)
+    library_ms = cuda_ms(torch, lambda: torch.nn.functional.
+                         scaled_dot_product_attention(q, k, v,
+                                                      enable_gqa=True),
+                         reps=5, inner=5)
+    b_, h, sq, hd = q.shape
+    bound_s, bound_by, flops, nbytes, _ = k2_bound(
+        torch, b_, h, k.shape[1], sq, k.shape[2], hd, None, q.dtype,
+        causal=False)
+    print(f"GPipe {cfg.name} encoder ({model.n_enc} blocks as {n_st} stages "
+          f"of {per} on a {n_st}-rank stacked mesh, {m} microbatches of one "
+          f"utterance of {f} frames): bf16 impl=kernel == the blocks in "
+          f"order with impl=full (agree at {PREFILL_TOL_BF16}; worst err / "
+          f"scale {worst16[0]:.3e}); float32 plain attention, checkpointed "
+          f"stages: outputs and the gradients of all {len(names)} stacked "
+          f"encoder leaves == sequential autograd (agree at {GPIPE_F32_TOL};"
+          f" worst err / scale {worst32[0]:.3e} in {worst32[1]}); ppermute "
+          f"launches per forward {n_pp} (M+S-1), K2 launches {n_k2} "
+          f"(S x {per} x (M+S-1): the lockstep bubble's "
+          f"{n_k2 - m * model.n_enc} beyond the {m * model.n_enc} of the "
+          f"blocks in order); "
+          f"{pipe_ms:.2f} ms per pipeline forward, {seq_ms:.2f} ms for the "
+          f"blocks in order (bf16, K2) on {card}")
+    print(f"K2 in a GPipe tick B={b_} H={h} Sq={sq} Sk={k.shape[2]} hd={hd} "
+          f"bidirectional bfloat16: kernel == plain (max_abs_err {err:.3e}, "
+          f"worst row-relative {row_err:.3e}, tol {tol}); launches per "
+          f"pipeline forward {n_k2}; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound "
+          f"{bound_s * 1e3:.4f} ms ({bound_by}: {flops} flops, {nbytes} B) "
+          f"on {card}")
+    del model, params, enc, enc16, captured, q, k, v
+    torch.cuda.empty_cache()
+    return [{
+        "name": f"flash_attention[{ENCDEC_ARCH} encoder in a GPipe tick "
+                f"({n_st} stages x {per} blocks, {m} microbatches) Sq={sq} "
+                f"Sk={f} bfloat16]",
+        "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,
+        "launches": n_k2, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+        "library_ms": library_ms}]
+
+
+def allreduce_phase(torch, dev, card):
+    """Phase 31: ``compressed_allreduce_tree`` over ``ALLREDUCE_RANKS``
+    data ranks of gemma3-1b's full gradient tree (every parameter's
+    shape; normal values at 1e-3, each rank its own draw; zero error
+    feedback), leaf by leaf: the int8 mean within the two-hop
+    quantisation bound of the float mean (per leaf: the mean over ranks
+    of max|g_r| / 254 for the first hop, max|float mean| / 254 for the
+    second, 1% for float rounding); the counted bytes beside those of a
+    float ``psum`` of the same gradients."""
+    from repro_torch.launch.steps import param_shapes
+    from repro_torch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import compressed_allreduce_tree
+    from repro_torch.pytree import flatten_with_paths
+
+    p = ALLREDUCE_RANKS
+    cfg = arch_config(ARCH)
+    names, shapes = flatten_with_paths(param_shapes(build_model(cfg))[0])
+    mesh = make_mesh((p,), ("data",), device=dev)
+    floats = make_mesh((p,), ("data",), device=dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    worst, n_elems, c_ms = (0.0, ""), 0, 0.0
+    for name, shp in zip(names, shapes):
+        grads = torch.randn((p,) + tuple(shp.shape), generator=g,
+                            device=dev) * 1e-3
+        errs = torch.zeros_like(grads)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        means, new_errs = compressed_allreduce_tree(
+            {name: grads}, {name: errs}, mesh=mesh, axis="data")
+        torch.cuda.synchronize()
+        c_ms += (time.perf_counter() - t0) * 1e3
+        want = floats.psum(grads, "data") / p
+        bound = 1.01 * (grads.abs().flatten(1).amax(1).mean().item()
+                        + want.abs().max().item()) / 254
+        err = (means[name] - want).abs().max().item()
+        if not err <= bound or not bool(torch.isfinite(new_errs[name]).all()):
+            raise AssertionError(f"int8 all-reduce {name}: max err {err:.3e}"
+                                 f" over its bound {bound:.3e}")
+        worst = max(worst, (err / bound, name))
+        n_elems += shp.numel()
+        del grads, errs, means, new_errs, want
+    compressed = sum(mesh.bytes.values())
+    if not compressed < floats.bytes["psum"] / 2:
+        raise AssertionError(f"int8 all-reduce: {compressed} B counted, a "
+                             f"float psum {floats.bytes['psum']} B")
+    print(f"int8 all-reduce over {p} data ranks of {cfg.name}'s gradient "
+          f"tree ({len(names)} leaves, {n_elems} values a rank): every "
+          f"leaf's mean within its two-hop int8 bound of the float mean "
+          f"(worst err / bound {worst[0]:.3f} in {worst[1]}); counted "
+          f"{dict(mesh.launches)} moving {compressed} B against a float "
+          f"psum's {floats.bytes['psum']} B "
+          f"({compressed / floats.bytes['psum']:.3f} of it); "
+          f"{c_ms:.1f} ms over the tree on {card}")
+    torch.cuda.empty_cache()
+
+
+def train_lm_phase(torch, card):
+    """Phase 32: ``python -m repro_torch.examples.train_lm --steps 200``
+    on the card in a fresh process: it passes its own check (the last
+    logged loss at least 0.5 below the first)."""
+    import os
+    import tempfile
+
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.examples.train_lm",
+             "--steps", str(TRAIN_LM_STEPS), "--ckpt-dir", tmp], cwd=root,
+            env=env, capture_output=True, text=True, timeout=600)
+        secs = time.perf_counter() - t0
+        saved = sorted(os.listdir(tmp))
+    if out.returncode != 0 or "OK: the pipeline learns" not in out.stdout:
+        raise AssertionError(f"train_lm example exit {out.returncode}:\n"
+                             f"{out.stdout[-2000:]}\n{out.stderr[-3000:]}")
+    summary = [ln for ln in out.stdout.splitlines() if ln.startswith("loss")]
+    print(f"train_lm example ({TRAIN_LM_STEPS} steps on the card, "
+          f"checkpoints {saved}): {summary[-1] if summary else '?'}; passes "
+          f"its learning check; {secs:.1f} s in a fresh process on {card}")
 
 
 def main(device: str = "cuda") -> int:
@@ -4303,6 +4862,13 @@ def main(device: str = "cuda") -> int:
 
     # -- training on one card -----------------------------------------------
     train_phase(torch, dev, card)
+
+    # -- training across ranks, MoE groups, GPipe, the int8 all-reduce -----
+    mesh_train_phase(torch, dev, card)
+    moe_mesh_phase(torch, dev, card)
+    rows += gpipe_phase(torch, dev, card)
+    allreduce_phase(torch, dev, card)
+    train_lm_phase(torch, card)
 
     print(card)
     print(json.dumps({"kernels": rows}))

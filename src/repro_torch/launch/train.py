@@ -1,10 +1,16 @@
 """End-to-end training entry point — counterpart of
 :mod:`repro.launch.train`.
 
-Wires the config registry, the synthetic data pipeline, the microbatched
-train step, the fault-tolerant loop with async checkpoints and the
-straggler monitor together, at one rank, on the CUDA card unless
-``--device cpu`` is given.
+Wires the config registry, the synthetic data pipeline, the plan-laid-out
+microbatched train step over a mesh of ranks stacked on one device
+(:func:`repro_torch.launch.mesh.make_local_mesh`: ``--ranks`` ranks,
+``--model-parallel`` of them along ``model``), the fault-tolerant loop
+with async checkpoints and the straggler monitor together, on the CUDA
+card unless ``--device cpu`` is given.  A checkpoint holds the whole
+(gathered) parameter and optimizer-state trees, so a sharded run and an
+unsharded one restore each other's.  A run across processes
+(``--coordinator``, ``--num-hosts`` > 1) needs the ``torch.distributed``
+backend and is refused.
 
 Examples:
   # a smoke-size model for 300 steps on the CPU
@@ -14,6 +20,10 @@ Examples:
   # gemma3-1b at full size on the card
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b \\
       --steps 30
+
+  # 4 ranks, 2 along the model axis (a (2, 2) mesh)
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b \\
+      --smoke --model-parallel 2 --ranks 4 --device cpu
 """
 from __future__ import annotations
 
@@ -37,6 +47,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--seq-len", type=int, default=256)
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--ranks", type=int, default=None,
+                    help="virtual ranks stacked on the device (default: "
+                    "--model-parallel)")
     ap.add_argument("--ckpt-dir", default="results/ckpt")
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--log-every", type=int, default=10)
@@ -55,6 +68,7 @@ def main(argv=None) -> dict:
     from repro_torch.configs import (ShapeConfig, get_config,
                                      recommended_train_config, smoke_config)
     from repro_torch.data import make_batch_iterator
+    from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.launch.steps import DISTRIBUTED, make_train_cell
     from repro_torch.mesh import resolve_device
     from repro_torch.models.blocks import not_ported
@@ -63,9 +77,6 @@ def main(argv=None) -> dict:
 
     if args.coordinator or args.num_hosts > 1:
         raise not_ported("a multi-host run (--coordinator)", DISTRIBUTED)
-    if args.model_parallel > 1:
-        raise not_ported(f"--model-parallel {args.model_parallel}",
-                         DISTRIBUTED)
     device = resolve_device(args.device)
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     train_cfg = dataclasses.replace(
@@ -73,12 +84,14 @@ def main(argv=None) -> dict:
         learning_rate=args.lr, total_steps=args.steps,
         warmup_steps=max(1, args.steps // 20))
     shape = ShapeConfig("cli", args.seq_len, args.batch, "train")
-    cell = make_train_cell(cfg, shape, train_cfg)
+    mesh = make_local_mesh(args.model_parallel, ranks=args.ranks,
+                           device=device)
+    cell = make_train_cell(cfg, shape, mesh, train_cfg)
 
     gen = torch.Generator(device=device).manual_seed(train_cfg.seed)
     params, _ = cell.model.init(gen, dtype=getattr(torch,
                                                    train_cfg.param_dtype))
-    opt_state = cell.optimizer.init(params)
+    params, opt_state = cell.place(params)
 
     def batch_at(step):
         """The batch of ``step`` (keyed by it: a restored run replays)."""
@@ -91,8 +104,9 @@ def main(argv=None) -> dict:
             frames=cfg.encoder.n_frames if encdec else None))
         return tree_map(lambda x: x.to(device), batch)
 
-    ckpt = Checkpointer(args.ckpt_dir, host_id=args.host_id,
-                        num_hosts=args.num_hosts)
+    ckpt = GatheringCheckpointer(
+        Checkpointer(args.ckpt_dir, host_id=args.host_id,
+                     num_hosts=args.num_hosts), cell)
     monitor = StragglerMonitor()
     history: list[float] = []
 
@@ -124,8 +138,35 @@ def main(argv=None) -> dict:
     ckpt.save(args.steps, state)
     if len(history) >= 2:
         log.info("loss: first %.4f -> last %.4f", history[0], history[-1])
-    return {"params": state[0], "opt_state": state[1], "losses": history,
-            "start": start}
+    params, opt_state = cell.gather(*state)
+    return {"params": params, "opt_state": opt_state, "losses": history,
+            "start": start, "mesh": mesh}
+
+
+class GatheringCheckpointer:
+    """A :class:`~repro_torch.checkpoint.Checkpointer` of a train cell's
+    (params, opt_state) as the cell stores them: it saves the gathered
+    (whole) trees and lays restored ones out again, so a checkpoint holds
+    the same leaves whatever the mesh."""
+
+    def __init__(self, ckpt, cell) -> None:
+        self.ckpt, self.cell = ckpt, cell
+
+    def save(self, step: int, state) -> str:
+        return self.ckpt.save(step, self.cell.gather(*state))
+
+    def save_async(self, step: int, state) -> None:
+        self.ckpt.save_async(step, self.cell.gather(*state))
+
+    def wait(self) -> None:
+        self.ckpt.wait()
+
+    def restore_latest(self, like):
+        got = self.ckpt.restore_latest(self.cell.gather(*like))
+        if got is None:
+            return None
+        step, (params, opt_state) = got
+        return step, self.cell.place(params, opt_state)
 
 
 if __name__ == "__main__":

@@ -13,22 +13,37 @@ on ONE device:
   replicated tensor; ``all_gather`` returns the stack of every rank's
   value with the gathered axis leading; ``ppermute`` moves each rank's
   value to the rank its ``(src, dst)`` pair names (a rank no pair
-  targets receives zeros, as in JAX); ``axis_index`` is an ``arange``.
+  targets receives zeros, as in JAX); ``all_to_all`` sends each rank's
+  ``j``-th slice to rank ``j``; ``axis_index`` is an ``arange``.
 
 Chunk-cyclic slabs keep the reference's global layout ``(n_loc, P, c,
 ...)``, whose dim 1 is the rank axis (the reference's ``P(None, axis)``
 sharding); the compute phase reads each rank's slabs from that dim.
 
+A tensor sharded by a tensor-plan spec (:mod:`repro_torch.core.
+tensor_plan`) is stored as its per-rank blocks: :meth:`Mesh.shard`
+lays it out with one leading rank dim per mesh axis the spec names (in
+mesh order; an axis of size 1 cuts nothing and adds no dim), each
+block as ``NamedSharding`` lays it out, and :meth:`Mesh.unshard` gathers
+it back, one ``all_gather`` per such axis.
+
 Every collective counts one launch and the bytes of its per-rank
 operands in :attr:`Mesh.launches` / :attr:`Mesh.bytes` — the port's
-counterpart of the reference's HLO collective audit.
+counterpart of the reference's HLO collective audit: ``psum``,
+``pmax``, ``pmin``, ``all_gather`` (the gathers of :meth:`Mesh.unshard`
+too), ``all_to_all`` and ``ppermute`` (the bytes its sending ranks put
+on the wire).  :meth:`Mesh.shard` moves nothing between ranks (each
+keeps its own block) and counts nothing.
 """
 from __future__ import annotations
 
 import collections
+import math
 from typing import Sequence
 
 import torch
+
+from repro_torch.core.tensor_plan import spec_axes
 
 
 def resolve_device(device=None) -> torch.device:
@@ -139,6 +154,73 @@ class Mesh:
         self._check(x, (name,))
         self._count("all_gather", x)
         return x
+
+    def all_to_all(self, x: torch.Tensor, axis: str, split_axis: int,
+                   concat_axis: int) -> torch.Tensor:
+        """``jax.lax.all_to_all`` over ONE axis: every rank cuts its value
+        into P slices along ``split_axis`` and sends slice ``j`` to rank
+        ``j``; each rank concatenates what it receives along
+        ``concat_axis``, in source-rank order.  The axes index a rank's
+        value (``x`` without its leading rank dim)."""
+        (name,) = self._axes(axis)
+        self._check(x, (name,))
+        p, n = self.shape[name], x.dim() - 1
+        sa, ca = split_axis % n + 1, concat_axis % n + 1
+        if x.shape[sa] % p:
+            raise ValueError(f"all_to_all over {name!r} (size {p}): split "
+                             f"dim {split_axis} of {tuple(x.shape[1:])} "
+                             "does not divide")
+        self._count("all_to_all", x)
+        y = x.unflatten(sa, (p, x.shape[sa] // p)).movedim(sa, 0)
+        # (dst, src, ...): the source rank goes just before the concat dim
+        return y.movedim(1, ca).flatten(ca, ca + 1)
+
+    # -- tensors laid out by a tensor-plan spec ----------------------------
+
+    def _layout(self, shape, spec):
+        """(split shape, permutation to rank-dims-first, rank axes in
+        mesh order) of a ``shape`` tensor laid out by ``spec``."""
+        spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+        split, rank_pos, block_pos = [], {}, []
+        for d, n in enumerate(shape):
+            axes = [a for a in spec_axes(spec[d]) if self.shape[a] > 1]
+            for a in axes:
+                rank_pos[a] = len(split)
+                split.append(self.shape[a])
+            k = math.prod(self.shape[a] for a in axes)
+            if n % k:
+                raise ValueError(f"dim {d} of {tuple(shape)} does not divide "
+                                 f"over {spec[d]!r} ({k} ranks)")
+            block_pos.append(len(split))
+            split.append(n // k)
+        order = [a for a in self.axis_names if a in rank_pos]
+        return split, [rank_pos[a] for a in order] + block_pos, order
+
+    def shard(self, x: torch.Tensor, spec) -> torch.Tensor:
+        """``x`` as its per-rank blocks by ``spec``: ``(P_a, ..., *block)``
+        over the mesh axes ``spec`` names (mesh order).  Each rank keeps
+        its own block: nothing moves, nothing is counted."""
+        split, perm, _ = self._layout(x.shape, spec)
+        return x.reshape(split).permute(perm).contiguous()
+
+    def unshard(self, xs: torch.Tensor, spec) -> torch.Tensor:
+        """The whole tensor from its per-rank blocks (:meth:`shard`'s
+        inverse): one counted ``all_gather`` per rank axis."""
+        spec = tuple(spec)
+        names = [a for a in self.axis_names if self.shape[a] > 1
+                 and any(a in spec_axes(e) for e in spec)]
+        block = xs.shape[len(names):]
+        full = []
+        for d, n in enumerate(block):
+            e = spec[d] if d < len(spec) else None
+            full.append(n * math.prod(self.shape[a] for a in spec_axes(e)))
+        for i, a in enumerate(names):
+            self.all_gather(xs.movedim(i, 0), a)
+        split, perm, _ = self._layout(full, spec)
+        inv = [0] * len(perm)
+        for i, q in enumerate(perm):
+            inv[q] = i
+        return xs.permute(inv).reshape(full)
 
     def ppermute(self, x: torch.Tensor, axis: str, perm) -> torch.Tensor:
         """Point-to-point shifts along ONE axis: rank ``dst`` receives

@@ -159,6 +159,17 @@ def init_block_cache(cfg, kind: str, batch: int, cache_len: int,
     }
 
 
+def block_cache_axes(cfg, kind: str):
+    """Logical axes of the cache tree (for sharding)."""
+    mixer, _, _ = kind.split(":")
+    if mixer == "ssm":
+        return {"h": (tp.BATCH, tp.HEADS, tp.HEAD_DIM, tp.D_STATE),
+                "conv": (tp.BATCH, None, tp.D_INNER)}
+    return {"k": (tp.BATCH, tp.SEQ_KV, tp.KV_HEADS, tp.HEAD_DIM),
+            "v": (tp.BATCH, tp.SEQ_KV, tp.KV_HEADS, tp.HEAD_DIM),
+            "pos": (tp.BATCH, tp.SEQ_KV)}
+
+
 # ---------------------------------------------------------------------------
 # Apply
 # ---------------------------------------------------------------------------
@@ -248,8 +259,8 @@ def cross_attn_apply(p, x, enc_kv, cfg, *, impl="auto"):
     return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dtype))
 
 
-def ffn_apply(p, x, cfg, kind: str):
-    """Returns (out, aux_loss)."""
+def ffn_apply(p, x, cfg, kind: str, *, groups=1):
+    """Returns (out, aux_loss). ``groups``: the MoE dispatch groups."""
     _, _, ffn = kind.split(":")
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     if ffn == "none" or "ffn" not in p:
@@ -257,12 +268,12 @@ def ffn_apply(p, x, cfg, kind: str):
     fp = p["ffn"]
     h = rms_norm(x, fp["norm"], cfg.norm_eps)
     if ffn == "moe":
-        return moe_mod.moe_apply(fp, h, cfg.moe)
+        return moe_mod.moe_apply(fp, h, cfg.moe, groups=groups)
     return mlp_apply(fp, h, gated=cfg.gated_mlp), zero
 
 
 def block_apply(p, x, cfg, kind: str, *, positions, cache=None,
-                decode_pos=None, impl="auto", enc_kv=None,
+                decode_pos=None, impl="auto", groups=1, enc_kv=None,
                 attn_mode="causal"):
     """One full block: mixer + (optional cross) + FFN, residual-wired.
 
@@ -282,6 +293,6 @@ def block_apply(p, x, cfg, kind: str, *, positions, cache=None,
     if enc_kv is not None and "cross" in p:
         x = x + cross_attn_apply(p["cross"], x, enc_kv, cfg, impl=impl)
     if ffn != "none":
-        out, aux = ffn_apply(p, x, cfg, kind)
+        out, aux = ffn_apply(p, x, cfg, kind, groups=groups)
         x = x + out
     return x, new_cache, aux

@@ -307,6 +307,13 @@ def chunked_cross_entropy(x, w_head, labels, *, mask=None, chunk=512):
     (``torch.utils.checkpoint``) instead of kept, as the reference's
     checkpointed scan.  The last chunk is the remainder (the reference
     pads it to a whole chunk with masked tokens, which add nothing)."""
+    tot, cnt = chunked_ce_sum(x, w_head, labels, mask=mask, chunk=chunk)
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def chunked_ce_sum(x, w_head, labels, *, mask=None, chunk=512):
+    """(sum of the CEs of the tokens ``mask`` keeps, their count), both
+    float32 scalars: :func:`chunked_cross_entropy` before its division."""
     from torch.utils.checkpoint import checkpoint
 
     b, s, _ = x.shape
@@ -319,4 +326,4 @@ def chunked_cross_entropy(x, w_head, labels, *, mask=None, chunk=512):
         t, c = checkpoint(_ce_chunk, x[:, sl], w_head, labels[:, sl],
                           mask[:, sl].bool(), use_reentrant=False)
         tot, cnt = tot + t, cnt + c
-    return tot / torch.clamp(cnt, min=1.0)
+    return tot, cnt

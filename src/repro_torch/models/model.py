@@ -14,8 +14,10 @@ API (used by :mod:`repro_torch.serving` and :mod:`repro_torch.launch`):
   tensors lie on the generator's device; axes are the logical-axis
   twins;
 * ``model.forward(params, batch) -> (hidden, aux)``;
-* ``model.loss_fn(params, batch) -> (loss, {"ce", "aux"})``;
+* ``model.loss_fn(params, batch) -> (loss, {"ce", "aux"})`` (per block
+  of rows with ``parts``: a train step's per-rank shares);
 * ``model.init_cache(batch, cache_len, dtype, device) -> cache``;
+* ``model.cache_axes()`` — the cache tree's logical-axis twins;
 * ``model.prefill(params, batch, cache) -> (logits, cache)``;
 * ``model.decode_step(params, cache, tokens, pos) -> (logits, cache)``.
 
@@ -31,7 +33,7 @@ from repro_torch.core import tensor_plan as tp
 from repro_torch.mesh import resolve_device
 from repro_torch.models import blocks as blk
 from repro_torch.models.layers import (
-    chunked_cross_entropy,
+    chunked_ce_sum,
     is_param_leaf,
     make_param,
     rms_norm,
@@ -81,7 +83,39 @@ def _index(tree, i):
     return tree[i]
 
 
+def next_token_loss(x, head, batch, aux, aux_weight, *, parts=None,
+                    tokens=None):
+    """The LM loss of hidden states ``x`` (B, S, D): the next-token CE
+    over the tokens the mask keeps, their mean, + ``aux_weight`` x
+    ``aux``.  Returns (loss, {"ce", "aux"}).
+
+    ``tokens`` replaces the mean's denominator, so that the CE of a part
+    of a larger batch, divided by that batch's token count, adds up to
+    the batch's mean.  With ``parts`` the rows split into that many
+    contiguous blocks, and loss, ce and aux come back per block, (parts,)
+    each, the aux term split evenly: summed over the blocks they are the
+    whole rows' (a train step's per-rank shares of one forward)."""
+    labels, mask = batch["labels"][:, 1:], batch.get("mask")
+    mask = None if mask is None else mask[:, 1:]
+    rows = x.shape[0] // (parts or 1)
+    ces = []
+    for j in range(parts or 1):
+        sl = slice(j * rows, (j + 1) * rows) if parts else slice(None)
+        tot, cnt = chunked_ce_sum(x[sl, :-1], head, labels[sl],
+                                  mask=None if mask is None else mask[sl])
+        ces.append(tot / (torch.clamp(cnt, min=1.0) if tokens is None
+                          else tokens))
+    if parts:
+        ce, aux = torch.stack(ces), (aux / parts).expand(parts)
+    else:
+        ce = ces[0]
+    return ce + aux_weight * aux, {"ce": ce, "aux": aux}
+
+
 class DecoderLM:
+    #: the MoE aux loss's weight in :meth:`loss_fn`
+    AUX_WEIGHT = 0.01
+
     def __init__(self, cfg):
         self.cfg = cfg
         (self.period, self.slot_kinds, self.n_periods,
@@ -144,8 +178,14 @@ class DecoderLM:
 
     # ----------------------------------------------------------- forward --
     def forward(self, params, batch, *, positions=None, impl="auto",
-                remat=False, compute_dtype=torch.bfloat16):
+                groups=1, remat=False, compute_dtype=torch.bfloat16,
+                shard_fn=None):
         """Full-sequence forward (training). Returns (hidden, aux).
+
+        ``groups``: the MoE dispatch groups (the data-parallel degree in
+        a train step).  ``shard_fn`` is applied to the residual stream
+        after the embedding and after every slot block, where the
+        reference pins its activations' sharding; None is the identity.
 
         ``remat`` recomputes each period's activations in the backward
         pass (``torch.utils.checkpoint``, non-reentrant) instead of
@@ -154,7 +194,8 @@ class DecoderLM:
         near its square root) are checkpointed, and each period inside
         them, so O(sqrt(L)) activations are kept."""
         cfg = self.cfg
-        x = self._embed(params, batch).to(compute_dtype)
+        sf = shard_fn or (lambda t: t)
+        x = sf(self._embed(params, batch).to(compute_dtype))
         b, s, _ = x.shape
         if positions is None:
             positions = torch.arange(s, dtype=torch.int32,
@@ -164,7 +205,9 @@ class DecoderLM:
             for sidx, kind in enumerate(self.slot_kinds):
                 p = _index(params["slots"][f"slot{sidx}"], per)
                 x, _, a = blk.block_apply(p, x, cfg, kind,
-                                          positions=positions, impl=impl)
+                                          positions=positions, impl=impl,
+                                          groups=groups)
+                x = sf(x)
                 aux = aux + a
             return x, aux
 
@@ -185,23 +228,24 @@ class DecoderLM:
         for i, kind in enumerate(self.tail_kinds):
             def tail(x, aux, p=params["tail"][f"tail{i}"], kind=kind):
                 x, _, a = blk.block_apply(p, x, cfg, kind,
-                                          positions=positions, impl=impl)
+                                          positions=positions, impl=impl,
+                                          groups=groups)
                 return x, aux + a
             x, aux = _checkpointed(tail, x, aux) if remat else tail(x, aux)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return x, aux
 
-    def loss_fn(self, params, batch, *, impl="auto", remat=False,
-                compute_dtype=torch.bfloat16, aux_weight=0.01):
+    def loss_fn(self, params, batch, *, impl="auto", groups=1, remat=False,
+                compute_dtype=torch.bfloat16, aux_weight=AUX_WEIGHT,
+                shard_fn=None, parts=None, tokens=None):
         """Next-token CE (+ ``aux_weight`` x the MoE aux loss). batch:
-        tokens/embeds + labels (+ mask). Returns (loss, {"ce", "aux"})."""
-        x, aux = self.forward(params, batch, impl=impl, remat=remat,
-                              compute_dtype=compute_dtype)
-        mask = batch.get("mask")
-        loss = chunked_cross_entropy(
-            x[:, :-1], self._head_matrix(params), batch["labels"][:, 1:],
-            mask=None if mask is None else mask[:, 1:])
-        return loss + aux_weight * aux, {"ce": loss, "aux": aux}
+        tokens/embeds + labels (+ mask). Returns (loss, {"ce", "aux"});
+        ``parts`` and ``tokens`` as :func:`next_token_loss` takes them."""
+        x, aux = self.forward(params, batch, impl=impl, groups=groups,
+                              remat=remat, compute_dtype=compute_dtype,
+                              shard_fn=shard_fn)
+        return next_token_loss(x, self._head_matrix(params), batch, aux,
+                               aux_weight, parts=parts, tokens=tokens)
 
     # ------------------------------------------------------------- cache --
     def init_cache(self, batch: int, cache_len: int, dtype=torch.bfloat16,
@@ -220,14 +264,26 @@ class DecoderLM:
                 cfg, kind, batch, cache_len, dtype, device)
         return caches
 
-    def _with_cache(self, params, x, caches, positions, decode_pos, impl):
+    def cache_axes(self):
+        """Logical-axes twin tree of :meth:`init_cache`'s output."""
+        cfg = self.cfg
+        axes = {}
+        for s, kind in enumerate(self.slot_kinds):
+            axes[f"slot{s}"] = {k: (None,) + a for k, a in
+                                blk.block_cache_axes(cfg, kind).items()}
+        for i, kind in enumerate(self.tail_kinds):
+            axes[f"tail{i}"] = blk.block_cache_axes(cfg, kind)
+        return axes
+
+    def _with_cache(self, params, x, caches, positions, decode_pos, impl,
+                    groups=1):
         cfg = self.cfg
         new: dict = {}
         for kind, p, key, per in self._layers(params):
             cache = caches[key] if per is None else _index(caches[key], per)
             x, nc, _ = blk.block_apply(p, x, cfg, kind, positions=positions,
                                        cache=cache, decode_pos=decode_pos,
-                                       impl=impl)
+                                       impl=impl, groups=groups)
             if per is None:
                 new[key] = nc
             else:
@@ -237,7 +293,7 @@ class DecoderLM:
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return x, new
 
-    def prefill(self, params, batch, caches, *, impl="auto",
+    def prefill(self, params, batch, caches, *, impl="auto", groups=1,
                 compute_dtype=torch.bfloat16):
         """Process a prompt, fill caches, return last-token logits."""
         x = self._embed(params, batch).to(compute_dtype)
@@ -245,17 +301,17 @@ class DecoderLM:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device).expand(b, s)
         x, new_caches = self._with_cache(params, x, caches, positions, None,
-                                         impl)
+                                         impl, groups)
         logits = x[:, -1].float() @ self._head_matrix(params).float()
         return logits, new_caches
 
     def decode_step(self, params, caches, tokens, pos, *, impl="auto",
-                    compute_dtype=torch.bfloat16):
+                    groups=1, compute_dtype=torch.bfloat16):
         """One decode step. tokens: (B,), pos: (B,) current positions."""
         x = params["embed"][tokens.long()[:, None]].to(compute_dtype)
         pos = pos.to(torch.int32)
         x, new_caches = self._with_cache(params, x, caches, pos[:, None],
-                                         pos, impl)
+                                         pos, impl, groups)
         logits = x[:, 0].float() @ self._head_matrix(params).float()
         return logits, new_caches
 
@@ -333,10 +389,12 @@ class EncDecLM:
         return k, v
 
     def _decoder(self, params, x, positions, decode_pos, caches, enc_kv,
-                 impl, remat=False):
+                 impl, remat=False, shard_fn=None):
         """The decoder's blocks (with a KV cache unless ``caches`` is
-        None), then ``final_norm``; returns (hidden, new self caches)."""
+        None), ``shard_fn`` after each, then ``final_norm``; returns
+        (hidden, new self caches)."""
         cfg = self.cfg
+        sf = shard_fn or (lambda t: t)
         ck, cv = enc_kv
         new = []
         for i in range(self.n_dec):
@@ -344,10 +402,11 @@ class EncDecLM:
             cache = None if caches is None else _index(caches, i)
 
             def layer(p, x, ck, cv, cache=cache):
-                return blk.block_apply(
+                x, nc, _ = blk.block_apply(
                     p, x, cfg, "attn:global:dense", positions=positions,
                     cache=cache, decode_pos=decode_pos, impl=impl,
-                    enc_kv=(ck, cv))[:2]
+                    enc_kv=(ck, cv))
+                return sf(x), nc
             if remat:
                 x, nc = _checkpointed(layer, p, x, ck[i], cv[i])
             else:
@@ -362,22 +421,26 @@ class EncDecLM:
         return x, torch.arange(s, dtype=torch.int32,
                                device=x.device).expand(b, s)
 
-    def loss_fn(self, params, batch, *, impl="auto", remat=False,
-                compute_dtype=torch.bfloat16):
+    def loss_fn(self, params, batch, *, impl="auto", groups=1, remat=False,
+                compute_dtype=torch.bfloat16, shard_fn=None, parts=None,
+                tokens=None):
         """Next-token CE of the decoder over ``batch["tokens"]`` given
-        ``batch["frames"]``; returns (loss, {"ce", "aux"}), aux 0."""
-        enc_h = self.encode(params, batch["frames"], impl=impl,
-                            compute_dtype=compute_dtype, remat=remat)
+        ``batch["frames"]``; returns (loss, {"ce", "aux"}), aux 0.
+        ``groups`` is taken as the reference takes it (its blocks are
+        dense, so nothing reads it); ``shard_fn`` is applied to the
+        encoder's output and after every decoder block; ``parts`` and
+        ``tokens`` as :func:`next_token_loss` takes them."""
+        sf = shard_fn or (lambda t: t)
+        enc_h = sf(self.encode(params, batch["frames"], impl=impl,
+                               compute_dtype=compute_dtype, remat=remat))
         enc_kv = self._cross_kv(params, enc_h)
         x, positions = self._tokens_in(params, batch["tokens"],
                                        compute_dtype)
         x, _ = self._decoder(params, x, positions, None, None, enc_kv, impl,
-                             remat=remat)
-        mask = batch.get("mask")
-        loss = chunked_cross_entropy(
-            x[:, :-1], params["head"], batch["labels"][:, 1:],
-            mask=None if mask is None else mask[:, 1:])
-        return loss, {"ce": loss, "aux": torch.zeros_like(loss)}
+                             remat=remat, shard_fn=shard_fn)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return next_token_loss(x, params["head"], batch, aux, 0.0,
+                               parts=parts, tokens=tokens)
 
     # ------------------------------------------------------------- cache --
     def init_cache(self, batch: int, cache_len: int, dtype=torch.bfloat16,
@@ -394,10 +457,18 @@ class EncDecLM:
                 "cross_k": torch.zeros(shape, dtype=dtype, device=device),
                 "cross_v": torch.zeros(shape, dtype=dtype, device=device)}
 
-    def prefill(self, params, batch, caches, *, impl="auto",
+    def cache_axes(self):
+        """Logical-axes twin tree of :meth:`init_cache`'s output."""
+        cross = (None, tp.BATCH, tp.FRAMES, tp.KV_HEADS, tp.HEAD_DIM)
+        return {"self": {k: (None,) + a for k, a in blk.block_cache_axes(
+                    self.cfg, "attn:global:dense").items()},
+                "cross_k": cross, "cross_v": cross}
+
+    def prefill(self, params, batch, caches, *, impl="auto", groups=1,
                 compute_dtype=torch.bfloat16):
         """Encode frames, precompute cross KV, prefill the decoder prompt;
-        returns (last-token logits, caches)."""
+        returns (last-token logits, caches).  ``groups`` as in
+        :meth:`loss_fn`."""
         enc_h = self.encode(params, batch["frames"], impl=impl,
                             compute_dtype=compute_dtype)
         ck, cv = self._cross_kv(params, enc_h)

@@ -15,6 +15,9 @@ class Optimizer:
     name: str
     init: Callable[[Any], Any]
     update: Callable[..., tuple]      # (grads, state, params, lr=) -> (p, s)
+    #: the update of an element reads that element alone, so it may run
+    #: on any block of a leaf (a train step updates sharded leaves so)
+    elementwise: bool = False
 
 
 def make_optimizer(name: str, *, weight_decay: float = 0.1) -> Optimizer:
@@ -22,7 +25,8 @@ def make_optimizer(name: str, *, weight_decay: float = 0.1) -> Optimizer:
         return Optimizer(
             "adamw", adamw_init,
             lambda g, s, p, lr: adamw_update(
-                g, s, p, lr=lr, weight_decay=weight_decay))
+                g, s, p, lr=lr, weight_decay=weight_decay),
+            elementwise=True)
     if name == "adafactor":
         return Optimizer(
             "adafactor", adafactor_init,

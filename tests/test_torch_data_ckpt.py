@@ -7,7 +7,9 @@ either package restores in the other, bit for bit; async save, ``keep``,
 a torn ``.tmp`` directory ignored), ``FaultTolerantLoop`` (a planted
 ``StepFailure`` and a restore give the uninterrupted run's state bit for
 bit) and the train entry point, ``python -m repro_torch.launch.train --smoke
---device cpu`` for 3 steps.
+--device cpu`` for 3 steps, with ``--model-parallel 2 --ranks 4`` on a
+(2, 2) stacked mesh, and the ``train_lm`` example until its learning
+check, which 3 steps cannot pass.
 """
 import os
 import subprocess
@@ -141,11 +143,13 @@ def _train_loop(tmp, fail_at):
     from repro_torch.configs import (ShapeConfig, TrainConfig,
                                      smoke_config)
     from repro_torch.data import make_batch_iterator
+    from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.launch.steps import make_train_cell
     from repro_torch.runtime import FaultTolerantLoop, StepFailure
 
     cfg = dataclasses.replace(smoke_config("gemma3-1b"), n_layers=2)
     cell = make_train_cell(cfg, ShapeConfig("t", 16, 2, "train"),
+                           make_local_mesh(device="cpu"),
                            TrainConfig(compute_dtype="float32",
                                        warmup_steps=2, total_steps=6,
                                        learning_rate=1e-2))
@@ -185,8 +189,8 @@ def test_fault_tolerant_loop_recovers_to_the_uninterrupted_run(tmp_path):
 def test_train_entry_point_runs_three_steps_on_the_cpu(tmp_path):
     """``python -m repro_torch.launch.train --smoke --device cpu``: three
     steps, a checkpoint at the end; a second run (in this process)
-    resumes from it; more than one rank raises naming the distributed
-    backend."""
+    resumes from it; a run across processes (``--coordinator``) raises
+    naming the distributed backend."""
     from repro_torch.launch import train
 
     args = ["--arch", "gemma3-1b", "--smoke", "--steps", "3", "--batch",
@@ -203,4 +207,45 @@ def test_train_entry_point_runs_three_steps_on_the_cpu(tmp_path):
     assert again["start"] == 3 and again["losses"] == []
     with pytest.raises(NotImplementedError, match="torch.distributed "
                        "backend"):
-        train.main(args + ["--model-parallel", "2"])
+        train.main(args + ["--coordinator", "localhost:1234"])
+
+
+def test_train_entry_point_across_ranks(tmp_path):
+    """``--model-parallel 2 --ranks 4``: two steps on a (2, 2) mesh, its
+    gathers and psums counted, a checkpoint of the whole trees, which a
+    one-rank run resumes from; ``--num-hosts 2`` is refused."""
+    from repro_torch.launch import train
+
+    args = ["--arch", "gemma3-1b", "--smoke", "--steps", "2", "--batch",
+            "4", "--seq-len", "16", "--device", "cpu", "--log-every", "1",
+            "--ckpt-dir", str(tmp_path / "ck")]
+    got = train.main(args + ["--model-parallel", "2", "--ranks", "4"])
+    mesh = got["mesh"]
+    assert mesh.shape == {"data": 2, "model": 2}
+    assert mesh.launches["psum"] > 0 and mesh.launches["all_gather"] > 0
+    assert len(got["losses"]) == 2 and all(np.isfinite(got["losses"]))
+    assert got["params"]["embed"].shape == (512, 128)
+    again = train.main(args)
+    assert again["start"] == 2 and again["losses"] == []
+    with pytest.raises(NotImplementedError, match="torch.distributed "
+                       "backend"):
+        train.main(args + ["--num-hosts", "2"])
+
+
+def test_train_lm_example_runs_to_its_check(tmp_path):
+    """``python -m repro_torch.examples.train_lm --device cpu --steps 3``
+    runs the whole path; 3 steps cannot pass its learning check, whose
+    own assertion is what ends it.  Without ``--device`` the example, as
+    ``make_local_mesh()``, takes the card, and raises where there is
+    none."""
+    from repro_torch.examples import train_lm
+    from repro_torch.launch.mesh import make_local_mesh
+
+    if not torch.cuda.is_available():
+        for entry in (lambda: train_lm.main(["--steps", "1"]),
+                      make_local_mesh):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                entry()
+    with pytest.raises(AssertionError, match="model failed to learn"):
+        train_lm.main(["--device", "cpu", "--steps", "3", "--batch", "2",
+                       "--seq-len", "32", "--ckpt-dir", str(tmp_path)])

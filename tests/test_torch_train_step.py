@@ -55,6 +55,7 @@ def test_train_step_with_microbatches_matches_reference():
     from repro.launch.steps import make_train_cell as jmake
     from repro_torch import convert
     from repro_torch.configs import ShapeConfig, TrainConfig, smoke_config
+    from repro_torch.launch.mesh import make_local_mesh as local_mesh
     from repro_torch.launch.steps import make_train_cell
 
     jmodel, jparams, _, params, batch = _setup("gemma3-1b")
@@ -77,7 +78,8 @@ def test_train_step_with_microbatches_matches_reference():
         jparams, jax.tree_util.tree_map(jnp.asarray, np_state), jbatch,
         jnp.int32(3))
     cell = make_train_cell(smoke_config("gemma3-1b"),
-                           ShapeConfig("t", S, B, "train"), TrainConfig(**kw))
+                           ShapeConfig("t", S, B, "train"),
+                           local_mesh(device="cpu"), TrainConfig(**kw))
     assert cell.n_micro == 2
     got_p, got_s, got_m = cell.step_fn(
         params, convert.params_from_numpy(np_state, "cpu"),
