@@ -313,7 +313,26 @@ non-zero (no phase catches an error and carries on):
     the float mean, its counted bytes against a float ``psum``'s;
 32. **the train_lm example** (``train_lm_phase``): ``python -m
     repro_torch.examples.train_lm --steps 200`` on the card in a fresh
-    process passes its learning check.
+    process passes its learning check;
+33. **the serve cells** (``serve_cells_phase``), bf16 at full width and
+    depth, ``attn_impl="kernel"``: gemma3-1b's prefill cell
+    (``make_prefill_cell``, 2 x ``PREFILL_LEN``) on (1, 1) ==
+    ``model.prefill(impl="kernel")`` bit for bit and on a (2, 2) stacked
+    mesh == the (1, 1) cell bit for bit; its decode cell at
+    ``SERVE_DECODE`` == ``model.decode_step`` bit for bit, step by step;
+    qwen2-moe-a2.7b's prefill cell on (2, 1) (MoE groups 2) ==
+    ``model.prefill(groups=2)`` under the MoE hold rule; whisper-small's
+    prefill and decode cells (``WHISPER_CELL``) == ``model.prefill`` /
+    ``model.decode_step`` bit for bit; ms per call, tokens/s and K2's
+    launches per cell (counts set to 0 just before each cell's run and
+    read just after); K2 at the cells' shapes against its plain version,
+    timed beside SDPA and the bound (kernel-table rows);
+34. **the dry-run audits** (``DryRuns``): ``dryrun.run_cell`` on the
+    ``meta`` device for gemma3-1b and qwen2-moe-a2.7b x {``train_4k``,
+    ``prefill_32k``, ``decode_32k``} on pod16x16 (256 stacked ranks), in
+    child processes started before phase 22 (``DRYRUN_CELLS``; the train
+    cells at a cut depth); each record's status, per-rank GB, wire GB
+    and dominant roofline term; any record that is not ``ok`` fails.
 
 In phases 4, 15, 17 and 18 every span is also launched by K1's launcher
 and by Triton's launch path on the same feeds, equal bit for bit.
@@ -4672,6 +4691,435 @@ def train_lm_phase(torch, card):
           f"its learning check; {secs:.1f} s in a fresh process on {card}")
 
 
+# ---------------------------------------------------------------------------
+# The serve cells and the dry-run audits
+# ---------------------------------------------------------------------------
+
+#: phase 33: gemma3-1b's prefill cell (2 x PREFILL_LEN) on these meshes
+SERVE_CELL_MESHES = ((1, 1), (2, 2))
+#: phase 33: gemma3-1b's decode cell: its batch (caches of PREFILL_LEN
+#: slots), the prompt each row holds first, and its steps
+SERVE_DECODE = dict(batch=8, prompt=64, steps=8)
+#: phase 33: whisper-small's cells: batch, prompt, the decode cell's
+#: cache length (the decoder's context) and its steps
+WHISPER_CELL = dict(batch=4, prompt=64, cache_len=448, steps=4)
+#: phase 34: the dry-run cells, (arch, shape, layers: None = full depth)
+#: per child process.  A train cell on pod16x16 runs one forward and
+#: backward pass a data rank and microbatch on ``meta`` (16 x 8 at full
+#: depth, ~10 s each on the host): its depth is cut, which also takes its
+#: microbatches to 1
+DRYRUN_CELLS = (
+    (("gemma3-1b", "prefill_32k", None), ("gemma3-1b", "decode_32k", None),
+     ("gemma3-1b", "train_4k", 2)),
+    (("qwen2-moe-a2.7b", "prefill_32k", None),),
+    (("qwen2-moe-a2.7b", "decode_32k", None),
+     ("qwen2-moe-a2.7b", "train_4k", 1)),
+)
+
+
+def serve_cell(kind, cfg, batch, seq_len, mesh_shape, dev, **kw):
+    """A serve cell of ``cfg`` at (``batch``, ``seq_len``) on a stacked
+    (data, model) mesh on ``dev``."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import make_cell
+
+    mesh = make_local_mesh(mesh_shape[1], ranks=mesh_shape[0] * mesh_shape[1],
+                           device=dev)
+    return make_cell(cfg, ShapeConfig(kind, seq_len, batch, kind), mesh,
+                     attn_impl="kernel", **kw)
+
+
+def run_cell(torch, cell, p, args):
+    """One step of a serve cell on its stored parameters ``p``: (logits,
+    the whole caches), the caches gathered back."""
+    from repro_torch.launch.steps import map_specs
+
+    logits, caches = cell.step_fn(p, *args)
+    return logits, map_specs(cell.mesh.unshard, caches, cell.state_specs)
+
+
+def same_bits(torch, got, want, label):
+    """Two trees of tensors equal bit for bit (NaN nowhere)."""
+    from repro_torch.pytree import tree_leaves
+
+    gl, wl = tree_leaves(got), tree_leaves(want)
+    if len(gl) != len(wl):
+        raise AssertionError(f"{label}: {len(gl)} leaves, want {len(wl)}")
+    for g, w in zip(gl, wl):
+        if g.shape != w.shape or g.dtype != w.dtype or not torch.equal(g, w):
+            diff = ((g.float() - w.float()).abs().max().item()
+                    if g.shape == w.shape else None)
+            raise AssertionError(f"{label}: not equal bit for bit (shape "
+                                 f"{tuple(g.shape)} vs {tuple(w.shape)}, "
+                                 f"max abs diff {diff})")
+        if g.is_floating_point() and not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{label}: not finite")
+
+
+def k2_launch_count(fa, fn):
+    """``fn()`` with K2's counts set to 0 just before and read just
+    after: (its result, K2 launches by window)."""
+    fa.LAUNCHES.clear()
+    out = fn()
+    return out, dict(fa.LAUNCHES)
+
+
+def serve_gemma_cells(torch, dev, card):
+    """Phase 33(a)-(b): gemma3-1b's prefill cell (bf16, 2 x PREFILL_LEN,
+    ``attn_impl="kernel"``) on (1, 1) == ``model.prefill(impl="kernel")``
+    bit for bit, on (2, 2) == (1, 1) bit for bit; its decode cell at
+    ``SERVE_DECODE`` == ``model.decode_step`` step by step, bit for bit.
+    Returns K2's launches by window in the (1, 1) prefill cell."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import build_model
+
+    cfg, bf16 = model_config(), torch.bfloat16
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params, _ = model.init(gen, dtype=bf16)
+    tokens = torch.randint(1, cfg.vocab_size, (2, PREFILL_LEN), generator=gen,
+                           device=dev, dtype=torch.int32)
+    want_k2 = collections.Counter(
+        cfg.sliding_window if cfg.attn_kind(i) == "local" else None
+        for i in range(cfg.n_layers))
+    direct = model.prefill(params, {"tokens": tokens}, model.init_cache(
+        2, PREFILL_LEN, dtype=bf16, device=dev), impl="kernel",
+        compute_dtype=bf16)
+    outs, k2 = {}, None
+    for shape in SERVE_CELL_MESHES:
+        cell = serve_cell("prefill", cfg, 2, PREFILL_LEN, shape, dev)
+        p, c = cell.place(params)
+        cell.mesh.reset_counters()
+        outs[shape], launches = k2_launch_count(
+            fa, lambda: run_cell(torch, cell, p, ({"tokens": tokens}, c)))
+        torch.cuda.synchronize()
+        if launches != want_k2:
+            raise AssertionError(f"prefill cell {shape}: K2 launched "
+                                 f"{launches} by window, want {want_k2}")
+        k2 = k2 or launches
+        gathers = (cell.mesh.launches["all_gather"],
+                   cell.mesh.bytes["all_gather"])
+        same_bits(torch, outs[shape], direct if shape == (1, 1)
+                  else outs[(1, 1)], f"gemma3-1b prefill cell {shape}")
+        ms = cuda_ms(torch, lambda: cell.step_fn(p, {"tokens": tokens}, c),
+                     reps=3, inner=1, warmup=1)
+        print(f"serve cell {cfg.name} prefill on {shape}: == "
+              + ("model.prefill(impl='kernel')" if shape == (1, 1)
+                 else "the (1, 1) cell")
+              + f" bit for bit (logits and caches); {ms:.2f} ms for 2 x "
+              f"{PREFILL_LEN} tokens, {2 * PREFILL_LEN / ms * 1e3:.0f} "
+              f"tokens/s; K2 launches {sum(launches.values())} "
+              f"{launches}; counted all_gathers {gathers[0]} "
+              f"({gathers[1]} B) on {card}")
+        del p, c, cell
+    del outs, direct
+    # the decode cell: rows that hold a prompt of SERVE_DECODE["prompt"]
+    b, n = SERVE_DECODE["batch"], SERVE_DECODE["prompt"]
+    prompt = torch.randint(1, cfg.vocab_size, (b, n), generator=gen,
+                           device=dev, dtype=torch.int32)
+    _, caches = model.prefill(params, {"tokens": prompt}, model.init_cache(
+        b, PREFILL_LEN, dtype=bf16, device=dev), impl="kernel",
+        compute_dtype=bf16)
+    cell = serve_cell("decode", cfg, b, PREFILL_LEN, (1, 1), dev)
+    p, c = cell.place(params, caches)
+    want_c, times, k2_dec = caches, [], 0
+    for step in range(SERVE_DECODE["steps"]):
+        tok = torch.randint(1, cfg.vocab_size, (b,), generator=gen,
+                            device=dev, dtype=torch.int32)
+        pos = torch.full((b,), n + step, device=dev, dtype=torch.int32)
+        want = model.decode_step(params, want_c, tok, pos, impl="kernel",
+                                 compute_dtype=bf16)
+        want_c = want[1]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (logits, c), launches = k2_launch_count(
+            fa, lambda: cell.step_fn(p, c, tok, pos))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        k2_dec += sum(launches.values())
+        same_bits(torch, (logits, c), want,
+                  f"gemma3-1b decode cell step {step}")
+    ms = statistics.median(times)
+    print(f"serve cell {cfg.name} decode on (1, 1): {SERVE_DECODE['steps']} "
+          f"steps at batch {b}, caches of {PREFILL_LEN}, == "
+          f"model.decode_step bit for bit (logits and caches) each step; "
+          f"{ms:.2f} ms a step (median), {b / ms * 1e3:.0f} tokens/s; K2 "
+          f"launches {k2_dec} (decoder self-attention at decode is "
+          f"attention_decode, as the reference's) on {card}")
+    del model, params, caches, want_c, p, c, cell
+    torch.cuda.empty_cache()
+    return k2
+
+
+def serve_moe_cell(torch, dev, card):
+    """Phase 33(c): qwen2-moe-a2.7b's prefill cell on (2, 1) (MoE groups
+    2) == ``model.prefill(groups=2, impl="kernel")``, bf16, under the MoE
+    hold rule of ``moe_prefill`` (the tokens whose routing agrees, at
+    ``PREFILL_TOL_BF16``; every token where none differs).  Returns K2's
+    launches in the cell."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import build_model, moe
+
+    cfg, bf16 = moe_config(), torch.bfloat16
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params, _ = model.init(gen, dtype=bf16)
+    tokens = torch.randint(1, cfg.vocab_size, (2, PREFILL_LEN), generator=gen,
+                           device=dev, dtype=torch.int32)
+    torch.cuda.synchronize()
+    print(f"serve cell {cfg.name}: built on the card in "
+          f"{time.perf_counter() - t0:.2f} s (bfloat16, seed 0)")
+    want, r_want = routed(moe, lambda: model.prefill(
+        params, {"tokens": tokens}, model.init_cache(
+            2, PREFILL_LEN, dtype=bf16, device=dev), impl="kernel",
+        compute_dtype=bf16, groups=2))
+    cell = serve_cell("prefill", cfg, 2, PREFILL_LEN, (2, 1), dev)
+    p, c = cell.place(params)
+    del params                      # the blocks and a gathered copy fit
+    torch.cuda.empty_cache()
+    (got, r_got), launches = k2_launch_count(fa, lambda: routed(
+        moe, lambda: run_cell(torch, cell, p, ({"tokens": tokens}, c))))
+    torch.cuda.synchronize()
+    if launches != {None: cfg.n_layers}:
+        raise AssertionError(f"MoE prefill cell: K2 launched {launches}, "
+                             f"want {cfg.n_layers} (global)")
+    share, ok, drops = route_agreement(torch, r_got, r_want)
+    held = None if share == 0.0 else ok.view(2, PREFILL_LEN)
+    worst = hold_prefill(torch, got, want, PREFILL_TOL_BF16,
+                         "MoE prefill cell (2, 1) != model.prefill(groups=2)",
+                         tokens=held)
+    del got, want
+    ms = cuda_ms(torch, lambda: cell.step_fn(p, {"tokens": tokens}, c),
+                 reps=3, inner=1, warmup=1)
+    print(f"serve cell {cfg.name} prefill on (2, 1) (MoE groups 2) == "
+          f"model.prefill(groups=2) on "
+          + ("every token" if held is None else
+             f"the {int(held.sum())} tokens whose routing agrees")
+          + f" (rtol={PREFILL_TOL_BF16}, atol={PREFILL_TOL_BF16} x "
+          f"max|value|; worst err / scale {worst[0]:.3e} in {worst[1]}); "
+          f"(token, layer) expert sets that differ {share:.3e}, dropped "
+          f"{drops[0]:.3e}; {ms:.2f} ms for 2 x {PREFILL_LEN} tokens, "
+          f"{2 * PREFILL_LEN / ms * 1e3:.0f} tokens/s; K2 launches "
+          f"{launches[None]} on {card}")
+    del p, c, cell, model
+    torch.cuda.empty_cache()
+    return launches[None]
+
+
+def serve_whisper_cells(torch, dev, card):
+    """Phase 33(d): whisper-small's prefill cell (``WHISPER_CELL`` batch of
+    1500 frames and a prompt) == ``model.prefill(impl="kernel")`` and its
+    decode cell, from a prompt prefilled into ``cache_len`` slots, ==
+    ``model.decode_step`` step by step, bit for bit, bf16 on (1, 1).
+    Returns K2's launches (prefill cell, one decode cell step)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import build_model
+
+    cfg, bf16 = whisper_config(), torch.bfloat16
+    b, n = WHISPER_CELL["batch"], WHISPER_CELL["prompt"]
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params, _ = model.init(gen, dtype=bf16)
+    batch = {"frames": torch.randn((b, cfg.encoder.n_frames, cfg.d_model),
+                                   generator=gen, device=dev),
+             "tokens": torch.randint(1, cfg.vocab_size, (b, n), generator=gen,
+                                     device=dev, dtype=torch.int32)}
+
+    def direct(cache_len):
+        return model.prefill(params, batch, model.init_cache(
+            b, cache_len, dtype=bf16, device=dev), impl="kernel",
+            compute_dtype=bf16)
+
+    cell = serve_cell("prefill", cfg, b, n, (1, 1), dev)
+    p, c = cell.place(params)
+    got, k2_pre = k2_launch_count(fa, lambda: run_cell(torch, cell, p,
+                                                       (batch, c)))
+    same_bits(torch, got, direct(n), "whisper prefill cell")
+    ms_pre = cuda_ms(torch, lambda: cell.step_fn(p, batch, c), reps=3,
+                     inner=1, warmup=1)
+    cell = serve_cell("decode", cfg, b, WHISPER_CELL["cache_len"], (1, 1),
+                      dev)
+    want_c = direct(WHISPER_CELL["cache_len"])[1]
+    p, c = cell.place(params, want_c)
+    times, k2_dec = [], []
+    for step in range(WHISPER_CELL["steps"]):
+        tok = torch.randint(1, cfg.vocab_size, (b,), generator=gen,
+                            device=dev, dtype=torch.int32)
+        pos = torch.full((b,), n + step, device=dev, dtype=torch.int32)
+        want = model.decode_step(params, want_c, tok, pos, impl="kernel",
+                                 compute_dtype=bf16)
+        want_c = want[1]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (logits, c), launches = k2_launch_count(
+            fa, lambda: cell.step_fn(p, c, tok, pos))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        k2_dec.append(sum(launches.values()))
+        same_bits(torch, (logits, c), want, f"whisper decode cell step {step}")
+    ms_dec = statistics.median(times)
+    n_pre = sum(k2_pre.values())
+    if (n_pre != cfg.encoder.n_layers + 2 * cfg.n_layers
+            or set(k2_dec) != {cfg.n_layers}):
+        raise AssertionError(f"whisper cells: K2 launched {n_pre} per "
+                             f"prefill, {k2_dec} per decode step")
+    print(f"serve cell {cfg.name} on (1, 1): prefill of {b} x "
+          f"{cfg.encoder.n_frames} frames and {n} tokens == model.prefill "
+          f"bit for bit, {ms_pre:.2f} ms; decode from {n} tokens in "
+          f"{WHISPER_CELL['cache_len']} slots == model.decode_step bit for "
+          f"bit for {WHISPER_CELL['steps']} steps, {ms_dec:.2f} ms a step, "
+          f"{b / ms_dec * 1e3:.0f} tokens/s; K2 launches {n_pre} a prefill, "
+          f"{k2_dec[0]} a decode step on {card}")
+    del model, params, p, c, cell, want_c
+    torch.cuda.empty_cache()
+    return n_pre, k2_dec[0]
+
+
+def serve_k2_row(torch, dev, card, name, shape, causal, window, launches):
+    """A kernel-table row of K2 at a serve cell's shape (b, h, kv, sq, sk,
+    hd), bf16: against its plain version (phase 6's checks), timed beside
+    the plain version, SDPA and the bound."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = k2_inputs(torch, dev, *shape, torch.bfloat16, 33)
+    err, _ = check_k2(torch, fa, q, k, v, causal, window, 1e-2,
+                      f"serve {name}")
+    ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, causal=causal,
+                                                   window=window))
+    plain_ms = cuda_ms(torch, lambda: fa.flash_attention_plain(
+        q, k, v, causal=causal, window=window), reps=3, inner=3)
+    lib = (sdpa_call(torch, q, k, v, window) if causal else
+           lambda: torch.nn.functional.scaled_dot_product_attention(
+               q, k, v, enable_gqa=True))
+    library_ms = cuda_ms(torch, lib, reps=3, inner=5)
+    bound_s, bound_by, flops, nbytes, _ = k2_bound(
+        torch, *shape, window, torch.bfloat16, causal=causal)
+    print(f"K2 serve cell {name} {shape} bfloat16: kernel == plain "
+          f"(max_abs_err {err:.3e}); launches {launches}; kernel {ms:.4f} "
+          f"ms, plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound "
+          f"{bound_s * 1e3:.4f} ms ({bound_by}) on {card}")
+    del q, k, v
+    return {"name": f"flash_attention[serve cell {name} bfloat16]",
+            "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
+def serve_cells_phase(torch, dev, card):
+    """Phase 33: the serve cells on the card at full width, bf16, K2 from
+    their prefills; returns the kernel-table rows (K2 at the cells'
+    shapes, with the cells' launches)."""
+    k2 = serve_gemma_cells(torch, dev, card)
+    n_moe = serve_moe_cell(torch, dev, card)
+    n_whisper, _ = serve_whisper_cells(torch, dev, card)
+    mcfg, wcfg = moe_config(), whisper_config()
+    rows = [serve_k2_row(torch, dev, card, f"{ARCH} {label} 2x{PREFILL_LEN}",
+                         gemma_shape(2), True, window, k2.get(window, 0))
+            for label, window in gemma_windows()]
+    rows.append(serve_k2_row(
+        torch, dev, card, f"{MOE_ARCH} 2x{PREFILL_LEN} (2, 1)",
+        (2, mcfg.n_heads, mcfg.n_kv_heads, PREFILL_LEN, PREFILL_LEN,
+         mcfg.head_dim), True, None, n_moe))
+    f = wcfg.encoder.n_frames
+    rows.append(serve_k2_row(
+        torch, dev, card, f"{ENCDEC_ARCH} encoder {WHISPER_CELL['batch']}x{f}",
+        (WHISPER_CELL["batch"], wcfg.n_heads, wcfg.n_kv_heads, f, f,
+         wcfg.head_dim), False, None, n_whisper))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def dryrun_child(out_dir: str, cells) -> None:
+    """Phase 34's cells in a fresh process (``python3 -c "import
+    chip_smoke as c; c.dryrun_child(...)"``): ``dryrun.run_cell`` of each
+    on pod16x16, on ``meta``; the records land in ``out_dir``."""
+    import os
+
+    os.nice(10)         # the card's phases come first on the host's cores
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.launch import dryrun
+
+    for arch, shape, layers in cells:
+        dryrun.run_cell(arch, shape, False, out_dir, force=True,
+                        layers=layers)
+
+
+class DryRuns:
+    """Phase 34's child processes, started before the MoE phases (they
+    run on the host's cores while the card works) and stopped at exit,
+    whatever ends the run."""
+
+    def __init__(self):
+        import atexit
+        import tempfile
+
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+        here = Path(__file__).resolve().parent
+        self.procs = [subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke as c; "
+             f"c.dryrun_child({self.dir!r}, {list(cells)!r})"], cwd=here,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for cells in DRYRUN_CELLS]
+        self.t0 = time.perf_counter()
+        atexit.register(self.stop)
+
+    def stop(self):
+        import shutil
+
+        for proc in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+    def phase(self, card):
+        """Phase 34: wait for the children, then each record's status,
+        per-rank GB, wire GB and dominant term; fails on any record that
+        is not ``ok`` and on a child that failed."""
+        for proc in self.procs:
+            out = proc.communicate(timeout=600)[0]
+            if proc.returncode != 0:
+                raise AssertionError(f"dry-run child failed "
+                                     f"({proc.returncode}): {out[-2000:]}")
+        waited = time.perf_counter() - self.t0
+        bad = []
+        for cells in DRYRUN_CELLS:
+            for arch, shape, layers in cells:
+                cid = f"{arch}__{shape}__pod16x16" + (
+                    f"__{layers}L" if layers is not None else "")
+                with open(Path(self.dir) / f"{cid}.json") as f:
+                    rec = json.load(f)
+                if rec["status"] != "ok":
+                    bad.append(f"{cid}: {rec['status']} "
+                               f"{rec.get('error', '')}")
+                    print(f"dry run {cid}: {rec['status']} "
+                          f"{rec.get('traceback', '')[-1500:]}")
+                    continue
+                m, s, r = rec["memory"], rec["step"], rec["roofline"]
+                groups = {k: round(v / 1e9, 3)
+                          for k, v in m["argument_bytes_by_group"].items()}
+                print(f"dry run {cid} ({rec['n_layers']} layers, "
+                      f"{rec['devices']} ranks on meta): ok; per-rank "
+                      f"argument {m['argument_bytes'] / 1e9:.3f} GB "
+                      f"{groups}, wire {s['wire_bytes'] / 1e9:.3f} GB a rank "
+                      f"({s['n_collectives']} collectives), "
+                      f"{s['dot_flops']:.4g} FLOPs; roofline compute "
+                      f"{r['compute_s']:.4g} s, memory {r['memory_s']:.4g} "
+                      f"s, collective {r['collective_s']:.4g} s: "
+                      f"{r['dominant']}; fits 80 GB {r['fits_80gb']}; "
+                      f"lowered in {rec['lower_s']} s (constants: H100 "
+                      f"SXM5 datasheet; this card {card})")
+        print(f"dry run: {sum(len(c) for c in DRYRUN_CELLS)} cells in "
+              f"{len(self.procs)} processes beside the card's phases, "
+              f"{waited:.1f} s after they started")
+        self.stop()
+        if bad:
+            raise AssertionError("dry run: " + "; ".join(bad))
+
+
 def main(device: str = "cuda") -> int:
     sys.stdout.reconfigure(line_buffering=True)
     torch = _setup()
@@ -4686,6 +5134,7 @@ def main(device: str = "cuda") -> int:
     # nvcc runs while K1 builds and runs
     k2_build = BuildThread(fa.build)
     k3_build = BuildThread(ssd.build)
+    elapsed = Elapsed()
     dev = torch.device(device)
     card = card_line()
     print(f"card: {card}")
@@ -4713,7 +5162,7 @@ def main(device: str = "cuda") -> int:
               f"span kernel(s) generated and built in "
               f"{time.perf_counter() - t0:.2f} s ({paths})")
 
-    # -- programs: the main path, both lowerings, against the reference ----
+    elapsed.mark("programs: the main path, both lowerings")
     launches = {}
     for name, (blocks, env, _, _) in programs.items():
         ref = run_blocks([p for p, _ in blocks], env)
@@ -4740,7 +5189,7 @@ def main(device: str = "cuda") -> int:
               f"(rtol=atol=1e-4); span launches={launches[name]} "
               f"(planned {planned}); outputs {shapes}")
 
-    # -- kernel vs plain ----------------------------------------------------
+    elapsed.mark("kernel vs plain")
     fam_mesh = {1: omp.make_mesh((4,), ("data",), device=dev),
                 2: omp.make_mesh((2, 2), ("i", "j"), device=dev)}
     for prog, env in families(omp, torch, dev):
@@ -4761,7 +5210,7 @@ def main(device: str = "cuda") -> int:
                 meshes[name], shard, f"program {name}/{prog.name}"))
             env = comp(env)
 
-    # -- times ----------------------------------------------------------------
+    elapsed.mark("times")
     rows = []
     for name, (blocks, env, _, _) in programs.items():
         ms = plain_ms = bound_s = 0.0
@@ -4816,7 +5265,7 @@ def main(device: str = "cuda") -> int:
               f"{run_ms['kernel']:.4f} ms, collective "
               f"{run_ms['collective']:.4f} ms on {card}")
 
-    # -- K2, gemma3-1b prefill and serving -----------------------------------
+    elapsed.mark("K2, gemma3-1b prefill and serving")
     print_build("K2", fa, k2_build)
     errs = k2_phase(torch, dev, card)
     model, params, k2_launches = prefill_phase(torch, dev, card)
@@ -4825,7 +5274,7 @@ def main(device: str = "cuda") -> int:
     torch.cuda.empty_cache()
     rows += k2_times(torch, dev, card, errs, k2_launches)
 
-    # -- K3, mamba2-130m prefill and serving ---------------------------------
+    elapsed.mark("K3, mamba2-130m prefill and serving")
     print_build("K3", ssd, k3_build)
     errs = k3_phase(torch, dev)
     model, params, k3_launches = ssm_prefill_phase(torch, dev, card)
@@ -4834,48 +5283,69 @@ def main(device: str = "cuda") -> int:
     torch.cuda.empty_cache()
     rows += k3_times(torch, dev, card, errs, k3_launches)
 
-    # -- regions: whole programs, fused / staged / kernel --------------------
+    elapsed.mark("regions: whole programs, fused / staged / kernel")
     rows += region_phase(torch, dev, card)
 
-    # -- PolyBench linear algebra: K1's products on tl.dot -------------------
+    elapsed.mark("PolyBench linear algebra: K1's products on tl.dot")
     rows += polybench_phase(torch, dev, card)
 
-    # -- repairs: K1's scans and rolls, K2 past head_dim 256 -----------------
+    elapsed.mark("repairs: K1's scans and rolls, K2 past head_dim 256")
     rows += repair_phase(torch, dev, card)
     rows += k2_wide_phase(torch, dev, card)
 
-    # -- master/worker (paper Fig. 1b) and the runtime -----------------------
+    elapsed.mark("master/worker (paper Fig. 1b) and the runtime")
     master_worker_phase(torch, dev, card)
     rows += runtime_phase(torch, dev, card)
 
-    # -- the persistent compile store across processes ----------------------
+    elapsed.mark("the persistent compile store across processes")
     torch.cuda.empty_cache()
     aot_phase(torch, card)
 
-    # -- MoE and hybrid: qwen2-moe-a2.7b at full width, jamba and arctic -----
+    # phase 34's cells, in child processes from here on: the phases left
+    # keep the card busy and the host's cores mostly free (earlier, the
+    # children slowed K1's Triton compiles and nvcc's builds)
+    dry = DryRuns()
+    elapsed.mark("MoE and hybrid: qwen2-moe-a2.7b, jamba and arctic")
     rows += moe_phase(torch, dev, card)
     moe_smoke_phase(torch, dev, card)
 
-    # -- the encoder-decoder family: whisper-small, K2 without a mask ------
+    elapsed.mark("the encoder-decoder family: whisper-small")
     launches, prompt_len = whisper_phase(torch, dev, card)
     rows += whisper_k2_rows(torch, dev, card, launches, prompt_len)
 
-    # -- training on one card -----------------------------------------------
+    elapsed.mark("training on one card")
     train_phase(torch, dev, card)
 
-    # -- training across ranks, MoE groups, GPipe, the int8 all-reduce -----
+    elapsed.mark("training across ranks, GPipe, the int8 all-reduce")
     mesh_train_phase(torch, dev, card)
     moe_mesh_phase(torch, dev, card)
     rows += gpipe_phase(torch, dev, card)
     allreduce_phase(torch, dev, card)
     train_lm_phase(torch, card)
 
+    elapsed.mark("the serve cells on the card")
+    rows += serve_cells_phase(torch, dev, card)
+    elapsed.mark("the dry-run audits on meta")
+    dry.phase(card)
+
+    elapsed.mark("done")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+class Elapsed:
+    """Prints the seconds since the run began beside each section's
+    name, so that a run's time can be read section by section."""
+
+    def __init__(self):
+        self.t0 = time.perf_counter()
+
+    def mark(self, label: str) -> None:
+        print(f"[{time.perf_counter() - self.t0:.1f} s] {label}")
 
 
 class BuildThread(threading.Thread):

@@ -1,5 +1,6 @@
-"""The train step over a mesh — counterpart of
-:func:`repro.launch.steps.make_train_cell`, on the stacked-rank mesh
+"""Step builders over a mesh — counterpart of :mod:`repro.launch.steps`
+(``make_train_cell``, ``make_prefill_cell``, ``make_decode_cell``,
+``make_cell``, ``lower_cell``), on the stacked-rank mesh
 (:class:`repro_torch.mesh.Mesh`: every rank on one device).
 
 The plan is the tensor planner's (:func:`repro_torch.core.tensor_plan.
@@ -47,6 +48,26 @@ partitioner, and PyTorch on one device has no counterpart to it.  A
 of collectives: the mesh's counted bytes are those of the gathers and
 psums, not the reference's HLO collectives.  Runs across processes need
 the ``torch.distributed`` backend (:data:`DISTRIBUTED`).
+
+**The serve cells** (``make_prefill_cell``, ``make_decode_cell``) lay
+out the serve plan (:func:`_serve_plan`): bf16 inference parameters and
+bf16 caches are stored as per-rank blocks where their specs shard them
+and gathered (counted) before use, the new caches cut back to the
+blocks.  Prefill and decode are row by row apart from the MoE dispatch,
+whose groups are the data ranks' contiguous rows, so the step runs every
+rank's rows in one call over the global batch: each data rank's part of
+it is that rank's prefill or decode.  The reference's ``donate`` (buffer
+donation to XLA) has no counterpart: the step returns new caches and
+leaves the caller's as they were.
+
+**Lowering** (:func:`lower_cell`) runs a cell's step once on its
+``args``, which are ``meta`` tensors: shapes and dtypes only, nothing
+allocated and no kernel run, as the reference's AOT lowering touches no
+device memory.  Its record (:class:`Lowered`) holds what the reference
+reads off XLA's compiled module, as far as the port has it: the outputs'
+shapes, the per-rank argument bytes, the products' FLOPs and the mesh's
+collectives.  It is not an XLA ``Lowered``: there is no HLO, no
+compiler and no temporary-buffer size.
 """
 from __future__ import annotations
 
@@ -56,7 +77,8 @@ from typing import Any
 
 import torch
 
-from repro_torch.configs import ModelConfig, ShapeConfig, TrainConfig
+from repro_torch.configs import (ModelConfig, ShapeConfig, TrainConfig,
+                                 recommended_train_config)
 from repro_torch.core import tensor_plan as tp
 from repro_torch.models import build_model
 from repro_torch.optim import (clip_by_global_norm, cosine_warmup,
@@ -92,37 +114,65 @@ def map_specs(fn, tree, specs):
     return fn(tree, specs)
 
 
+#: per cell kind: the group of each step argument (:class:`Lowered`)
+ARG_GROUPS = {"train": ("params", "opt_state", "batch", "batch"),
+              "prefill": ("params", "batch", "caches"),
+              "decode": ("params", "caches", "batch", "batch")}
+#: per cell kind: the step argument :meth:`CellSpec.place` lays out
+#: beside the parameters (the optimizer state or the caches)
+_STATE_ARG = {"train": 1, "prefill": 2, "decode": 1}
+
+
 @dataclasses.dataclass
 class CellSpec:
-    """A train step over a mesh, its model, optimizer and plan.
+    """One step over a mesh: its kind, model, plan and arguments.
 
-    ``step_fn(params, opt_state, batch, step)`` takes and returns the
-    parameters and optimizer state as stored on the mesh (per-rank blocks
-    where their spec shards them: :meth:`place` lays whole trees out so,
-    :meth:`gather` gathers them back) and the whole global batch."""
+    ``kind`` is ``"train"``, ``"prefill"`` or ``"decode"``, and
+    ``step_fn`` takes, in this order, ``(params, opt_state, batch,
+    step)``, ``(params, batch, caches)`` or ``(params, caches, tokens,
+    pos)``.  The parameters and the optimizer state or caches are taken
+    and returned as stored on the mesh (per-rank blocks where their spec
+    shards them: :meth:`place` lays whole trees out so, :meth:`gather`
+    gathers them back); the batch, tokens and positions are the whole
+    global ones.  ``args`` are the step's arguments as ``meta`` tensors
+    in that layout, the counterpart of the reference's
+    ``ShapeDtypeStruct`` tuple, and ``specs`` their spec trees.
+    ``init_state(params)`` is what :meth:`place` lays out when it is given
+    no state: the optimizer's initial state, or empty caches."""
 
+    kind: str
     mesh: Any
     plan: tp.TensorPlan
     step_fn: Any
     model: Any
-    optimizer: Any
-    n_micro: int
-    param_specs: Any
-    opt_specs: Any
+    args: tuple
+    specs: tuple
+    init_state: Any
+    optimizer: Any = None
+    n_micro: int = 1
 
-    def place(self, params, opt_state=None):
-        """(params, opt_state) as the step stores them: every leaf cut
-        into its per-rank blocks.  ``opt_state`` defaults to the
-        optimizer's initial state of ``params``."""
-        if opt_state is None:
-            opt_state = self.optimizer.init(params)
+    @property
+    def param_specs(self):
+        return self.specs[0]
+
+    @property
+    def state_specs(self):
+        """The specs of the optimizer state or of the caches."""
+        return self.specs[_STATE_ARG[self.kind]]
+
+    def place(self, params, state=None):
+        """(params, state) as the step stores them: every leaf cut into
+        its per-rank blocks.  ``state`` (the optimizer state, or the
+        caches) defaults to ``init_state(params)``."""
+        if state is None:
+            state = self.init_state(params)
         return (map_specs(self.mesh.shard, params, self.param_specs),
-                map_specs(self.mesh.shard, opt_state, self.opt_specs))
+                map_specs(self.mesh.shard, state, self.state_specs))
 
-    def gather(self, params, opt_state):
-        """The whole (params, opt_state) trees (counted gathers)."""
+    def gather(self, params, state):
+        """The whole (params, state) trees (counted gathers)."""
         return (map_specs(self.mesh.unshard, params, self.param_specs),
-                map_specs(self.mesh.unshard, opt_state, self.opt_specs))
+                map_specs(self.mesh.unshard, state, self.state_specs))
 
 
 def _dp_degree(mesh) -> int:
@@ -131,6 +181,37 @@ def _dp_degree(mesh) -> int:
         if a in mesh.axis_names:
             n *= mesh.shape[a]
     return n
+
+
+def _batch_fields(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """(field -> (shape, dtype)) of a training batch of this arch."""
+    b, s = shape.global_batch, shape.seq_len
+    fields = {"labels": ((b, s), torch.int32)}
+    if cfg.family == "encdec":
+        fields["frames"] = ((b, cfg.encoder.n_frames, cfg.d_model),
+                            torch.float32)
+        fields["tokens"] = ((b, s), torch.int32)
+    elif cfg.embedding_stub:
+        fields["embeds"] = ((b, s, cfg.d_model), torch.bfloat16)
+    else:
+        fields["tokens"] = ((b, s), torch.int32)
+    return fields
+
+
+_BATCH_AXES = {
+    "labels": (tp.BATCH, None),
+    "tokens": (tp.BATCH, None),
+    "frames": (tp.BATCH, None, None),
+    "embeds": (tp.BATCH, None, None),
+}
+
+
+def _meta_batch(plan, fields):
+    """(batch of ``meta`` tensors, its specs) of ``fields``."""
+    return ({k: torch.empty(sh, dtype=dt, device="meta")
+             for k, (sh, dt) in fields.items()},
+            {k: plan.spec(sh, _BATCH_AXES[k])
+             for k, (sh, _) in fields.items()})
 
 
 def moe_groups(groups: int, rows: int) -> int:
@@ -189,7 +270,8 @@ def make_train_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
     p_shapes, p_axes = param_shapes(model, getattr(torch,
                                                    train_cfg.param_dtype))
     param_specs = plan.tree_specs(p_shapes, p_axes)
-    opt_specs = plan.tree_specs(opt.init(p_shapes),
+    o_shapes = opt.init(p_shapes)
+    opt_specs = plan.tree_specs(o_shapes,
                                 opt_state_axes(train_cfg.optimizer, p_shapes,
                                                p_axes))
     b = shape.global_batch
@@ -290,5 +372,202 @@ def make_train_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
         return params, opt_state, dict(metrics, loss=loss, grad_norm=gnorm,
                                        lr=lr)
 
-    return CellSpec(mesh, plan, train_step, model, opt, n_micro,
-                    param_specs, opt_specs)
+    batch_args, batch_specs = _meta_batch(plan, _batch_fields(cfg, shape))
+    args = (map_specs(mesh.shard, p_shapes, param_specs),
+            map_specs(mesh.shard, o_shapes, opt_specs), batch_args,
+            torch.empty((), dtype=torch.int32, device="meta"))
+    return CellSpec("train", mesh, plan, train_step, model, args,
+                    (param_specs, opt_specs, batch_specs, tp.P()),
+                    opt.init, opt, n_micro)
+
+
+# ---------------------------------------------------------------------------
+# Serve steps
+# ---------------------------------------------------------------------------
+
+
+def _serve_plan(mesh, shape: ShapeConfig) -> tp.TensorPlan:
+    """The serve plan of ``shape`` on ``mesh``: the sequence sharded in
+    place of the batch when the global batch is smaller than the
+    data-parallel degree."""
+    shard_seq = shape.global_batch < _dp_degree(mesh)
+    return tp.make_serve_plan(mesh.axis_names, tuple(mesh.shape.values()),
+                              shard_seq=shard_seq, decode=shape.is_decode)
+
+
+def _cache_shapes(model, batch: int, cache_len: int):
+    """(bf16 caches on the ``meta`` device, their axes tree)."""
+    return (model.init_cache(batch, cache_len, dtype=torch.bfloat16,
+                             device="meta"), model.cache_axes())
+
+
+def _serve_cell(cfg, shape, mesh):
+    """The parts both serve cells share: (model, plan, MoE groups,
+    shard_fn, bf16 parameter shapes and specs, cache shapes and specs,
+    the empty caches of a parameter tree)."""
+    model = build_model(cfg)
+    plan = _serve_plan(mesh, shape)
+    dp = _dp_degree(mesh)
+    groups = 1 if shape.global_batch < dp else dp
+
+    def shard_act(x):
+        return plan.constrain(x, (tp.BATCH, None, None))
+
+    p_shapes, p_axes = param_shapes(model, torch.bfloat16)
+    c_shapes, c_axes = _cache_shapes(model, shape.global_batch,
+                                     shape.seq_len)
+
+    def empty_caches(params):
+        leaf = next(iter(flatten_with_paths(params)[1]))
+        return model.init_cache(shape.global_batch, shape.seq_len,
+                                dtype=torch.bfloat16, device=leaf.device)
+
+    return (model, plan, groups, shard_act, p_shapes,
+            plan.tree_specs(p_shapes, p_axes), c_shapes,
+            plan.tree_specs(c_shapes, c_axes), empty_caches)
+
+
+def make_prefill_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
+                      attn_impl="auto") -> CellSpec:
+    """The prefill step of ``cfg`` at ``shape`` over ``mesh``:
+    ``step_fn(params, batch, caches) -> (last-token logits, caches)``.
+
+    Parameters are bf16 (inference), stored as blocks where the serve
+    plan shards them and gathered before use; caches are bf16, laid out
+    by ``model.cache_axes()``, gathered, filled and cut back to their
+    blocks; the batch holds the fields of a training batch but
+    ``labels``.  MoE ``groups`` is the data-parallel degree, or 1 when
+    the batch is smaller than it; ``shard_fn`` constrains the residual
+    stream to ``(BATCH, None, None)``.  Compute is bf16."""
+    (model, plan, groups, shard_act, p_shapes, param_specs, c_shapes,
+     cache_specs, empty_caches) = _serve_cell(cfg, shape, mesh)
+    fields = _batch_fields(cfg, shape)
+    fields.pop("labels")
+    batch_args, batch_specs = _meta_batch(plan, fields)
+
+    def prefill_step(params, batch, caches):
+        logits, new = model.prefill(
+            map_specs(mesh.unshard, params, param_specs), batch,
+            map_specs(mesh.unshard, caches, cache_specs), impl=attn_impl,
+            compute_dtype=torch.bfloat16, groups=groups,
+            shard_fn=shard_act)
+        return logits, map_specs(mesh.shard, new, cache_specs)
+
+    args = (map_specs(mesh.shard, p_shapes, param_specs), batch_args,
+            map_specs(mesh.shard, c_shapes, cache_specs))
+    return CellSpec("prefill", mesh, plan, prefill_step, model, args,
+                    (param_specs, batch_specs, cache_specs), empty_caches)
+
+
+def make_decode_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
+                     attn_impl="auto") -> CellSpec:
+    """The decode step of ``cfg`` at ``shape`` over ``mesh``:
+    ``step_fn(params, caches, tokens, pos) -> (logits, caches)`` with
+    ``(B,)`` int32 tokens and positions; parameters, caches, groups and
+    ``shard_fn`` as :func:`make_prefill_cell` lays them out (the serve
+    plan's decode rules)."""
+    (model, plan, groups, shard_act, p_shapes, param_specs, c_shapes,
+     cache_specs, empty_caches) = _serve_cell(cfg, shape, mesh)
+    b = shape.global_batch
+    row_spec = plan.spec((b,), (tp.BATCH,))
+
+    def decode_step(params, caches, tokens, pos):
+        logits, new = model.decode_step(
+            map_specs(mesh.unshard, params, param_specs),
+            map_specs(mesh.unshard, caches, cache_specs), tokens, pos,
+            impl=attn_impl, groups=groups, compute_dtype=torch.bfloat16,
+            shard_fn=shard_act)
+        return logits, map_specs(mesh.shard, new, cache_specs)
+
+    rows = torch.empty((b,), dtype=torch.int32, device="meta")
+    args = (map_specs(mesh.shard, p_shapes, param_specs),
+            map_specs(mesh.shard, c_shapes, cache_specs), rows, rows)
+    return CellSpec("decode", mesh, plan, decode_step, model, args,
+                    (param_specs, cache_specs, row_spec, row_spec),
+                    empty_caches)
+
+
+def make_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
+              train_cfg: TrainConfig | None = None, **kw) -> CellSpec:
+    """The cell of ``shape.kind``; a train shape without ``train_cfg``
+    takes :func:`recommended_train_config`."""
+    if shape.kind == "train":
+        return make_train_cell(cfg, shape, mesh,
+                               train_cfg or recommended_train_config(cfg),
+                               **kw)
+    if shape.kind == "prefill":
+        return make_prefill_cell(cfg, shape, mesh, **kw)
+    return make_decode_cell(cfg, shape, mesh, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Lowering on the meta device
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class Lowered:
+    """What :func:`lower_cell` reads off one run of a cell's step on
+    ``meta`` tensors.
+
+    ``outputs``: (path, shape, dtype) of every output leaf.
+    ``arg_bytes``: one rank's argument bytes by group (:data:`ARG_GROUPS`:
+    params, opt_state, batch, caches), each leaf's bytes over the ranks
+    its spec shards it across.  ``flops``: the products' FLOPs
+    (``torch.utils.flop_counter``: matrix products and convolutions,
+    backward passes included) of the whole step, every rank's rows.
+    ``launches``/``bytes``: the mesh's counters by collective; ``calls``:
+    one ``(op, group size, one rank's payload bytes)`` per collective
+    (:attr:`repro_torch.mesh.Mesh.log`)."""
+
+    kind: str
+    outputs: list
+    arg_bytes: dict
+    flops: float
+    launches: dict
+    bytes: dict
+    calls: list
+
+    @property
+    def argument_bytes(self) -> int:
+        """One rank's argument bytes, every group."""
+        return sum(self.arg_bytes.values())
+
+
+def _rank_bytes(mesh, leaf, spec) -> int:
+    """One rank's bytes of a leaf laid out by ``spec`` (stored whole or
+    as blocks: its elements over the ranks the spec names)."""
+    k = math.prod(mesh.shape[a] for e in spec for a in tp.spec_axes(e))
+    return leaf.numel() * leaf.element_size() // k
+
+
+def lower_cell(cell: CellSpec) -> Lowered:
+    """Run ``cell.step_fn`` once on ``cell.args`` (``meta`` tensors: no
+    device memory is touched, no kernel runs) with the mesh's counters
+    reset, counting its products' FLOPs; returns the :class:`Lowered`
+    record.  A cell built on the card or the CPU lowers alike; one built
+    with ``attn_impl="kernel"`` raises, as K2 runs only on the card."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    mesh = cell.mesh
+    arg_bytes: dict = {}
+    for group, arg, spec in zip(ARG_GROUPS[cell.kind], cell.args,
+                                cell.specs):
+        per = []
+        map_specs(lambda leaf, sp: per.append(_rank_bytes(mesh, leaf, sp)),
+                  arg, spec)
+        arg_bytes[group] = arg_bytes.get(group, 0) + sum(per)
+    mesh.reset_counters()
+    mesh.log = calls = []
+    try:
+        with FlopCounterMode(display=False) as counter:
+            out = cell.step_fn(*cell.args)
+    finally:
+        mesh.log = None
+    names, leaves = flatten_with_paths(out)
+    return Lowered(
+        cell.kind,
+        [(n, tuple(x.shape), str(x.dtype).replace("torch.", ""))
+         for n, x in zip(names, leaves) if torch.is_tensor(x)],
+        arg_bytes, float(counter.get_total_flops()), dict(mesh.launches),
+        dict(mesh.bytes), calls)

@@ -33,7 +33,12 @@ counterpart of the reference's HLO collective audit: ``psum``,
 ``pmax``, ``pmin``, ``all_gather`` (the gathers of :meth:`Mesh.unshard`
 too), ``all_to_all`` and ``ppermute`` (the bytes its sending ranks put
 on the wire).  :meth:`Mesh.shard` moves nothing between ranks (each
-keeps its own block) and counts nothing.
+keeps its own block) and counts nothing.  While :attr:`Mesh.log` is a
+list, each collective also appends ``(op, group size, payload)``, the
+payload being one rank's bytes as the reference's HLO audit takes them
+(an all-reduce's operand, an all-gather's gathered result, an
+all-to-all's operand, a permute's sent value): what
+:mod:`repro_torch.launch.audit` prices on the wire.
 """
 from __future__ import annotations
 
@@ -82,6 +87,9 @@ class Mesh:
         self.device = device
         self.launches: collections.Counter = collections.Counter()
         self.bytes: collections.Counter = collections.Counter()
+        #: ``None``, or a list that every collective appends
+        #: ``(op, group size, one rank's payload bytes)`` to
+        self.log: list | None = None
         self._perms: dict = {}
 
     def __repr__(self) -> str:
@@ -109,9 +117,17 @@ class Mesh:
                                  f"{self.axis_names}")
         return names
 
-    def _count(self, op: str, x: torch.Tensor) -> None:
+    def _count(self, op: str, x: torch.Tensor, group: int,
+               payload: int | None = None) -> None:
+        """One launch of ``op`` over ``group`` ranks and ``x``'s bytes;
+        ``payload`` (one rank's bytes for :attr:`log`) defaults to
+        ``x``'s bytes over ``group``."""
+        nbytes = x.numel() * x.element_size()
         self.launches[op] += 1
-        self.bytes[op] += x.numel() * x.element_size()
+        self.bytes[op] += nbytes
+        if self.log is not None:
+            self.log.append((op, group, nbytes // group if payload is None
+                             else payload))
 
     def _check(self, x: torch.Tensor, names) -> None:
         lead = tuple(self.shape[a] for a in names)
@@ -127,7 +143,7 @@ class Mesh:
         bit for bit on every device."""
         names = self._axes(axis)
         self._check(x, names)
-        self._count("psum", x)
+        self._count("psum", x, math.prod(self.shape[a] for a in names))
         ranks = x.flatten(0, len(names) - 1) if len(names) > 1 else x
         out = ranks[0].clone()
         for r in range(1, ranks.shape[0]):
@@ -137,22 +153,28 @@ class Mesh:
     def pmax(self, x: torch.Tensor, axis) -> torch.Tensor:
         names = self._axes(axis)
         self._check(x, names)
-        self._count("pmax", x)
+        self._count("pmax", x, math.prod(self.shape[a] for a in names))
         return x.flatten(0, len(names) - 1).amax(dim=0)
 
     def pmin(self, x: torch.Tensor, axis) -> torch.Tensor:
         names = self._axes(axis)
         self._check(x, names)
-        self._count("pmin", x)
+        self._count("pmin", x, math.prod(self.shape[a] for a in names))
         return x.flatten(0, len(names) - 1).amin(dim=0)
 
-    def all_gather(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+    def all_gather(self, x: torch.Tensor, axis: str, *,
+                   payload: int | None = None) -> torch.Tensor:
         """Gather along ONE axis: every rank receives the stack of its
         axis peers' values.  In the stacked layout that stack already
-        leads ``x``; the launch and its bytes are what is recorded."""
+        leads ``x``; the launch and its bytes are what is recorded.
+        ``payload`` is one rank's gathered result in bytes for
+        :attr:`log` (default: ``x``'s bytes, the stack of one value a
+        rank)."""
         (name,) = self._axes(axis)
         self._check(x, (name,))
-        self._count("all_gather", x)
+        self._count("all_gather", x, self.shape[name],
+                    x.numel() * x.element_size() if payload is None
+                    else payload)
         return x
 
     def all_to_all(self, x: torch.Tensor, axis: str, split_axis: int,
@@ -170,7 +192,7 @@ class Mesh:
             raise ValueError(f"all_to_all over {name!r} (size {p}): split "
                              f"dim {split_axis} of {tuple(x.shape[1:])} "
                              "does not divide")
-        self._count("all_to_all", x)
+        self._count("all_to_all", x, p)
         y = x.unflatten(sa, (p, x.shape[sa] // p)).movedim(sa, 0)
         # (dst, src, ...): the source rank goes just before the concat dim
         return y.movedim(1, ca).flatten(ca, ca + 1)
@@ -214,8 +236,12 @@ class Mesh:
         for d, n in enumerate(block):
             e = spec[d] if d < len(spec) else None
             full.append(n * math.prod(self.shape[a] for a in spec_axes(e)))
+        # one rank's result after gathering the first i + 1 axes: its
+        # block times those axes' sizes
+        got = math.prod(block) * xs.element_size()
         for i, a in enumerate(names):
-            self.all_gather(xs.movedim(i, 0), a)
+            got *= self.shape[a]
+            self.all_gather(xs.movedim(i, 0), a, payload=got)
         split, perm, _ = self._layout(full, spec)
         inv = [0] * len(perm)
         for i, q in enumerate(perm):
@@ -240,8 +266,10 @@ class Mesh:
                     f"pair ({s}, {d}) in {list(perm)}")
             src[d] = s
         self.launches["ppermute"] += 1
-        self.bytes["ppermute"] += len(perm) * (x[0].numel()
-                                                * x.element_size())
+        sent = x[0].numel() * x.element_size()
+        self.bytes["ppermute"] += len(perm) * sent
+        if self.log is not None:
+            self.log.append(("ppermute", p, sent))
         idx, dst = self._perm_index(tuple(src))
         if dst is None:             # every rank receives: one gather
             return x.index_select(0, idx)

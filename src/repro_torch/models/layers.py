@@ -170,10 +170,15 @@ def attention_chunked(q, k, v, *, kind="causal", window=None,
     instead of O(Sq * Sk).  Padded keys carry position INT32_MAX (masked
     for every query); padded queries are dropped.  A sequence shorter
     than one block is one block of its own length (the reference pads it
-    to the block; padded rows and keys add exactly nothing)."""
+    to the block; padded rows and keys add exactly nothing).  On the
+    ``meta`` device (shapes only: a cell lowered by
+    :func:`repro_torch.launch.steps.lower_cell`) one block spans each
+    sequence: the same products, shapes and FLOPs in one pass."""
     b, sq, h, hd = q.shape
     _, sk, kv, _ = k.shape
     g = h // kv
+    if q.device.type == "meta":
+        block_q, block_kv = sq, sk
     q_positions = _default_positions(q_positions, b, sq, q.device)
     k_positions = _default_positions(k_positions, b, sk, q.device)
     block_kv = min(block_kv, sk)

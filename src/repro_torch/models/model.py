@@ -276,8 +276,11 @@ class DecoderLM:
         return axes
 
     def _with_cache(self, params, x, caches, positions, decode_pos, impl,
-                    groups=1):
+                    groups=1, shard_fn=None):
+        """Every layer with its cache; ``shard_fn`` after each slot block
+        (not the tail's), where the reference's period scan applies it."""
         cfg = self.cfg
+        sf = shard_fn or (lambda t: t)
         new: dict = {}
         for kind, p, key, per in self._layers(params):
             cache = caches[key] if per is None else _index(caches[key], per)
@@ -287,6 +290,7 @@ class DecoderLM:
             if per is None:
                 new[key] = nc
             else:
+                x = sf(x)
                 new.setdefault(key, []).append(nc)
         new = {k: v if isinstance(v, dict) else _stack_caches(v)
                for k, v in new.items()}
@@ -294,24 +298,30 @@ class DecoderLM:
         return x, new
 
     def prefill(self, params, batch, caches, *, impl="auto", groups=1,
-                compute_dtype=torch.bfloat16):
-        """Process a prompt, fill caches, return last-token logits."""
-        x = self._embed(params, batch).to(compute_dtype)
+                compute_dtype=torch.bfloat16, shard_fn=None):
+        """Process a prompt, fill caches, return last-token logits.
+        ``shard_fn`` is applied to the embedded prompt and after every
+        slot block, as in :meth:`forward`; None is the identity."""
+        sf = shard_fn or (lambda t: t)
+        x = sf(self._embed(params, batch).to(compute_dtype))
         b, s, _ = x.shape
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device).expand(b, s)
         x, new_caches = self._with_cache(params, x, caches, positions, None,
-                                         impl, groups)
+                                         impl, groups, shard_fn=shard_fn)
         logits = x[:, -1].float() @ self._head_matrix(params).float()
         return logits, new_caches
 
     def decode_step(self, params, caches, tokens, pos, *, impl="auto",
-                    groups=1, compute_dtype=torch.bfloat16):
-        """One decode step. tokens: (B,), pos: (B,) current positions."""
+                    groups=1, compute_dtype=torch.bfloat16, shard_fn=None):
+        """One decode step. tokens: (B,), pos: (B,) current positions.
+        ``shard_fn`` is applied after every slot block (not to the
+        embedded token, as in the reference)."""
         x = params["embed"][tokens.long()[:, None]].to(compute_dtype)
         pos = pos.to(torch.int32)
         x, new_caches = self._with_cache(params, x, caches, pos[:, None],
-                                         pos, impl, groups)
+                                         pos, impl, groups,
+                                         shard_fn=shard_fn)
         logits = x[:, 0].float() @ self._head_matrix(params).float()
         return logits, new_caches
 
@@ -465,33 +475,39 @@ class EncDecLM:
                 "cross_k": cross, "cross_v": cross}
 
     def prefill(self, params, batch, caches, *, impl="auto", groups=1,
-                compute_dtype=torch.bfloat16):
+                compute_dtype=torch.bfloat16, shard_fn=None):
         """Encode frames, precompute cross KV, prefill the decoder prompt;
         returns (last-token logits, caches).  ``groups`` as in
-        :meth:`loss_fn`."""
-        enc_h = self.encode(params, batch["frames"], impl=impl,
-                            compute_dtype=compute_dtype)
+        :meth:`loss_fn`; ``shard_fn`` is applied to the encoder's output,
+        to the embedded prompt and after every decoder block."""
+        sf = shard_fn or (lambda t: t)
+        enc_h = sf(self.encode(params, batch["frames"], impl=impl,
+                               compute_dtype=compute_dtype))
         ck, cv = self._cross_kv(params, enc_h)
         x, positions = self._tokens_in(params, batch["tokens"],
                                        compute_dtype)
-        x, new_self = self._decoder(params, x, positions, None,
-                                    caches["self"], (ck, cv), impl)
+        x, new_self = self._decoder(params, sf(x), positions, None,
+                                    caches["self"], (ck, cv), impl,
+                                    shard_fn=shard_fn)
         logits = x[:, -1].float() @ params["head"].float()
         return logits, {"self": new_self,
                         "cross_k": ck.to(caches["cross_k"].dtype),
                         "cross_v": cv.to(caches["cross_v"].dtype)}
 
     def decode_step(self, params, caches, tokens, pos, *, impl="auto",
-                    compute_dtype=torch.bfloat16):
+                    groups=1, compute_dtype=torch.bfloat16, shard_fn=None):
         """One decode step. tokens: (B,), pos: (B,) current positions.
         Cross-attention takes ``impl`` (K2 under "kernel"); the cached
-        self-attention always takes the materialised path."""
+        self-attention always takes the materialised path.  ``groups`` as
+        in :meth:`loss_fn`; ``shard_fn`` is applied after every decoder
+        block."""
         x = params["embed"][tokens.long()[:, None]].to(compute_dtype)
         pos = pos.to(torch.int32)
         enc_kv = (caches["cross_k"].to(compute_dtype),
                   caches["cross_v"].to(compute_dtype))
         x, new_self = self._decoder(params, x, pos[:, None], pos,
-                                    caches["self"], enc_kv, impl)
+                                    caches["self"], enc_kv, impl,
+                                    shard_fn=shard_fn)
         logits = x[:, 0].float() @ params["head"].float()
         return logits, {**caches, "self": new_self}
 

@@ -15,7 +15,12 @@ Held against the reference:
   the 2-D meshes 1x1/2x1/2x2/4x2;
 * ``lowering="kernel"`` against JAX ``lowering="pallas"`` (interpret
   mode) on the 1-device mesh, as ``test_differential_pallas_every_family``
-  runs it.
+  runs it, and random seeds through every lowering: in
+  ``tests/test_torch_differential_pallas.py``, which uses this file's
+  twins.
+
+The rank-2 block families on the 2-D meshes are in
+``tests/test_torch_differential_rank2.py``.
 """
 import random
 
@@ -24,7 +29,6 @@ import pytest
 import torch
 
 from tests import test_differential as jd
-from tests._hypothesis_compat import given, settings, strategies as st
 
 BLOCK_FAMILIES = ("map", "stencil", "strided", "reduce", "put", "combo")
 BLOCK_FAMILIES2 = ("rowreduce2", "matmul2")
@@ -245,29 +249,6 @@ def test_every_block_family_matches_jax_reference(family, p):
     check_case(make_case(1000 * p + j, family), mesh)
 
 
-@pytest.mark.parametrize("shape", [(1, 1), (2, 1), (2, 2), (4, 2)])
-@pytest.mark.parametrize("family", BLOCK_FAMILIES2)
-def test_every_rank2_block_family_matches_jax_reference(family, shape):
-    from repro_torch import omp
-
-    mesh = omp.make_mesh(shape, ("i", "j"), device="cpu")
-    j = BLOCK_FAMILIES2.index(family)
-    check_case2(make_case2(7000 + 100 * shape[0] + 10 * shape[1] + j,
-                           family), mesh)
-
-
-@settings(max_examples=8, deadline=None)
-@given(seed=st.integers(0, 2**31 - 1), p=st.sampled_from([1, 2, 3, 4]))
-def test_random_block_draws_match_jax_reference(seed, p):
-    """Random seeds and schedules (zero-trip and trip < ranks draws
-    included) through every lowering."""
-    from repro_torch import omp
-
-    family = BLOCK_FAMILIES[seed % len(BLOCK_FAMILIES)]
-    check_case(make_case(seed, family),
-               omp.make_mesh((p,), ("data",), device="cpu"))
-
-
 def test_zero_trip_and_fewer_iterations_than_ranks():
     """A zero-trip loop writes nothing but defines a fresh reduction as
     the identity; a 1-iteration loop on 8 ranks leaves 7 idle."""
@@ -294,37 +275,6 @@ def test_zero_trip_and_fewer_iterations_than_ranks():
             for low in ("collective", "kernel"):
                 got = omp.compile(body, mesh, lowering=low)(env)
                 _assert_matches(got, ref, f"stop={stop} P={p} {low}")
-
-
-# ---------------------------------------------------------------------------
-# Lowering.KERNEL against the reference's Lowering.PALLAS (interpret mode)
-# ---------------------------------------------------------------------------
-
-
-def test_kernel_lowering_matches_jax_pallas_every_family():
-    """Each block family through the port's kernel lowering (span
-    wrapper -> plain version on the CPU, then merge_chunk_values) and
-    through the JAX pallas lowering on its 1-device mesh, as
-    ``test_differential_pallas_every_family`` runs it."""
-    import jax
-    from jax.sharding import Mesh
-
-    from repro import omp as jomp
-    from repro.compat import make_mesh as jmake_mesh
-    from repro_torch import omp
-
-    jmesh = Mesh(np.asarray(jax.devices()[:1]), ("data",))
-    jmesh2 = jmake_mesh((1, 1), ("i", "j"))
-    mesh = omp.make_mesh((1,), ("data",), device="cpu")
-    mesh2 = omp.make_mesh((1, 1), ("i", "j"), device="cpu")
-    cases = [make_case(500 + j, f) for j, f in enumerate(BLOCK_FAMILIES)]
-    cases += [make_case2(600 + j, f) for j, f in enumerate(BLOCK_FAMILIES2)]
-    for prog, env, jprog, jenv, family in cases:
-        jm, m = (jmesh, mesh) if prog.rank == 1 else (jmesh2, mesh2)
-        want = jomp.compile(jprog, jm, lowering="pallas")(jenv)
-        want = {k: np.asarray(v) for k, v in want.items()}
-        got = omp.compile(prog, m, lowering="kernel")(env)
-        _assert_matches(got, want, f"{family} kernel-vs-pallas")
 
 
 # ---------------------------------------------------------------------------

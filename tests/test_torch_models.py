@@ -16,6 +16,9 @@ function.  Held at rtol = atol = 1e-4:
 * ``ServeEngine``'s tokens against the reference engine's on 4 requests.
 
 The reference calls are jitted (one XLA compile instead of one per op).
+
+The attention paths, the prefills and the engine are in
+``tests/test_torch_serve_engine.py``, which uses this file's setup.
 """
 import functools
 
@@ -181,41 +184,6 @@ ATTN_CASES = [
 ]
 
 
-@pytest.mark.parametrize("case", ATTN_CASES)
-def test_attention_paths_match_reference(case):
-    from repro_torch.models import layers
-
-    b, sq, sk, h, kv, kind, window = case
-    rng = np.random.default_rng(sq * sk + h)
-    q = rng.normal(size=(b, sq, h, 16)).astype(np.float32)
-    k = rng.normal(size=(b, sk, kv, 16)).astype(np.float32)
-    v = rng.normal(size=(b, sk, kv, 16)).astype(np.float32)
-    qpos = np.broadcast_to(np.arange(sk - sq, sk, dtype=np.int32), (b, sq))
-    kpos = np.broadcast_to(np.arange(sk, dtype=np.int32), (b, sk))
-    args = (_t(q), _t(k), _t(v))
-    kw = dict(kind=kind, window=window)
-    pos = dict(q_positions=_t(qpos.copy()), k_positions=_t(kpos.copy()))
-    want = jax.jit(functools.partial(jl.attention_full, **kw))(
-        q, k, v, q_positions=qpos, k_positions=kpos)
-    _close(layers.attention_full(*args, **kw, **pos), want, "full")
-    want_c = jax.jit(functools.partial(jl.attention_chunked, **kw,
-                                       block_kv=8, block_q=16))(
-        q, k, v, q_positions=qpos, k_positions=kpos)
-    _close(layers.attention_chunked(*args, **kw, **pos, block_kv=8,
-                                    block_q=16), want_c, "chunked")
-    if kind == "causal":
-        # one decode query at the last position, unfilled slots masked
-        kpos_d = kpos.copy()
-        kpos_d[:, -3:] = np.iinfo(np.int32).max
-        want_d = jax.jit(functools.partial(jl.attention_decode,
-                                           window=window))(
-            q[:, -1:], k, v, q_positions=qpos[:, -1:], k_positions=kpos_d)
-        _close(layers.attention_decode(
-            _t(q[:, -1:]), _t(k), _t(v), window=window,
-            q_positions=_t(qpos[:, -1:].copy()), k_positions=_t(kpos_d)),
-            want_d, "decode")
-
-
 # ---------------------------------------------------------------------------
 # The model: prefill, decode, serving
 # ---------------------------------------------------------------------------
@@ -236,27 +204,6 @@ def _jax_prefill(impl):
                                   fn(jparams, jnp.asarray(_prompts()), cache))
 
 
-@pytest.mark.parametrize("impl,jimpl", [("full", "full"),
-                                        ("chunked", "chunked"),
-                                        ("kernel", "pallas")])
-def test_prefill_matches_reference(impl, jimpl):
-    model, params = _setup()[2:4]
-    want_logits, want_cache = _jax_prefill(jimpl)
-    cache = model.init_cache(2, CACHE_LEN, dtype=torch.float32,
-                             device="cpu")
-    logits, new_cache = model.prefill(params, {"tokens": _t(_prompts())},
-                                      cache, impl=impl,
-                                      compute_dtype=torch.float32)
-    _close(logits, want_logits, f"{impl} logits")
-    _close(new_cache, want_cache, f"{impl} cache")
-    # forward is prefill without the caches: the same last hidden state
-    hidden, _ = model.forward(params, {"tokens": _t(_prompts())}, impl=impl,
-                              compute_dtype=torch.float32)
-    _close(hidden[:, -1] @ params["embed"].T, want_logits, f"{impl} forward")
-    # the caller's cache is left as it was (functional, as in JAX)
-    assert torch.all(cache["slot0"]["pos"] == 2 ** 31 - 1)
-
-
 def test_three_decode_steps_match_reference():
     from repro_torch import convert
 
@@ -275,36 +222,6 @@ def test_three_decode_steps_match_reference():
         _close(logits, want_logits, f"step {step} logits")
         _close(cache, jax.tree_util.tree_map(np.asarray, jcache),
                f"step {step} cache")
-
-
-def test_serve_engine_matches_reference_engine():
-    from repro.serving import Request as JRequest
-    from repro.serving import ServeEngine as JServeEngine
-    from repro_torch.serving import Request, ServeEngine
-
-    jmodel, jparams, model, params = _setup()[:4]
-    prompts = [[5, 6, 5, 6, 5] * 4, [11] * 20, [7, 8] * 10, list(range(1, 21))]
-    # the reference engine prefills eagerly; the same function jitted
-    # compiles once (one prompt length, past the local window) instead of
-    # once per op
-    jmodel = jbuild_model(jmodel.cfg)
-    jmodel.prefill = jax.jit(jmodel.prefill,
-                             static_argnames=("compute_dtype",))
-    outs = []
-    for eng, req in ((JServeEngine(jmodel, jparams, n_slots=2,
-                                   cache_len=CACHE_LEN,
-                                   compute_dtype=jnp.float32), JRequest),
-                     (ServeEngine(model, params, n_slots=2,
-                                  cache_len=CACHE_LEN,
-                                  compute_dtype=torch.float32), Request)):
-        reqs = [req(rid=i, prompt=p, max_new_tokens=4)
-                for i, p in enumerate(prompts)]
-        for r in reqs:
-            eng.submit(r)
-        done = eng.run_until_drained()
-        assert sorted(r.rid for r in done) == [0, 1, 2, 3]
-        outs.append([r.output for r in reqs])
-    assert outs[1] == outs[0]
 
 
 def test_serve_driver_runs_on_the_cpu():

@@ -21,6 +21,10 @@ other paths.
   ``lowering="kernel"`` equals JAX ``lowering="pallas"`` on the 1-device
   mesh, as ``check_case_pallas`` runs it.
 * **Rejections** match the reference's.
+
+The plan equalities on 1/2/4/8 ranks, the kernel-vs-pallas check and the
+scatter/put/reshard regions are in ``tests/test_torch_region_plans.py``,
+which uses this file's twins and helpers.
 """
 import random
 
@@ -262,19 +266,6 @@ def _both_plans(case, num, axis, comm="auto"):
     return mine, ref
 
 
-@pytest.mark.parametrize("p", [1, 2, 4, 8])
-def test_region_plans_equal_reference(p):
-    """Residency plans, boundary comms, comm schedules and kernel spans
-    of every region family (comm auto; gather on the halo families)."""
-    for j, family in enumerate(FAMILIES + FAMILIES2):
-        case, num, axis = _case(family, p, 3000 + 10 * p + j)
-        if family not in FAMILIES2:
-            num, axis = num[0], axis[0]
-        _both_plans(case, num, axis)
-        if family in ("pingpong", "heat2d"):
-            _both_plans(case, num, axis, comm="gather")
-
-
 def _multifield(o, fields=3, sweeps=5, n=96, c=4, lib=None):
     """``tests/test_comm.py::_multifield_region`` for either package."""
     a_names = tuple(f"a{k}" for k in range(fields))
@@ -397,28 +388,6 @@ def test_region_family_outputs_match_jax(family, p):
     check_region(case, shape, axes)
 
 
-def test_kernel_lowering_matches_jax_pallas_every_region_family():
-    """Each region family through the port's kernel lowering and through
-    the JAX pallas lowering (interpret mode) on a 1-device mesh."""
-    import jax
-    from jax.sharding import Mesh
-
-    from repro import omp as jomp
-    from repro.compat import make_mesh as jmake_mesh
-    from repro_torch import omp
-
-    jmeshes = {1: Mesh(np.asarray(jax.devices()[:1]), ("data",)),
-               2: jmake_mesh((1, 1), ("i", "j"))}
-    for j, family in enumerate(FAMILIES + FAMILIES2):
-        (prog, env, jprog, jenv, _), shape, axes = _case(family, 1, 500 + j)
-        pal = jomp.compile(jprog, jmeshes[prog.rank], lowering="pallas")
-        want = {k: np.asarray(v)
-                for k, v in jax.jit(lambda e: pal(e))(jenv).items()}
-        got = omp.compile(prog, omp.make_mesh(shape, axes, device="cpu"),
-                          lowering="kernel")(env)
-        td._assert_matches(got, want, f"{family} kernel-vs-pallas")
-
-
 def _more_regions(o, lib):
     """Scatter + put stages, a whole-array reshard, a stencil reshard
     through a partial-cover slab, and a reduction-carrying chain."""
@@ -462,20 +431,6 @@ def _more_regions(o, lib):
                o.region(w1, w2, name="whole"),
                o.region(p1, p2, name="partial")]
     return list(zip(regions, envs))
-
-
-@pytest.mark.parametrize("p", [1, 3])
-def test_scatter_put_reshard_and_partial_regions_match_jax(p):
-    import jax.numpy as jnp
-
-    from repro import omp as jomp
-    from repro_torch import omp
-
-    for (prog, env), (jprog, _) in zip(_more_regions(omp, torch),
-                                       _more_regions(jomp, jnp)):
-        case = (prog, td._env_of(env), jprog, _jax_env(env), prog.name)
-        check_region(case, (p,), ("data",))
-        _both_plans(case, p, "data")
 
 
 @pytest.mark.parametrize("p", [2, 8])

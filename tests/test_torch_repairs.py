@@ -23,6 +23,12 @@ generated K1 source, under the NumPy emulation of ``triton.language``
 (``tests/test_torch_span_kernel.py``), equals the plain version — also
 with the register-tile cap lowered, so that a scan's running sum is
 carried from tile to tile.
+
+The repairs of scans, sort indices and integer pow, and of the
+one-column and integer products, are in
+``tests/test_torch_repairs_scan.py`` and
+``tests/test_torch_repairs_products.py``, which use this file's bodies
+and checks.
 """
 import re
 
@@ -754,53 +760,6 @@ def _int_pow_env():
             "Q": np.zeros((15, 9), np.int32), "q": np.zeros(15, np.int32)}
 
 
-@pytest.mark.parametrize("cap", [None, 16])
-@pytest.mark.parametrize("body", ["scan", "argsort", "intpow"])
-def test_scan_sort_index_and_int_pow_repairs_match_reference(body, cap,
-                                                             monkeypatch):
-    """``logcumsumexp`` (rows led by -inf give -inf, not NaN) and the
-    values of ``cummax``/``cummin`` (a NaN carried on) along a row as
-    ``tl.associative_scan`` — whole, carried tile to tile with the cap
-    lowered to 16, rolled, at one position, in a product's grid value
-    tile; the indices of a sort of a row with ties, signed zeros and NaN
-    (ascending and descending, float and int32, rank 2) from one sorted
-    64-bit key; and an int32 ``pow`` by constants 0-7 whose products wrap,
-    as repeated squaring — each equal to the reference's
-    ``run_reference`` and its Pallas lowering, and emulated."""
-    import jax.numpy as jnp
-
-    from repro import omp as jomp
-    from repro_torch import convert, omp
-    from repro_torch.kernels import span_kernel
-
-    make, env_np = {"scan": (_assoc_scan_body, _assoc_scan_env),
-                    "argsort": (_argsort_body, _argsort_env),
-                    "intpow": (_int_pow_body, _int_pow_env)}[body]
-    env_np = env_np()
-    prog, jprog = make(omp, torch), make(jomp, jnp)
-    if cap is not None:
-        monkeypatch.setattr(span_kernel, "_MAX_TILE_ELEMS", cap)
-        if body == "argsort":       # a row longer than one register tile
-            env = convert.env_from_numpy(env_np, "cpu")
-            with pytest.raises(omp.CompileError, match="aten.sort .* 21 "
-                               "elements, longer than one register tile"):
-                _text(prog, env, 2)
-            omp.clear_compile_cache()
-            return
-    omp.clear_compile_cache()
-    _check_block(prog, jprog, env_np)
-    text = _text(prog, convert.env_from_numpy(env_np, "cpu"), prog.rank)
-    marks = {"scan": ("tl.associative_scan(", "def _scan_lse(a, b):",
-                      "def _scan_maxf(a, b):", "def _scan_minf(a, b):",
-                      "libdevice.log1p("),
-             "argsort": ("tl.sort(", "<< 32", "bitcast=True"),
-             "intpow": ("* 0 + 1)",)}[body]
-    assert all(m in text for m in marks), text
-    if body == "intpow":
-        assert "libdevice" not in text, text
-    omp.clear_compile_cache()
-
-
 # ---------------------------------------------------------------------------
 # Products one position wide and products of integers (row sums)
 # ---------------------------------------------------------------------------
@@ -857,42 +816,3 @@ def _int_product_env():
             "T": np.zeros((5, 6), np.int32)}
 
 
-@pytest.mark.parametrize("cap", [None, 16])
-@pytest.mark.parametrize("body", ["one_column", "int", "int2"])
-def test_one_column_and_integer_products_match_reference(body, cap,
-                                                         monkeypatch):
-    """A product one position wide (a one-column matrix, a one-column
-    slice, a one-row matrix times the row, one position of a wider
-    product with the cap lowered to 16) is a matrix-vector row sum, not a
-    ``tl.dot`` padded to 16 columns; a product of int32 operands (rows
-    times a matrix, a vector, a one-column slice; rank 2: an i-row times
-    a j-row) is row sums in int32 whose products and sums wrap past 2^31,
-    and an int32 matrix cast beside a float row takes the float type, as
-    ``jnp.dot`` promotes — each equal to the reference's
-    ``run_reference`` (integers bit for bit) and its Pallas lowering, and
-    emulated."""
-    import jax.numpy as jnp
-
-    from repro import omp as jomp
-    from repro_torch import convert, omp
-    from repro_torch.kernels import span_kernel
-
-    if body == "one_column":
-        prog, jprog = _one_column_body(omp, torch), _one_column_body(jomp, jnp)
-        env_np = _one_column_env()
-    else:
-        at = 0 if body == "int" else 1
-        prog = _int_product_bodies(omp, torch)[at]
-        jprog = _int_product_bodies(jomp, jnp)[at]
-        env_np = _int_product_env()
-    if cap is not None:
-        monkeypatch.setattr(span_kernel, "_MAX_TILE_ELEMS", cap)
-    omp.clear_compile_cache()
-    _check_block(prog, jprog, env_np)
-    text = _text(prog, convert.env_from_numpy(env_np, "cpu"), prog.rank)
-    # row sums: [lanes, bk] (one column) or [lanes, bk, n] (integers)
-    marks = {"one_column": ("tl.sum(acc", "tl.zeros([16, 16], tl.float32)"),
-             "int": ("[:, :, None] *", "], tl.int32)"),
-             "int2": ("[:, :, None] *", "], tl.int32)")}[body]
-    assert all(m in text for m in marks), text
-    omp.clear_compile_cache()

@@ -5,6 +5,9 @@ on a sweep, the injector's hook sites, the compile service's
 single-flight compiles and escalation order, and the resilient
 executor's retry, validation and recovery on a stacked mesh one rank
 smaller, equal to the healthy run.
+
+Recovery onto fewer ranks (== the healthy run) is in
+``tests/test_torch_recovery.py``, which uses this file's helpers.
 """
 import itertools
 import threading
@@ -316,25 +319,6 @@ def _recovers(prog, env, mesh, lowering, lost):
         else:
             assert torch.equal(got[k], healthy[k]), (prog.name, k)
     return rex, plans
-
-
-@pytest.mark.parametrize("lost", [1, 2])
-@pytest.mark.parametrize("lowering", ["collective", "kernel"])
-def test_recovered_run_equals_healthy_run(lowering, lost):
-    """P = 4 -> 3 for every block family and a region; a rank-2 block on
-    (2, 2) -> (3, 1)."""
-    from repro_torch import omp
-
-    for fam in td.BLOCK_FAMILIES:
-        prog, env = td.make_case(9100 + td.BLOCK_FAMILIES.index(fam),
-                                 fam)[:2]
-        _recovers(prog, env, _mesh(4), lowering, lost)
-    reg, renv = tr.make_case(9150, "chain")[:2]
-    _recovers(reg, renv, _mesh(4), lowering, lost)
-    prog2, env2 = td.make_case2(9200, "matmul2")[:2]
-    rex, plans = _recovers(prog2, env2, omp.make_mesh(
-        (2, 2), ("i", "j"), device="cpu"), lowering, lost)
-    assert plans[0].new_shape == (3, 1)
 
 
 def test_recovery_is_sticky_until_reset_and_validation_retries():

@@ -17,6 +17,9 @@ its specs must equal the reference's entry for entry (exact).
 * ``shard_shape`` against ``NamedSharding.shard_shape`` on a one-device
   mesh, and against the spec arithmetic on the production meshes, where
   a stacked mesh lays the blocks out (``Mesh.shard``/``unshard``).
+
+The full-size spec trees of the five families are in
+``tests/test_torch_tensor_plan_full.py``, which uses this file's helpers.
 """
 import functools
 
@@ -132,28 +135,6 @@ def _same_specs(got, want, path=""):
     assert isinstance(got, tp.PartitionSpec) and isinstance(want, JP), path
     assert tuple(got) == tuple(want), (path, got, want)
     return 1
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_tree_specs_match_reference_at_full_size(arch):
-    (p, a, opts, c, ca), (jp, ja, jopts, jc, jca) = _trees(arch)
-    leaves = 0
-    for mesh, axes in MESHES.items():
-        for kw in TRAIN:
-            port, ref = _both("train", axes, mesh, **kw)
-            leaves += _same_specs(port.tree_specs(p, a),
-                                  ref.tree_specs(jp, ja))
-            for o, (state, st_axes) in opts.items():
-                jstate, jst_axes = jopts[o]
-                leaves += _same_specs(port.tree_specs(state, st_axes),
-                                      ref.tree_specs(jstate, jst_axes))
-        for kw in SERVE:
-            port, ref = _both("serve", axes, mesh, **kw)
-            leaves += _same_specs(port.tree_specs(p, a),
-                                  ref.tree_specs(jp, ja))
-            leaves += _same_specs(port.tree_specs(c, ca),
-                                  ref.tree_specs(jc, jca))
-    assert leaves > 100
 
 
 def test_shard_shape_matches_named_sharding_on_one_device():

@@ -18,6 +18,7 @@ psum, and the card's name and power limit.  Needs one CUDA card.
 from __future__ import annotations
 
 import argparse
+import math
 import sys
 from pathlib import Path
 
@@ -41,7 +42,7 @@ def main() -> int:
     def one_sum(self, x, axis):
         names = self._axes(axis)
         self._check(x, names)
-        self._count("psum", x)
+        self._count("psum", x, math.prod(self.shape[a] for a in names))
         return x.sum(dim=tuple(range(len(names))))
 
     @omp.parallel_for(stop=n, reduction={"s": "+"}, name="scatter")
