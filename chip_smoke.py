@@ -332,7 +332,19 @@ non-zero (no phase catches an error and carries on):
     ``prefill_32k``, ``decode_32k``} on pod16x16 (256 stacked ranks), in
     child processes started before phase 22 (``DRYRUN_CELLS``; the train
     cells at a cut depth); each record's status, per-rank GB, wire GB
-    and dominant roofline term; any record that is not ``ok`` fails.
+    and dominant roofline term; any record that is not ``ok`` fails;
+35. **the process mesh** (``process_mesh_phase``): a one-process NCCL
+    group (the card is one GPU) and ``ProcessMesh`` over it: gemma3-1b's
+    (2, 2) ZeRO-3 train cell, 3 steps at 8 x 256 in bf16
+    (``PROCESS_TRAIN``), == the stacked (2, 2) cell bit for bit after
+    every step (deterministic algorithms on for the pair); its (2, 2)
+    prefill cell at 2 x 4096 with K2 == phase 33's stacked result bit for
+    bit; GPipe over whisper-small's encoder == phase 30's stacked pipeline
+    bit for bit; ms a step, a prefill and a forward beside the stacked
+    mesh's, in turns; the group torn down (on failure too), then
+    ``python -m repro_torch.launch.train --coordinator 127.0.0.1:<port>
+    --num-hosts 1`` at smoke size in a process of its own, alone on the
+    card; K2 rows with the process mesh's launches.
 
 In phases 4, 15, 17 and 18 every span is also launched by K1's launcher
 and by Triton's launch path on the same feeds, equal bit for bit.
@@ -4527,6 +4539,7 @@ def gpipe_phase(torch, dev, card):
             fa.LAUNCHES.clear()
             got = run(stacked(enc16), x16)
             torch.cuda.synchronize()
+            KEPT["gpipe"] = digest(torch, got)
     finally:
         fa.flash_attention = launch
     n_k2, n_pp = sum(fa.LAUNCHES.values()), mesh.launches["ppermute"]
@@ -4802,6 +4815,7 @@ def serve_gemma_cells(torch, dev, card):
                    cell.mesh.bytes["all_gather"])
         same_bits(torch, outs[shape], direct if shape == (1, 1)
                   else outs[(1, 1)], f"gemma3-1b prefill cell {shape}")
+        KEPT[f"prefill {shape}"] = digest(torch, outs[shape])
         ms = cuda_ms(torch, lambda: cell.step_fn(p, {"tokens": tokens}, c),
                      reps=3, inner=1, warmup=1)
         print(f"serve cell {cfg.name} prefill on {shape}: == "
@@ -5028,6 +5042,314 @@ def serve_cells_phase(torch, dev, card):
         torch, dev, card, f"{ENCDEC_ARCH} encoder {WHISPER_CELL['batch']}x{f}",
         (WHISPER_CELL["batch"], wcfg.n_heads, wcfg.n_kv_heads, f, f,
          wcfg.head_dim), False, None, n_whisper))
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# The process mesh
+# ---------------------------------------------------------------------------
+
+#: phase 35: gemma3-1b's train cell on a ZeRO-3 process mesh at phase
+#: 28(b)'s settings (full width and depth, bf16 compute, remat, AdamW)
+PROCESS_TRAIN = dict(batch=8, seq_len=256, steps=3, mesh=(2, 2), lr=1e-3)
+#: phase 35: the prefill cell's process mesh (phase 33's 2 x PREFILL_LEN)
+PROCESS_PREFILL_MESH = (2, 2)
+#: digests of phase 30's and phase 33's stacked results, which phase 35's
+#: runs over the process mesh must equal
+KEPT: dict = {}
+
+
+def digest(torch, tree) -> str:
+    """sha256 of a tree's leaves: shapes, dtypes and bits."""
+    import hashlib
+
+    from repro_torch.pytree import tree_leaves
+
+    h = hashlib.sha256()
+    for t in tree_leaves(tree):
+        t = t.detach().contiguous()
+        h.update(f"{tuple(t.shape)} {t.dtype}".encode())
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def turns(torch, fns, rounds=3):
+    """Milliseconds of each of ``fns`` (name -> fn), run in alternating
+    turns: the median of ``rounds`` timed turns after one untimed."""
+    times = {k: [] for k in fns}
+    for r in range(rounds + 1):
+        for k, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            if r:
+                times[k].append((time.perf_counter() - t0) * 1e3)
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def process_train(torch, dev, card):
+    """Phase 35(a): gemma3-1b's train cell on a (2, 2) ZeRO-3 process mesh
+    and on the stacked (2, 2) mesh from the same weights and batch, a
+    step of each in turns: parameters, optimizer state and metrics equal
+    bit for bit after every step (deterministic algorithms on: the
+    embedding's backward sums rows in one order); ms a step of each."""
+    from repro_torch.configs import ShapeConfig, TrainConfig
+    from repro_torch.launch.mesh import make_local_mesh, make_process_mesh
+    from repro_torch.launch.steps import make_train_cell
+
+    cfg = arch_config(ARCH)
+    b, s, n = (PROCESS_TRAIN[k] for k in ("batch", "seq_len", "steps"))
+    dp, mp = PROCESS_TRAIN["mesh"]
+    shape = ShapeConfig("process-train", s, b, "train")
+    tcfg = TrainConfig(compute_dtype="bfloat16", remat=True, zero3=True,
+                       warmup_steps=1, total_steps=n,
+                       learning_rate=PROCESS_TRAIN["lr"])
+    batch = train_batch(torch, cfg, b, s, 0, dev)
+    cells, states = {}, {}
+    for name, mesh in (
+            ("stacked", make_local_mesh(mp, ranks=dp * mp, device=dev)),
+            ("process", make_process_mesh(mp, ranks=dp * mp, device=dev))):
+        cells[name] = make_train_cell(cfg, shape, mesh, tcfg)
+        params, _ = cells[name].model.init(
+            torch.Generator(device=dev).manual_seed(0))
+        states[name] = cells[name].place(params)
+        del params
+    times = {k: [] for k in cells}
+    losses = {k: [] for k in cells}
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for step in range(n):
+            for name, cell in cells.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = cell.step_fn(*states[name], batch, step)
+                losses[name].append(float(out[2]["loss"]))
+                times[name].append((time.perf_counter() - t0) * 1e3)
+                states[name] = out
+            same_bits(torch, states["process"], states["stacked"],
+                      f"train {ARCH} process mesh step {step}")
+            states = {k: v[:2] for k, v in states.items()}
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+    counts = {k: dict(c.mesh.launches) for k, c in cells.items()}
+    if counts["process"] != counts["stacked"]:
+        raise AssertionError(f"train: process mesh counted {counts['process']}"
+                             f", the stacked mesh {counts['stacked']}")
+    ms = {k: statistics.median(v[1:]) for k, v in times.items()}
+    print(f"process mesh train {ARCH} on {PROCESS_TRAIN['mesh']} (NCCL, one "
+          f"process; full width and depth, ZeRO-3, AdamW, remat, bf16 "
+          f"compute, {n} steps on one {b} x {s} batch): parameters, "
+          f"optimizer state and metrics == the stacked (2, 2) cell's bit for "
+          f"bit after every step; losses {losses['process']}; collectives "
+          f"{counts['process']} (== the stacked mesh's); ms a step (median "
+          f"of steps 2-{n}, in turns) process {ms['process']:.1f}, stacked "
+          f"{ms['stacked']:.1f} (ratio {ms['process'] / ms['stacked']:.3f}) "
+          f"on {card}")
+    del cells, states, batch
+    torch.cuda.empty_cache()
+
+
+def process_prefill(torch, dev, card):
+    """Phase 35(b): gemma3-1b's prefill cell (bf16, 2 x PREFILL_LEN,
+    ``attn_impl="kernel"``) on a (2, 2) process mesh == phase 33's stacked
+    (2, 2) result bit for bit (logits and caches); K2's launches there by
+    window; ms a prefill beside the stacked cell's, in turns.  Returns
+    K2's launches by window."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.launch.steps import make_cell
+    from repro_torch.models import build_model
+
+    cfg, bf16 = model_config(), torch.bfloat16
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params, _ = model.init(gen, dtype=bf16)
+    tokens = torch.randint(1, cfg.vocab_size, (2, PREFILL_LEN), generator=gen,
+                           device=dev, dtype=torch.int32)
+    del model
+    dp, mp = PROCESS_PREFILL_MESH
+    cell = make_cell(cfg, ShapeConfig("prefill", PREFILL_LEN, 2, "prefill"),
+                     make_process_mesh(mp, ranks=dp * mp, device=dev),
+                     attn_impl="kernel")
+    stacked = serve_cell("prefill", cfg, 2, PREFILL_LEN, PROCESS_PREFILL_MESH,
+                         dev)
+    p, c = cell.place(params)
+    sp, sc = stacked.place(params)
+    del params
+    got, launches = k2_launch_count(
+        fa, lambda: run_cell(torch, cell, p, ({"tokens": tokens}, c)))
+    torch.cuda.synchronize()
+    want = KEPT.get(f"prefill {PROCESS_PREFILL_MESH}")
+    if want is None or digest(torch, got) != want:
+        raise AssertionError(f"prefill over the process mesh != phase 33's "
+                             f"stacked {PROCESS_PREFILL_MESH} result")
+    if not launches:
+        raise AssertionError("prefill over the process mesh launched no K2")
+    del got
+    ms = turns(torch, {
+        "process": lambda: cell.step_fn(p, {"tokens": tokens}, c),
+        "stacked": lambda: stacked.step_fn(sp, {"tokens": tokens}, sc)})
+    print(f"process mesh prefill {cfg.name} on {PROCESS_PREFILL_MESH} (NCCL, "
+          f"one process; bf16, K2): logits and caches == phase 33's stacked "
+          f"{PROCESS_PREFILL_MESH} cell bit for bit; K2 launches "
+          f"{sum(launches.values())} {launches}; ms a prefill of 2 x "
+          f"{PREFILL_LEN} tokens (median of 3, in turns) process "
+          f"{ms['process']:.2f}, stacked {ms['stacked']:.2f} (ratio "
+          f"{ms['process'] / ms['stacked']:.3f}) on {card}")
+    del p, c, sp, sc, cell, stacked
+    torch.cuda.empty_cache()
+    return launches
+
+
+def process_gpipe(torch, dev, card):
+    """Phase 35(c): phase 30's GPipe (whisper-small's encoder, 4 stages x 3
+    blocks, 4 microbatches, bf16, K2) on a 4-rank process mesh == phase
+    30's stacked pipeline bit for bit; K2's and ``ppermute``'s launches;
+    ms a forward beside the stacked pipeline's, in turns.  Returns K2's
+    launches."""
+    from repro_torch.core.pipeline import make_pipeline
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.mesh import make_mesh, make_process_mesh
+    from repro_torch.models import blocks as blk
+    from repro_torch.models import build_model
+    from repro_torch.pytree import tree_map
+
+    cfg = whisper_config()
+    n_st, m = GPIPE["stages"], GPIPE["micro"]
+    model = build_model(cfg)
+    params, _ = model.init(torch.Generator(device=dev).manual_seed(0))
+    enc16 = tree_map(lambda t: t.to(torch.bfloat16), params["encoder"])
+    del params
+    per = model.n_enc // n_st
+    f, d = cfg.encoder.n_frames, cfg.d_model
+    frames = torch.randn((m, 1, f, d), generator=torch.Generator(
+        device=dev).manual_seed(1), device=dev).to(torch.bfloat16)
+
+    def stage(p, x):
+        pos = torch.arange(x.shape[1], dtype=torch.int32,
+                           device=dev).expand(x.shape[0], x.shape[1])
+        for i in range(per):
+            x = blk.block_apply(tree_map(lambda t: t[i], p), x, cfg,
+                                "attn:global:dense", positions=pos,
+                                impl="kernel", attn_mode="bidir")[0]
+        return x
+
+    stacked = tree_map(lambda t: t.reshape((n_st, per) + t.shape[1:]), enc16)
+    pm = make_process_mesh((n_st,), ("stage",), device=dev)
+    runs = {"process": make_pipeline(stage, pm, axis="stage",
+                                     checkpoint=False),
+            "stacked": make_pipeline(stage, make_mesh((n_st,), ("stage",),
+                                                      device=dev),
+                                     axis="stage", checkpoint=False)}
+    with torch.no_grad():
+        got, launches = k2_launch_count(fa, lambda: runs["process"](
+            stacked, frames))
+        torch.cuda.synchronize()
+        if KEPT.get("gpipe") is None or digest(torch, got) != KEPT["gpipe"]:
+            raise AssertionError("GPipe over the process mesh != phase 30's "
+                                 "stacked pipeline")
+        n_k2, n_pp = sum(launches.values()), pm.launches["ppermute"]
+        if n_pp != m + n_st - 1 or n_k2 != n_st * per * (m + n_st - 1):
+            raise AssertionError(f"GPipe over the process mesh: {n_pp} "
+                                 f"ppermutes, {n_k2} K2 launches")
+        ms = turns(torch, {k: (lambda r=r: r(stacked, frames))
+                           for k, r in runs.items()})
+    print(f"process mesh GPipe {cfg.name} encoder ({n_st} stages x {per} "
+          f"blocks on a {n_st}-rank process mesh, NCCL, one process; {m} "
+          f"microbatches, bf16, K2) == phase 30's stacked pipeline bit for "
+          f"bit; ppermute launches {n_pp}, K2 launches "
+          f"{n_k2}; ms a forward (median of 3, in turns) process "
+          f"{ms['process']:.2f}, stacked {ms['stacked']:.2f} on {card}")
+    del model, enc16, stacked, frames, got, runs
+    torch.cuda.empty_cache()
+    return n_k2
+
+
+def process_mesh_phase(torch, dev, card):
+    """Phase 35: the process mesh on the card, NCCL at world 1 (the card
+    is one GPU): (a) the train cell, (b) the prefill cell, (c) GPipe, each
+    held bit for bit against the stacked mesh and timed beside it; the
+    group is torn down, on failure too; then (d) ``python -m
+    repro_torch.launch.train --coordinator 127.0.0.1:<port> --num-hosts
+    1`` at smoke size on the card, alone, so that no other process shares
+    the card while (a)-(c) are timed.  Returns K2's kernel-table rows at
+    the prefill's and GPipe's shapes, with their launches over the
+    process mesh."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev.index or 0)
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        process_train(torch, dev, card)
+        k2 = process_prefill(torch, dev, card)
+        n_gpipe = process_gpipe(torch, dev, card)
+    finally:
+        dist.destroy_process_group()
+    root = Path(__file__).resolve().parent
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_process_")
+    t0 = time.perf_counter()
+    cli = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", ARCH,
+         "--smoke", "--steps", "3", "--batch", "4", "--seq-len", "64",
+         "--log-every", "1", "--ckpt-every", "2", "--coordinator",
+         f"127.0.0.1:{free_port()}", "--num-hosts", "1", "--ckpt-dir",
+         os.path.join(tmp, "ck")] + ([] if dev.type == "cuda" else
+                                     ["--device", str(dev)]), cwd=root,
+        env=dict(os.environ, PYTHONPATH=str(root / "src")),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        _, err = cli.communicate(timeout=300)
+    finally:
+        if cli.poll() is None:
+            cli.kill()
+            cli.wait()
+        saved = sorted(os.listdir(os.path.join(tmp, "ck"))) if os.path.isdir(
+            os.path.join(tmp, "ck")) else []
+        shutil.rmtree(tmp, ignore_errors=True)
+    if cli.returncode != 0 or "losses [" not in err:
+        raise AssertionError(f"launch.train --coordinator on the card exit "
+                             f"{cli.returncode}:\n{err[-3000:]}")
+    losses = json.loads(err.split("losses ")[-1].splitlines()[0])
+    if len(losses) != 3 or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"launch.train --coordinator losses {losses}")
+    print(f"launch.train --coordinator 127.0.0.1:<port> --num-hosts 1 on the "
+          f"card ({ARCH} smoke, 3 steps, NCCL): losses {losses}, "
+          f"checkpoints {saved}; {time.perf_counter() - t0:.1f} s alone, "
+          f"from the start of its process to its exit, on {card}")
+    wcfg = whisper_config()
+    f = wcfg.encoder.n_frames
+    rows = [serve_k2_row(torch, dev, card,
+                         f"{ARCH} {label} 2x{PREFILL_LEN} process mesh "
+                         f"{PROCESS_PREFILL_MESH}", gemma_shape(2), True,
+                         window, k2.get(window, 0))
+            for label, window in gemma_windows()]
+    rows.append(serve_k2_row(
+        torch, dev, card, f"{ENCDEC_ARCH} encoder 1x{f} GPipe tick process "
+        f"mesh ({GPIPE['stages']} stages)",
+        (1, wcfg.n_heads, wcfg.n_kv_heads, f, f, wcfg.head_dim), False, None,
+        n_gpipe))
     torch.cuda.empty_cache()
     return rows
 
@@ -5327,6 +5649,9 @@ def main(device: str = "cuda") -> int:
     rows += serve_cells_phase(torch, dev, card)
     elapsed.mark("the dry-run audits on meta")
     dry.phase(card)
+
+    elapsed.mark("the process mesh on the card (NCCL)")
+    rows += process_mesh_phase(torch, dev, card)
 
     elapsed.mark("done")
     print(card)

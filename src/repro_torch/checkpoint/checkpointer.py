@@ -9,9 +9,13 @@ the other wrote:
   (``jax.tree_util.tree_flatten_with_path``: dict keys in sorted order,
   tuple indices), e.g. ``0/slots/slot0/attn/wq`` for a (params, opt
   state) pair;
-* writes go to ``step_<N>.tmp<host>/`` and are atomically renamed — a
-  crash mid-save never corrupts the latest good checkpoint, and a torn
-  ``.tmp`` directory is never listed;
+* every host writes its shard into ``step_<N>.tmp/``; after a barrier
+  (every shard written) host 0 writes the manifest and atomically
+  renames the directory, and a second barrier holds every host until the
+  step is committed — a crash mid-save never corrupts the latest good
+  checkpoint, a torn ``.tmp`` directory is never listed, and no host
+  removes another's shard (hosts that share the directory must pass
+  ``barrier``);
 * ``save_async`` copies the leaves to host memory, then serialises them
   in a background thread (one outstanding save at a time);
 * ``restore_latest`` finds the newest complete step;
@@ -59,11 +63,18 @@ def _from_numpy(arr: np.ndarray, dtype_name: str, like) -> Any:
 
 class Checkpointer:
     def __init__(self, directory: str, *, keep: int = 3,
-                 host_id: int = 0, num_hosts: int = 1) -> None:
+                 host_id: int = 0, num_hosts: int = 1,
+                 barrier=None) -> None:
+        if num_hosts > 1 and barrier is None:
+            raise ValueError(
+                f"{num_hosts} hosts that share a checkpoint directory need a "
+                "barrier: the step is committed once every shard is written")
         self.directory = directory
         self.keep = keep
         self.host_id = host_id
         self.num_hosts = num_hosts
+        #: called by every host at once (``None``: one host)
+        self.barrier = barrier
         self._thread: threading.Thread | None = None
         os.makedirs(directory, exist_ok=True)
 
@@ -92,10 +103,20 @@ class Checkpointer:
 
     def _write(self, step: int, names, host, extra: dict) -> str:
         final = os.path.join(self.directory, f"step_{step:08d}")
-        tmp = final + f".tmp{self.host_id}"
+        tmp = final + ".tmp"
         os.makedirs(tmp, exist_ok=True)
         np.savez(os.path.join(tmp, f"shard_{self.host_id}.npz"),
                  **{n: a for n, (a, _) in zip(names, host)})
+        if self.barrier is not None:
+            self.barrier()                  # every host's shard is written
+        if self.host_id == 0:
+            self._commit(step, names, host, extra, tmp, final)
+        if self.barrier is not None:
+            self.barrier()                  # committed before anyone goes on
+        return final
+
+    def _commit(self, step, names, host, extra, tmp, final) -> None:
+        """The manifest, and the step directory renamed into place."""
         manifest = {
             "step": step,
             "num_hosts": self.num_hosts,
@@ -110,7 +131,6 @@ class Checkpointer:
             shutil.rmtree(final)
         os.replace(tmp, final)
         self._gc()
-        return final
 
     def _gc(self) -> None:
         steps = self.list_steps()
@@ -128,18 +148,25 @@ class Checkpointer:
                     out.append(int(name.split("_")[1]))
         return sorted(out)
 
-    def restore(self, step: int, like: Any) -> Any:
+    def manifest(self, step: int) -> dict:
+        with open(os.path.join(self.directory, f"step_{step:08d}",
+                               "manifest.json")) as f:
+            return json.load(f)
+
+    def restore(self, step: int, like: Any, *, shard: int | None = None
+                ) -> Any:
         """Restore into the structure of ``like`` (names and shapes
-        checked), each leaf on ``like``'s device in its type."""
+        checked), each leaf on ``like``'s device in its type, from this
+        host's shard (or ``shard``'s)."""
         final = os.path.join(self.directory, f"step_{step:08d}")
-        with open(os.path.join(final, "manifest.json")) as f:
-            manifest = json.load(f)
+        manifest = self.manifest(step)
         names, leaves = flatten_with_paths(like)
         if names != manifest["names"]:
             raise ValueError("checkpoint/model tree mismatch")
         dtypes = dict(zip(manifest["names"], manifest["dtypes"]))
         restored = []
-        with np.load(os.path.join(final, f"shard_{self.host_id}.npz")) as data:
+        shard = self.host_id if shard is None else shard
+        with np.load(os.path.join(final, f"shard_{shard}.npz")) as data:
             for n, l in zip(names, leaves):
                 arr = data[n]
                 if tuple(arr.shape) != tuple(np.shape(l)):

@@ -560,7 +560,14 @@ def compile(
     without it the pipeline runs on first call.
     """
     from repro_torch.core import transform as tf
+    from repro_torch.mesh import ProcessMesh
 
+    if isinstance(mesh, ProcessMesh):
+        # the executors index every rank's slab, (n_loc, P, c, ...)
+        raise NotImplementedError(
+            "omp.compile over a ProcessMesh: the compiler's executors over "
+            "the process mesh are ROADMAP.md §1 item 8; compile on a "
+            "stacked mesh (omp.make_mesh)")
     if options is None:
         options = Options(**overrides)
     elif overrides:

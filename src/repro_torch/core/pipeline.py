@@ -19,9 +19,17 @@ Design (lockstep, differentiable):
   the warm-up/drain ticks compute on placeholder data (the standard
   bubble, (S-1)/(M+S-1) of the ticks).  A stage body that launches a
   kernel therefore launches it S x (M+S-1) times per forward pass;
-* stage 0 takes microbatch ``min(t, M-1)`` at tick ``t``, the last
+* stage 0 takes microbatch ``min(t, M-1)`` at tick ``t`` (a ``where``
+  over its received buffer, as the reference's ``jnp.where``), the last
   stage emits, and the buffer moves s -> s+1 by one ``ppermute`` per
   tick, so a forward pass counts M+S-1 ``ppermute`` launches;
+* over a :class:`~repro_torch.mesh.ProcessMesh` split along ``axis`` a
+  process runs the stages it holds (``mesh.local_ranks(axis)``), its
+  stage parameters lead with those, and the emissions are read from the
+  last stage's process on every process (``mesh.take``, the reference's
+  ``out_specs=P(axis)`` row).  The ``where`` keeps every received
+  buffer in the graph, so each ``ppermute``'s backward runs at both of
+  its ends;
 * ``torch.autograd`` differentiates straight through the ticks and the
   ``ppermute``s (whose gradient is the inverse permutation), and
   ``checkpoint=True`` wraps the stage body in
@@ -44,8 +52,9 @@ def pipeline_apply(stage_fn, stage_params, x_micro, *, mesh, axis: str,
 
     stage_fn: (params, x) -> y with x.shape == y.shape (activations hop
       between stages, so stage boundaries share one activation shape).
-    stage_params: every stage's parameters, stacked over a leading stage
-      dim (rank ``s`` holds stage ``s``).
+    stage_params: the parameters of the stages this process holds (every
+      stage on a stacked mesh), stacked over a leading stage dim (rank
+      ``s`` holds stage ``s``).
     x_micro: (M, mb, ...) microbatched input (replicated across stages).
 
     Returns (M, mb, ...): the last stage's emissions.
@@ -53,8 +62,10 @@ def pipeline_apply(stage_fn, stage_params, x_micro, *, mesh, axis: str,
     m = x_micro.shape[0]
     ticks = m + num_stages - 1
     perm = [(i, i + 1) for i in range(num_stages - 1)]
+    stages = mesh.local_ranks(axis)
     params = [tree_map(lambda t, s=s: t[s], stage_params)
-              for s in range(num_stages)]
+              for s in range(len(stages))]
+    first = torch.ones((), dtype=torch.bool, device=x_micro.device)
 
     def body(p, x):
         if checkpoint:
@@ -62,34 +73,37 @@ def pipeline_apply(stage_fn, stage_params, x_micro, *, mesh, axis: str,
                                                      use_reentrant=False)
         return stage_fn(p, x)
 
-    buf = torch.zeros((num_stages,) + tuple(x_micro.shape[1:]),
+    buf = torch.zeros((len(stages),) + tuple(x_micro.shape[1:]),
                       dtype=x_micro.dtype, device=x_micro.device)
-    emits = []
+    outs = []
     for t in range(ticks):
         # stage 0 ingests microbatch t (clamped during drain)
-        cur = [x_micro[min(t, m - 1)]] + [buf[s]
-                                           for s in range(1, num_stages)]
-        out = torch.stack([body(params[s], cur[s])
-                           for s in range(num_stages)])
+        feed = x_micro[min(t, m - 1)]
+        cur = [torch.where(first, feed, buf[i]) if s == 0 else buf[i]
+               for i, s in enumerate(stages)]
+        out = torch.stack([body(params[i], cur[i])
+                           for i in range(len(stages))])
         # hop to the next stage (rank s -> s+1)
         buf = mesh.ppermute(out, axis, perm)
         # the last stage emits microbatch t - (S-1) at tick t
         if t >= num_stages - 1:
-            emits.append(out[num_stages - 1])
-    return torch.stack(emits)                   # (M, mb, ...)
+            outs.append(out)
+    return mesh.take(torch.stack(outs, 1), axis,
+                     num_stages - 1)            # (M, mb, ...)
 
 
 def make_pipeline(stage_fn, mesh, *, axis: str, checkpoint: bool = True):
     """End-to-end pipeline over ``axis`` of ``mesh``.
 
     Returns ``run(stacked_params, x_micro) -> (M, mb, ...)``, where
-    ``stacked_params`` has a leading stage dim of the axis's size and
+    ``stacked_params`` has a leading stage dim of the stages the process
+    holds (the axis's size on a stacked mesh) and
     ``x_micro`` is the (M, mb, ...) microbatched input; the result is the
     last stage's emissions."""
     num_stages = mesh.shape[axis]
 
     def run(stacked_params, x_micro):
-        _check_stages(stacked_params, num_stages)
+        _check_stages(stacked_params, len(mesh.local_ranks(axis)))
         return pipeline_apply(stage_fn, stacked_params, x_micro, mesh=mesh,
                               axis=axis, num_stages=num_stages,
                               checkpoint=checkpoint)

@@ -6,12 +6,15 @@ port's stacked-rank mesh (:class:`repro_torch.mesh.Mesh`).
 shape audits.  ``make_local_mesh`` stacks ``ranks`` virtual ranks on one
 device — the counterpart of the reference's mesh over ``jax.devices()``
 (whose tests set the device count with ``XLA_FLAGS``).
+``make_process_mesh`` spreads the same layout over the processes of a
+``torch.distributed`` group — the counterpart of the reference's mesh
+over every process's devices after ``jax.distributed.initialize``.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.mesh import Mesh, make_mesh
+from repro_torch.mesh import Mesh, ProcessMesh, make_mesh, make_process_mesh as _process_mesh
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
@@ -32,3 +35,15 @@ def make_local_mesh(model_parallel: int = 1, *, ranks: int | None = None,
     assert n % model_parallel == 0, (n, model_parallel)
     return make_mesh((n // model_parallel, model_parallel),
                      ("data", "model"), device=device)
+
+
+def make_process_mesh(model_parallel: int = 1, *, ranks: int | None = None,
+                      group=None, device=None) -> ProcessMesh:
+    """``(ranks // model_parallel, model_parallel)`` over ``("data",
+    "model")``, its ``data`` ranks split over the processes of ``group``
+    (default: the world; a contiguous block of them a process), on
+    ``device`` (``None``: the CUDA card)."""
+    n = model_parallel if ranks is None else ranks
+    assert n % model_parallel == 0, (n, model_parallel)
+    return _process_mesh((n // model_parallel, model_parallel),
+                         ("data", "model"), device=device, group=group)

@@ -46,8 +46,19 @@ partitioner, and PyTorch on one device has no counterpart to it.  A
 ``model``-mapped dim is a storage shard, gathered before use, so
 ``--model-parallel N`` computes the reference's numbers with another set
 of collectives: the mesh's counted bytes are those of the gathers and
-psums, not the reference's HLO collectives.  Runs across processes need
-the ``torch.distributed`` backend (:data:`DISTRIBUTED`).
+psums, not the reference's HLO collectives.
+
+**Across processes** (:class:`repro_torch.mesh.ProcessMesh`: the first
+mesh axis's ranks split over the processes of a ``torch.distributed``
+group) the step runs the ranks the process holds: its batch argument is
+its own ranks' rows (the global batch is the processes' batches in
+process order), the loops go over its local data ranks, the
+microbatch's token count is summed over the processes (uncounted: the
+stacked mesh sums it in place), and the gradients' and metrics' psums
+cross processes, folded in rank order as on the stacked mesh, so every
+process ends the step with the stacked step's parameters, state and
+metrics bit for bit.  An MoE unit must not span two processes.  The
+plan, ``_dp_degree`` and the MoE groups stay global.
 
 **The serve cells** (``make_prefill_cell``, ``make_decode_cell``) lay
 out the serve plan (:func:`_serve_plan`): bf16 inference parameters and
@@ -56,7 +67,11 @@ and gathered (counted) before use, the new caches cut back to the
 blocks.  Prefill and decode are row by row apart from the MoE dispatch,
 whose groups are the data ranks' contiguous rows, so the step runs every
 rank's rows in one call over the global batch: each data rank's part of
-it is that rank's prefill or decode.  The reference's ``donate`` (buffer
+it is that rank's prefill or decode.  Across processes a process runs
+its own data ranks' rows: its batch, tokens and positions are theirs, the
+parameters are gathered whole, the caches from the blocks it holds
+(:meth:`~repro_torch.mesh.ProcessMesh.unshard_local`), and a sequence
+sharded over the data ranks (``shard_seq``) is refused.  The reference's ``donate`` (buffer
 donation to XLA) has no counterpart: the step returns new caches and
 leaves the caller's as they were.
 
@@ -85,10 +100,6 @@ from repro_torch.optim import (clip_by_global_norm, cosine_warmup,
                                make_optimizer)
 from repro_torch.optim.api import opt_state_axes
 from repro_torch.pytree import flatten_with_paths, tree_map, unflatten_like
-
-#: What a run across processes needs (named by the refusals).
-DISTRIBUTED = "the torch.distributed backend for Mesh (ROADMAP.md §1)"
-
 
 class _MetaGenerator(torch.Generator):
     """A generator whose draws land on the ``meta`` device (shapes only,
@@ -206,9 +217,12 @@ _BATCH_AXES = {
 }
 
 
-def _meta_batch(plan, fields):
-    """(batch of ``meta`` tensors, its specs) of ``fields``."""
-    return ({k: torch.empty(sh, dtype=dt, device="meta")
+def _meta_batch(plan, fields, processes: int = 1):
+    """(batch of ``meta`` tensors, its specs) of ``fields``: one
+    process's rows of the global batch (the specs are the global
+    batch's)."""
+    return ({k: torch.empty((sh[0] // processes,) + tuple(sh[1:]),
+                            dtype=dt, device="meta")
              for k, (sh, dt) in fields.items()},
             {k: plan.spec(sh, _BATCH_AXES[k])
              for k, (sh, _) in fields.items()})
@@ -280,14 +294,26 @@ def make_train_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
                                                else None)
                        if mesh.shape[a] > 1)
     k = math.prod(mesh.shape[a] for a in batch_axes)   # batch shards
+    k_loc = math.prod(mesh.local_shape[a] for a in batch_axes)  # held here
     if b % (k * n_micro):
         raise ValueError(f"batch {b} does not split into {k} ranks x "
                          f"{n_micro} microbatches")
+    if k_loc * mesh.processes != k:
+        raise ValueError(
+            f"the batch's rank axes {batch_axes} do not split over the "
+            f"{mesh.processes} processes: a process runs the rows of its "
+            "own data ranks")
     # units: ranks and MoE groups that overlap run together
     g_eff = moe_groups(groups, b // n_micro) if cfg.moe is not None else k
     n_units = math.gcd(k, g_eff)
     unit_groups = g_eff // n_units
     per_unit = k // n_units
+    if k_loc % per_unit:
+        raise ValueError(
+            f"an MoE unit of {per_unit} ranks (ranks and dispatch groups "
+            "that overlap run as one forward) would span two processes, "
+            f"each of which holds {k_loc}: the unit's ranks must divide a "
+            "process's ranks")
     rows = b // k                                      # a rank's rows
 
     def shard_act(x):
@@ -295,7 +321,8 @@ def make_train_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
                               shape=(x.shape[0] * n_units,) + x.shape[1:])
 
     def rank_micro(batch, r, i):
-        """Rank ``r``'s microbatch ``i``: its rows, strided."""
+        """Local rank ``r``'s microbatch ``i``: its rows of the process's
+        batch, strided."""
         def part(x):
             x = x[r * rows:(r + 1) * rows]
             if n_micro == 1:
@@ -309,15 +336,17 @@ def make_train_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
         _, flat = flatten_with_paths(full)
         leaves_flat = [p.detach().requires_grad_(True) for p in flat]
         leaves = unflatten_like(full, leaves_flat)
-        grads = [[None] * len(flat) for _ in range(k)]
-        stats = torch.zeros((k, 3), dtype=torch.float32,
+        grads = [[None] * len(flat) for _ in range(k_loc)]
+        stats = torch.zeros((k_loc, 3), dtype=torch.float32,
                             device=leaves_flat[0].device)
         for i in range(n_micro):
-            parts = [rank_micro(batch, r, i) for r in range(k)]
-            n_tok = sum(_tokens(p) for p in parts)
+            parts = [rank_micro(batch, r, i) for r in range(k_loc)]
+            # the microbatch's tokens over every process (not counted:
+            # the stacked mesh sums them in place)
+            n_tok = mesh.total(sum(_tokens(p) for p in parts))
             n_tok = (torch.clamp(n_tok, min=1.0) if torch.is_tensor(n_tok)
                      else max(n_tok, 1))
-            for u in range(n_units):
+            for u in range(k_loc // per_unit):
                 ranks = range(u * per_unit, (u + 1) * per_unit)
                 ub = {key: torch.cat([parts[r][key] for r in ranks])
                       for key in parts[0]}
@@ -338,10 +367,10 @@ def make_train_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
                                 for a, g in zip(grads[r], gs)]
                     stats[r] += shares[j].detach()
         if k > 1:
-            lead = tuple(mesh.shape[a] for a in batch_axes)
+            lead = tuple(mesh.local_shape[a] for a in batch_axes)
             summed = [mesh.psum(torch.stack([
                 torch.zeros_like(p) if grads[r][j] is None else grads[r][j]
-                for r in range(k)]).reshape(lead + tuple(p.shape)),
+                for r in range(k_loc)]).reshape(lead + tuple(p.shape)),
                 batch_axes) for j, p in enumerate(flat)]
             stats = mesh.psum(stats.reshape(lead + (3,)), batch_axes)
         else:
@@ -372,7 +401,8 @@ def make_train_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
         return params, opt_state, dict(metrics, loss=loss, grad_norm=gnorm,
                                        lr=lr)
 
-    batch_args, batch_specs = _meta_batch(plan, _batch_fields(cfg, shape))
+    batch_args, batch_specs = _meta_batch(plan, _batch_fields(cfg, shape),
+                                          mesh.processes)
     args = (map_specs(mesh.shard, p_shapes, param_specs),
             map_specs(mesh.shard, o_shapes, opt_specs), batch_args,
             torch.empty((), dtype=torch.int32, device="meta"))
@@ -408,10 +438,21 @@ def _serve_cell(cfg, shape, mesh):
     model = build_model(cfg)
     plan = _serve_plan(mesh, shape)
     dp = _dp_degree(mesh)
-    groups = 1 if shape.global_batch < dp else dp
+    if shape.global_batch < dp and mesh.processes > 1:
+        raise ValueError(
+            f"a global batch of {shape.global_batch} below the data-"
+            f"parallel degree {dp} shards the sequence over the data "
+            f"ranks (shard_seq); over {mesh.processes} processes each "
+            "would need the others' sequence blocks, which the process "
+            "mesh does not exchange")
+    groups = 1 if shape.global_batch < dp else dp // mesh.processes
 
     def shard_act(x):
-        return plan.constrain(x, (tp.BATCH, None, None))
+        # a process holds its data ranks' rows: the spec is the global
+        # batch's
+        return plan.constrain(x, (tp.BATCH, None, None),
+                              shape=(x.shape[0] * mesh.processes,)
+                              + tuple(x.shape[1:]))
 
     p_shapes, p_axes = param_shapes(model, torch.bfloat16)
     c_shapes, c_axes = _cache_shapes(model, shape.global_batch,
@@ -443,15 +484,15 @@ def make_prefill_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
      cache_specs, empty_caches) = _serve_cell(cfg, shape, mesh)
     fields = _batch_fields(cfg, shape)
     fields.pop("labels")
-    batch_args, batch_specs = _meta_batch(plan, fields)
+    batch_args, batch_specs = _meta_batch(plan, fields, mesh.processes)
 
     def prefill_step(params, batch, caches):
         logits, new = model.prefill(
             map_specs(mesh.unshard, params, param_specs), batch,
-            map_specs(mesh.unshard, caches, cache_specs), impl=attn_impl,
-            compute_dtype=torch.bfloat16, groups=groups,
+            map_specs(mesh.unshard_local, caches, cache_specs),
+            impl=attn_impl, compute_dtype=torch.bfloat16, groups=groups,
             shard_fn=shard_act)
-        return logits, map_specs(mesh.shard, new, cache_specs)
+        return logits, map_specs(mesh.shard_local, new, cache_specs)
 
     args = (map_specs(mesh.shard, p_shapes, param_specs), batch_args,
             map_specs(mesh.shard, c_shapes, cache_specs))
@@ -474,12 +515,13 @@ def make_decode_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
     def decode_step(params, caches, tokens, pos):
         logits, new = model.decode_step(
             map_specs(mesh.unshard, params, param_specs),
-            map_specs(mesh.unshard, caches, cache_specs), tokens, pos,
+            map_specs(mesh.unshard_local, caches, cache_specs), tokens, pos,
             impl=attn_impl, groups=groups, compute_dtype=torch.bfloat16,
             shard_fn=shard_act)
-        return logits, map_specs(mesh.shard, new, cache_specs)
+        return logits, map_specs(mesh.shard_local, new, cache_specs)
 
-    rows = torch.empty((b,), dtype=torch.int32, device="meta")
+    rows = torch.empty((b // mesh.processes,), dtype=torch.int32,
+                       device="meta")
     args = (map_specs(mesh.shard, p_shapes, param_specs),
             map_specs(mesh.shard, c_shapes, cache_specs), rows, rows)
     return CellSpec("decode", mesh, plan, decode_step, model, args,

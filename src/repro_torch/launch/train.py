@@ -8,9 +8,18 @@ microbatched train step over a mesh of ranks stacked on one device
 with async checkpoints and the straggler monitor together, on the CUDA
 card unless ``--device cpu`` is given.  A checkpoint holds the whole
 (gathered) parameter and optimizer-state trees, so a sharded run and an
-unsharded one restore each other's.  A run across processes
-(``--coordinator``, ``--num-hosts`` > 1) needs the ``torch.distributed``
-backend and is refused.
+unsharded one restore each other's, whatever the host count.
+
+Across processes (``--coordinator HOST:PORT --num-hosts N --host-id I``,
+one command a host) the hosts join one ``torch.distributed`` group
+(NCCL on the card, gloo with ``--device cpu``; host 0 serves the
+rendezvous at ``HOST:PORT``), and ``--ranks`` (global) ranks form a
+:class:`~repro_torch.mesh.ProcessMesh` split along ``data`` over the
+hosts.  Each host draws its own rows with ``shard=host_id,
+num_shards=num_hosts``, as the reference's launcher does: the global batch
+is the hosts' batches in host order.  Every host writes its shard into one
+step directory, committed by host 0 after a barrier.  The process group
+is destroyed on the way out, on failure too.
 
 Examples:
   # a smoke-size model for 300 steps on the CPU
@@ -24,11 +33,18 @@ Examples:
   # 4 ranks, 2 along the model axis (a (2, 2) mesh)
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b \\
       --smoke --model-parallel 2 --ranks 4 --device cpu
+
+  # the same mesh over two processes (two data ranks each), one command
+  # a host
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b \\
+      --smoke --model-parallel 2 --ranks 4 --device cpu \\
+      --coordinator 127.0.0.1:29500 --num-hosts 2 --host-id 0   # and 1
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import logging
 import time
 
@@ -55,7 +71,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--coordinator", default=None,
-                    help="multi-host coordinator address")
+                    help="HOST:PORT of host 0's rendezvous (a run across "
+                    "processes)")
     ap.add_argument("--num-hosts", type=int, default=1)
     ap.add_argument("--host-id", type=int, default=0)
     ap.add_argument("--device", default=None,
@@ -64,28 +81,57 @@ def main(argv=None) -> dict:
 
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")
+    if args.num_hosts > 1 and not args.coordinator:
+        raise ValueError(f"--num-hosts {args.num_hosts} needs --coordinator "
+                         "HOST:PORT")
+    if not 0 <= args.host_id < args.num_hosts:
+        raise ValueError(f"--host-id {args.host_id} is not one of the "
+                         f"{args.num_hosts} hosts")
+    from repro_torch.mesh import resolve_device
+
+    device = resolve_device(args.device)
+    if not args.coordinator:
+        return _run(args, device)
+    import torch.distributed as dist
+
+    if device.type == "cuda":
+        if device.index is None:
+            device = torch.device("cuda",
+                                  args.host_id % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            init_method=f"tcp://{args.coordinator}",
+                            world_size=args.num_hosts, rank=args.host_id)
+    try:
+        return _run(args, device)
+    finally:
+        dist.destroy_process_group()
+
+
+def _run(args, device) -> dict:
+    """The run of :func:`main` on ``device`` (in the process group when
+    ``args.coordinator`` is set)."""
     from repro_torch.checkpoint import Checkpointer
     from repro_torch.configs import (ShapeConfig, get_config,
                                      recommended_train_config, smoke_config)
     from repro_torch.data import make_batch_iterator
-    from repro_torch.launch.mesh import make_local_mesh
-    from repro_torch.launch.steps import DISTRIBUTED, make_train_cell
-    from repro_torch.mesh import resolve_device
-    from repro_torch.models.blocks import not_ported
+    from repro_torch.launch.mesh import make_local_mesh, make_process_mesh
+    from repro_torch.launch.steps import make_train_cell
     from repro_torch.pytree import tree_map
     from repro_torch.runtime import FaultTolerantLoop, StragglerMonitor
 
-    if args.coordinator or args.num_hosts > 1:
-        raise not_ported("a multi-host run (--coordinator)", DISTRIBUTED)
-    device = resolve_device(args.device)
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     train_cfg = dataclasses.replace(
         recommended_train_config(cfg),
         learning_rate=args.lr, total_steps=args.steps,
         warmup_steps=max(1, args.steps // 20))
     shape = ShapeConfig("cli", args.seq_len, args.batch, "train")
-    mesh = make_local_mesh(args.model_parallel, ranks=args.ranks,
-                           device=device)
+    if args.coordinator:
+        mesh = make_process_mesh(args.model_parallel, ranks=args.ranks,
+                                 device=device)
+    else:
+        mesh = make_local_mesh(args.model_parallel, ranks=args.ranks,
+                               device=device)
     cell = make_train_cell(cfg, shape, mesh, train_cfg)
 
     gen = torch.Generator(device=device).manual_seed(train_cfg.seed)
@@ -94,7 +140,8 @@ def main(argv=None) -> dict:
     params, opt_state = cell.place(params)
 
     def batch_at(step):
-        """The batch of ``step`` (keyed by it: a restored run replays)."""
+        """This host's rows of the batch of ``step`` (keyed by it: a
+        restored run replays)."""
         encdec = cfg.family == "encdec"
         batch = next(make_batch_iterator(
             vocab_size=cfg.vocab_size, batch=args.batch,
@@ -104,9 +151,19 @@ def main(argv=None) -> dict:
             frames=cfg.encoder.n_frames if encdec else None))
         return tree_map(lambda x: x.to(device), batch)
 
+    barrier = None
+    if args.coordinator:
+        import torch.distributed as dist
+
+        # checkpoints commit on a host-side group of their own: the async
+        # save's barrier runs on a thread beside the step's collectives
+        ckpt_group = dist.new_group(backend="gloo")
+
+        def barrier():
+            dist.barrier(group=ckpt_group)
     ckpt = GatheringCheckpointer(
         Checkpointer(args.ckpt_dir, host_id=args.host_id,
-                     num_hosts=args.num_hosts), cell)
+                     num_hosts=args.num_hosts, barrier=barrier), cell)
     monitor = StragglerMonitor()
     history: list[float] = []
 
@@ -138,6 +195,7 @@ def main(argv=None) -> dict:
     ckpt.save(args.steps, state)
     if len(history) >= 2:
         log.info("loss: first %.4f -> last %.4f", history[0], history[-1])
+    log.info("losses %s", json.dumps(history))       # every digit
     params, opt_state = cell.gather(*state)
     return {"params": params, "opt_state": opt_state, "losses": history,
             "start": start, "mesh": mesh}
@@ -162,11 +220,17 @@ class GatheringCheckpointer:
         self.ckpt.wait()
 
     def restore_latest(self, like):
-        got = self.ckpt.restore_latest(self.cell.gather(*like))
-        if got is None:
+        """The newest step, laid out on the cell's mesh.  Every host's
+        shard holds the whole trees, so a host beyond the checkpoint's
+        host count reads one that is there."""
+        whole = self.cell.gather(*like)
+        steps = self.ckpt.list_steps()
+        if not steps:
             return None
-        step, (params, opt_state) = got
-        return step, self.cell.place(params, opt_state)
+        hosts = self.ckpt.manifest(steps[-1])["num_hosts"]
+        params, opt_state = self.ckpt.restore(
+            steps[-1], whole, shard=self.ckpt.host_id % hosts)
+        return steps[-1], self.cell.place(params, opt_state)
 
 
 if __name__ == "__main__":

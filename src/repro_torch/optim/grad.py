@@ -82,16 +82,17 @@ def _compressed_allreduce_leaf(g, err, mesh, axis):
     Wire ~ S/4 + S/4 int8 bytes vs ~2S fp32 for a ring all-reduce: ~4x.
     Error feedback makes the long-run average exact."""
     p = mesh.shape[axis]
-    flat = g.reshape(p, -1).float()
+    # the ranks this process holds (every rank on a stacked mesh)
+    flat = g.reshape(g.shape[0], -1).float()
     n = flat.shape[1]
     k = -(-n // p)
     pad = p * k - n
-    err_f = err.reshape(p, -1).float()
+    err_f = err.reshape(err.shape[0], -1).float()
     if pad:
         flat = torch.nn.functional.pad(flat, (0, pad))
         err_f = torch.nn.functional.pad(err_f, (0, pad))
     q, scale, new_err = _compress_ranks(flat, err_f)
-    recv = mesh.all_to_all(q.reshape(p, p, 1, k), axis, 0, 0)[:, :, 0]
+    recv = mesh.all_to_all(q.reshape(-1, p, 1, k), axis, 0, 0)[:, :, 0]
     scales = mesh.all_gather(scale, axis)                     # (P,)
     seg_mean = torch.sum(recv.float() * scales[None, :, None],
                          dim=1) / p                           # (P, k)
@@ -107,8 +108,9 @@ def compressed_allreduce_tree(grads, errors, *, mesh, axis: str):
     """int8 error-feedback gradient mean across ``axis`` of ``mesh``.
 
     ``grads`` and ``errors`` hold every rank's tensor stacked over a
-    leading rank dim (P, ...); returns (the mean tree, one tensor per
-    leaf as every rank receives it; the new error tree (P, ...)).  Its
+    leading rank dim (P, ...; on a :class:`~repro_torch.mesh.ProcessMesh`
+    split along ``axis``, the ranks the process holds); returns (the mean tree, one tensor per
+    leaf as every rank receives it; the new error tree, per rank).  Its
     counted bytes (``mesh.bytes``: one ``all_to_all`` and three
     ``all_gather`` a leaf) are ~1/4 of a float ``psum``'s."""
     return tree_unzip(tree_map(

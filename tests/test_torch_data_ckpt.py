@@ -189,8 +189,8 @@ def test_fault_tolerant_loop_recovers_to_the_uninterrupted_run(tmp_path):
 def test_train_entry_point_runs_three_steps_on_the_cpu(tmp_path):
     """``python -m repro_torch.launch.train --smoke --device cpu``: three
     steps, a checkpoint at the end; a second run (in this process)
-    resumes from it; a run across processes (``--coordinator``) raises
-    naming the distributed backend."""
+    resumes from it; a ``--host-id`` outside the hosts raises before any
+    process group is formed."""
     from repro_torch.launch import train
 
     args = ["--arch", "gemma3-1b", "--smoke", "--steps", "3", "--batch",
@@ -205,15 +205,16 @@ def test_train_entry_point_runs_three_steps_on_the_cpu(tmp_path):
     assert sorted(os.listdir(tmp_path / "ck")) == ["step_00000003"]
     again = train.main(args)
     assert again["start"] == 3 and again["losses"] == []
-    with pytest.raises(NotImplementedError, match="torch.distributed "
-                       "backend"):
-        train.main(args + ["--coordinator", "localhost:1234"])
+    with pytest.raises(ValueError, match="--host-id 1 is not one of"):
+        train.main(args + ["--coordinator", "localhost:1234",
+                           "--host-id", "1"])
 
 
 def test_train_entry_point_across_ranks(tmp_path):
     """``--model-parallel 2 --ranks 4``: two steps on a (2, 2) mesh, its
     gathers and psums counted, a checkpoint of the whole trees, which a
-    one-rank run resumes from; ``--num-hosts 2`` is refused."""
+    one-rank run resumes from; ``--num-hosts 2`` without a coordinator
+    is refused."""
     from repro_torch.launch import train
 
     args = ["--arch", "gemma3-1b", "--smoke", "--steps", "2", "--batch",
@@ -227,8 +228,7 @@ def test_train_entry_point_across_ranks(tmp_path):
     assert got["params"]["embed"].shape == (512, 128)
     again = train.main(args)
     assert again["start"] == 2 and again["losses"] == []
-    with pytest.raises(NotImplementedError, match="torch.distributed "
-                       "backend"):
+    with pytest.raises(ValueError, match="needs --coordinator"):
         train.main(args + ["--num-hosts", "2"])
 
 

@@ -34,9 +34,11 @@ def _compile_each_way(omp, prog, mesh):
                                paper_master_excluded=excluded))
 
 
-@pytest.mark.parametrize("p", [2, 3, 8])
-@pytest.mark.parametrize("family", td.BLOCK_FAMILIES + REGION_FAMILIES)
-def test_every_family_matches_jax_reference_under_master_worker(family, p):
+MASTER_WORKER_P = [2, 3, 8]
+MASTER_WORKER_FAMILIES = td.BLOCK_FAMILIES + REGION_FAMILIES
+
+
+def every_family_matches_jax_reference_under_master_worker(family, p):
     from repro_torch import omp
 
     seed = 7000 + 10 * p + (td.BLOCK_FAMILIES + REGION_FAMILIES).index(family)

@@ -113,8 +113,10 @@ def _assert_env(got, want, label):
                                    err_msg=f"{label} key={k!r}")
 
 
-@pytest.mark.parametrize("name", sorted(DIMS))
-def test_polybench_kernel_matches_reference(name):
+POLYBENCH_KERNEL_MATCHES_REFERENCE_NAME = sorted(DIMS)
+
+
+def polybench_kernel_matches_reference(name):
     """Both block lowerings on 1, 2 and 4 ranks == the reference's
     ``run_reference`` on the same numpy env (every key: the blocks'
     intermediates too)."""
@@ -131,8 +133,10 @@ def test_polybench_kernel_matches_reference(name):
                         f"{name} P={p} {lowering}")
 
 
-@pytest.mark.parametrize("name", sorted(DIMS))
-def test_polybench_kernel_matches_reference_pallas(name):
+POLYBENCH_KERNEL_MATCHES_REFERENCE_PALLAS_NAME = sorted(DIMS)
+
+
+def polybench_kernel_matches_reference_pallas(name):
     """The port's kernel lowering on one rank == the reference's Pallas
     lowering (interpret mode) on a one-device mesh named ``"data"``."""
     import jax
@@ -151,8 +155,10 @@ def test_polybench_kernel_matches_reference_pallas(name):
                 f"{name} kernel-vs-pallas")
 
 
-@pytest.mark.parametrize("shard", [False, True])
-def test_jacobi2d_plan_artifacts_equal_reference(shard):
+JACOBI2D_PLAN_ARTIFACTS_EQUAL_REFERENCE_SHARD = [False, True]
+
+
+def jacobi2d_plan_artifacts_equal_reference(shard):
     """jacobi2d's ``DistPlan`` (its strategies: ``A`` replicated, or read
     through halo windows when inputs are sliced) and ``KernelPlan`` spans
     equal the reference's on 1, 2 and 4 ranks; its generated kernel,
@@ -225,15 +231,19 @@ def _check_blocks(name, p, seed=9):
     return sources
 
 
-@pytest.mark.parametrize("name", sorted(DIMS))
-def test_polybench_generated_kernels(name):
+POLYBENCH_GENERATED_KERNELS_NAME = sorted(DIMS)
+
+
+def polybench_generated_kernels(name):
     for p in (1, 4):
         _check_blocks(name, p)
 
 
-@pytest.mark.parametrize("name", ["gemm", "covariance", "atax", "syr2k",
-                                  "gesummv", "jacobi2d"])
-def test_polybench_value_axes_tiled(name, monkeypatch):
+POLYBENCH_VALUE_AXES_TILED_NAME = ["gemm", "covariance", "atax", "syr2k",
+                                  "gesummv", "jacobi2d"]
+
+
+def polybench_value_axes_tiled(name, monkeypatch):
     """With the register-tile cap lowered to 16 elements, value axes of
     22-30 elements no longer fit one tile: products split their output
     over the grid's value axis, stores loop over tiles, and

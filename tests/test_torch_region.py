@@ -380,9 +380,11 @@ def check_region(case, mesh_shape, axes) -> dict:
     return outs
 
 
-@pytest.mark.parametrize("p", [1, 2, 4, 8])
-@pytest.mark.parametrize("family", FAMILIES + FAMILIES2)
-def test_region_family_outputs_match_jax(family, p):
+REGION_FAMILY_OUTPUTS_MATCH_JAX_P = [1, 2, 4, 8]
+REGION_FAMILY_OUTPUTS_MATCH_JAX_FAMILY = FAMILIES + FAMILIES2
+
+
+def region_family_outputs_match_jax(family, p):
     case, shape, axes = _case(family, p, 4000 + 10 * p
                               + (FAMILIES + FAMILIES2).index(family))
     check_region(case, shape, axes)

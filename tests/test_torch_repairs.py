@@ -199,8 +199,10 @@ def _check_block(prog, jprog, env_np):
                 f"{prog.name} kernel-vs-pallas")
 
 
-@pytest.mark.parametrize("rank", [1, 2])
-def test_cumsum_along_a_row_matches_reference(rank, monkeypatch):
+CUMSUM_ALONG_A_ROW_MATCHES_REFERENCE_RANK = [1, 2]
+
+
+def cumsum_along_a_row_matches_reference(rank, monkeypatch):
     """``aten.cumsum`` along a per-lane row compiles to ``tl.cumsum``
     over the row's register tile, summed in float32; with the register-
     tile cap lowered to 16 the row is swept tile by tile and the running
@@ -232,8 +234,10 @@ def test_cumsum_along_a_row_matches_reference(rank, monkeypatch):
         tsk._check_family((prog, env), shape, axes, "replicate")
 
 
-@pytest.mark.parametrize("cap", [None, 16])
-def test_roll_of_a_scan_matches_reference(cap, monkeypatch):
+ROLL_OF_A_SCAN_MATCHES_REFERENCE_CAP = [None, 16]
+
+
+def roll_of_a_scan_matches_reference(cap, monkeypatch):
     """``roll(cumsum(row), s)`` scans the rolled row once, in two
     segments (positions below ``s`` continue from the sum of the row
     before ``k - s``): in the whole row's tile, and, with the register-
@@ -322,8 +326,10 @@ def test_roll_of_a_lane_scalar_is_the_identity():
                                    (2.0 * src).numpy(), rtol=1e-6)
 
 
-@pytest.mark.parametrize("p", [1, 2])
-def test_roll_of_a_forwarded_register_tile_matches_reference(p,
+ROLL_OF_A_FORWARDED_REGISTER_TILE_MATCHES_REFERENCE_P = [1, 2]
+
+
+def roll_of_a_forwarded_register_tile_matches_reference(p,
                                                              monkeypatch):
     """A stage that rolls a row the stage before it in the same span
     stored in one register tile (``V``, forwarded): the kernel emits the
@@ -510,10 +516,12 @@ def _text(prog, env, rank=1):
                        env_like=env).kernel_plan.spans[0].source.text
 
 
-@pytest.mark.parametrize("cap", [None, 16])
-@pytest.mark.parametrize("body", ["math", "nan", "cumprod", "gather",
-                                  "sort"])
-def test_former_refusals_match_reference(body, cap, monkeypatch):
+FORMER_REFUSALS_MATCH_REFERENCE_CAP = [None, 16]
+FORMER_REFUSALS_MATCH_REFERENCE_BODY = ["math", "nan", "cumprod", "gather",
+                                  "sort"]
+
+
+def former_refusals_match_reference(body, cap, monkeypatch):
     """Pointwise math (Triton's functions and libdevice's; a NaN clamped
     or through ``maximum``/``minimum`` stays NaN), ``cumprod``
     along a row (whole, carried from tile to tile, rolled, in the grid's
@@ -615,8 +623,10 @@ def test_sort_indices_stay_refused_naming_themselves(monkeypatch):
     omp.clear_compile_cache()
 
 
-@pytest.mark.parametrize("p", [1, 2])
-def test_row_handed_over_tile_by_tile_matches_reference(p, monkeypatch):
+ROW_HANDED_OVER_TILE_BY_TILE_MATCHES_REFERENCE_P = [1, 2]
+
+
+def row_handed_over_tile_by_tile_matches_reference(p, monkeypatch):
     """A later span stage reads a row an earlier stage stored tile by tile
     (the register-tile cap lowered to 16, rows of 40): it re-loads the
     lane's own stored rows after a block-wide barrier.  One span, the key

@@ -292,24 +292,30 @@ def _check_family(case, mesh_shape, axes, shard):
                 prog.name
 
 
-@pytest.mark.parametrize("family", td.BLOCK_FAMILIES)
-@pytest.mark.parametrize("p", [1, 3])
-@pytest.mark.parametrize("shard", ["replicate", "slice"])
-def test_generated_kernel_matches_plain_rank1(family, p, shard):
+GENERATED_KERNEL_MATCHES_PLAIN_RANK1_FAMILY = td.BLOCK_FAMILIES
+GENERATED_KERNEL_MATCHES_PLAIN_RANK1_P = [1, 3]
+GENERATED_KERNEL_MATCHES_PLAIN_RANK1_SHARD = ["replicate", "slice"]
+
+
+def generated_kernel_matches_plain_rank1(family, p, shard):
     for seed in (11, 12):
         _check_family(td.make_case(seed, family), (p,), ("data",), shard)
 
 
-@pytest.mark.parametrize("family", td.BLOCK_FAMILIES2)
-@pytest.mark.parametrize("shape", [(1, 1), (2, 2)])
-@pytest.mark.parametrize("shard", ["replicate", "slice"])
-def test_generated_kernel_matches_plain_rank2(family, shape, shard):
+GENERATED_KERNEL_MATCHES_PLAIN_RANK2_FAMILY = td.BLOCK_FAMILIES2
+GENERATED_KERNEL_MATCHES_PLAIN_RANK2_SHAPE = [(1, 1), (2, 2)]
+GENERATED_KERNEL_MATCHES_PLAIN_RANK2_SHARD = ["replicate", "slice"]
+
+
+def generated_kernel_matches_plain_rank2(family, shape, shard):
     for seed in (21, 22):
         _check_family(td.make_case2(seed, family), shape, ("i", "j"), shard)
 
 
-@pytest.mark.parametrize("family", ["stencil", "combo", "matmul2"])
-def test_generated_kernel_with_64bit_offsets(family, monkeypatch):
+GENERATED_KERNEL_WITH_64BIT_OFFSETS_FAMILY = ["stencil", "combo", "matmul2"]
+
+
+def generated_kernel_with_64bit_offsets(family, monkeypatch):
     """Buffers past 2^29 elements switch the offsets to 64 bits; lowering
     the threshold runs that variant of the template on small inputs."""
     from repro_torch.kernels import span_kernel
@@ -321,7 +327,7 @@ def test_generated_kernel_with_64bit_offsets(family, monkeypatch):
         _check_family(td.make_case(41, family), (3,), ("data",), "slice")
 
 
-def test_generated_kernel_heat2d_halo_windows():
+def generated_kernel_heat2d_halo_windows():
     """A five-point collapse(2) sweep with sliced inputs: 2-D halo
     windows, rows and columns clamped into each chunk's window."""
     from repro_torch import omp
@@ -422,7 +428,7 @@ def test_unsupported_op_raises_compile_error_naming_it():
         _check_family((mm2, env), shape, ("i", "j"), "slice")
 
 
-def test_generated_product_forms(monkeypatch):
+def generated_product_forms(monkeypatch):
     """Products the generator lays out otherwise than PolyBench's: a
     computed per-lane row times a slice ``W[1]`` of a 3-D array read
     transposed, a matrix times the row (``M @ row``), a product reduced
@@ -526,8 +532,10 @@ def _roll_bodies(s):
     return n, (roll1, env1), (roll2, env2)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "int32"])
-def test_generated_row_sum_products_match_plain(dtype, monkeypatch):
+GENERATED_ROW_SUM_PRODUCTS_MATCH_PLAIN_DTYPE = ["float32", "int32"]
+
+
+def generated_row_sum_products_match_plain(dtype, monkeypatch):
     """Products without ``tl.dot``, emulated against the plain version on
     1 and 3 ranks, the register-tile cap at its default and at 16: a
     product one position wide (a one-column matrix, a one-column slice,
@@ -573,8 +581,10 @@ def test_generated_row_sum_products_match_plain(dtype, monkeypatch):
     omp.clear_compile_cache()
 
 
-@pytest.mark.parametrize("shift", [-1, 1, 0, "n+2"])
-def test_generated_roll_matches_plain(shift, monkeypatch):
+GENERATED_ROLL_MATCHES_PLAIN_SHIFT = [-1, 1, 0, "n+2"]
+
+
+def generated_roll_matches_plain(shift, monkeypatch):
     """``torch.roll`` along a per-lane value axis (``aten.roll``): the
     rolled value is emitted again at the wrapped positions ``(r - s) mod
     n``, on rank-1 and rank-2 nests, with the value axis whole and in
@@ -791,8 +801,10 @@ def _check_span_calls(comp, calls):
                                            err_msg=f"{st.plan.name} {k}")
 
 
-@pytest.mark.parametrize("p", [1, 3])
-def test_generated_multi_stage_span_matches_plain(p, monkeypatch):
+GENERATED_MULTI_STAGE_SPAN_MATCHES_PLAIN_P = [1, 3]
+
+
+def generated_multi_stage_span_matches_plain(p, monkeypatch):
     """Forwarded tiles (scalar and per-lane vector values, partial
     writes, stages starting at different iterations, rank 2): one
     generated kernel per span, equal to the stages' plain values."""
@@ -810,9 +822,11 @@ def test_generated_multi_stage_span_matches_plain(p, monkeypatch):
         _check_span_calls(comp, calls)
 
 
-@pytest.mark.parametrize("family", ["chain", "pingpong", "glue", "heat2d",
-                                    "transpose2"])
-def test_generated_region_family_spans_match_plain(family, monkeypatch):
+GENERATED_REGION_FAMILY_SPANS_MATCH_PLAIN_FAMILY = [
+    "chain", "pingpong", "glue", "heat2d", "transpose2"]
+
+
+def generated_region_family_spans_match_plain(family, monkeypatch):
     from repro_torch import omp
     from tests import test_torch_region as tr
 
