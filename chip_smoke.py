@@ -344,7 +344,23 @@ non-zero (no phase catches an error and carries on):
     mesh's, in turns; the group torn down (on failure too), then
     ``python -m repro_torch.launch.train --coordinator 127.0.0.1:<port>
     --num-hosts 1`` at smoke size in a process of its own, alone on the
-    card; K2 rows with the process mesh's launches.
+    card; K2 rows with the process mesh's launches;
+36. **the compiler over the process mesh** (``process_compile_phase``):
+    a one-process NCCL group again: (a) phase 16's five region programs,
+    phase 17's eleven PolyBench kernels (EXTRALARGE, 8 ranks, static) and
+    phase 3's jacobi1d compiled on a ``ProcessMesh`` and on the stacked
+    mesh under ``kernel``, ``collective``, ``fused`` and
+    ``master_worker``: every result equal bit for bit (a refusal equal),
+    with equal K1 launches and ``Mesh`` counters; (b) every K1 span of
+    (a) launched by its rank-window kernel (``generate_span(block=)``,
+    ``lo`` an argument) on every window of P/2 and of P/4 ranks, which a
+    world-1 process never reaches: each window against its plain version
+    (``hold_lanes``) and the windows joined == the full launch bit for
+    bit; the windowed kernels built by Triton eight at a time in threads;
+    times summed over windows beside the plain version and the spans'
+    bound (kernel-table rows per window size, regions and PolyBench);
+    (c) ``Compiled.run`` of gemm, jacobi1d and jacobi_chain under
+    ``kernel`` over both meshes, in turns.
 
 In phases 4, 15, 17 and 18 every span is also launched by K1's launcher
 and by Triton's launch path on the same feeds, equal bit for bit.
@@ -355,6 +371,7 @@ The last two lines are the kernel table as one JSON object and
 from __future__ import annotations
 
 import collections
+import dataclasses
 import json
 import math
 import re
@@ -1799,9 +1816,9 @@ def record_spans(span_kernel, run):
     calls = []
     wrapper = span_kernel.span_stage_values
 
-    def record(stages, source, device):
+    def record(stages, source, device, window=None):
         calls.append((list(stages), source))
-        return wrapper(stages, source, device)
+        return wrapper(stages, source, device, window=window)
 
     span_kernel.span_stage_values = record
     try:
@@ -5354,6 +5371,340 @@ def process_mesh_phase(torch, dev, card):
     return rows
 
 
+#: phase 36: the lowerings each program runs over the process mesh
+PROCESS_LOWERINGS = {"kernel": dict(lowering="kernel"),
+                     "collective": dict(lowering="collective"),
+                     "fused": dict(),
+                     "master_worker": dict(lowering="master_worker")}
+#: phase 36(c): programs timed under ``kernel`` over both meshes, in turns
+PROCESS_TURNS = ("gemm", "jacobi1d", "jacobi_chain")
+#: phase 36(b): rank windows of P / d ranks, for every d
+WINDOW_DIVISORS = (2, 4)
+REGION_NAMES = ("jacobi_chain", "heat3", "multifield", "heat2d_region",
+                "pipeline")
+
+
+def process_programs(omp, torch, dev):
+    """Phase 36's programs, one at a time: name -> (the programs run in
+    order, env, mesh shape, axes, compile options): phase 16's regions,
+    phase 17's PolyBench kernels at EXTRALARGE (static, 8 ranks) and
+    phase 3's jacobi1d sweep."""
+    from repro_torch import polybench as pb
+
+    for name, (reg, env, shape, axes) in region_programs(
+            omp, torch, dev).items():
+        yield name, ([reg], env, shape, axes, {})
+    for name in pb.LINEAR_ALGEBRA + pb.STENCILS:
+        k = pb.make(name)
+        yield name, (k.programs, k.env_fn(dev, seed=0), (PB_RANKS,),
+                     ("data",), dict(schedule=omp.static()))
+    blocks, env, shape, axes = jacobi1d_program(omp, torch, dev)
+    yield "jacobi1d", ([p for p, _ in blocks], env, shape, axes, {})
+
+
+def process_run(torch, omp, span_kernel, progs, env, mesh, opts):
+    """The programs compiled on ``mesh`` and run in order (twice under
+    ``kernel``: the first builds K1): ``(compiled programs, outputs, mesh
+    counters, K1 launches)`` of the last run, counts set to 0 just before
+    it; or the refusal."""
+    try:
+        comps = [omp.compile(p, mesh, **opts) for p in progs]
+        if opts.get("lowering") == "kernel":
+            run_blocks(comps, env)
+        else:
+            comps[0]._ensure(env)       # a refusal raises here
+    except omp.CompileError as e:
+        return f"CompileError: {e}"
+    torch.cuda.synchronize()
+    mesh.reset_counters()
+    span_kernel.LAUNCHES = 0
+    out = run_blocks(comps, env)
+    torch.cuda.synchronize()
+    return (comps, out, (dict(mesh.launches), dict(mesh.bytes)),
+            span_kernel.LAUNCHES)
+
+
+def window_sources(kernel_lower, comps, dev, block):
+    """The span kernels of ``comps`` (in launch order) generated for a
+    rank window of ``block`` ranks of the first nest axis."""
+    out = []
+    for c in comps:
+        if c.program.__class__.__name__ == "ParallelRegion":
+            kp = kernel_lower.plan_region_kernels(c.plan, dev, block=block)
+        else:
+            kp = kernel_lower.plan_block_kernel(
+                c.plan, c.program, name=c.program.name, device=dev,
+                block=block)
+        out += [sp.source for sp in kp.spans]
+    return out
+
+
+def warm_windows(torch, span_kernel, jobs, dev):
+    """Triton builds every windowed span kernel of ``jobs`` (``(source,
+    stage io)``), eight at a time in threads (each ``warmup`` compiles one
+    kernel, launching nothing), so that the launches that follow compile
+    nothing; raises what a build raised."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def build(job):
+        src, io = job
+        outs = [torch.empty(shape, dtype=dtype, device=dev)
+                for _, _, shape, dtype in src.outputs]
+        span_kernel._warm(src, span_kernel.kernel_args(src, io, 0, dev),
+                          outs)
+
+    for src, _ in jobs:
+        span_kernel._kernel(src)          # written and imported: serially
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        list(pool.map(build, jobs))
+
+
+def window_checks(torch, kernel_lower, span_kernel, calls, sources, dev,
+                  label):
+    """Phase 36(b) for one program: every span (its stacked run's feeds,
+    ``calls``) launched on every rank window ``(lo, P / d)`` by its
+    windowed kernel (``sources[d]``, in launch order): each window's
+    output against its plain version on the same window (``hold_lanes``),
+    and the windows joined along the rank dim == the full launch bit for
+    bit on every lane that holds an iteration.  Returns per ``d``:
+    (launches, max abs err, ms, plain ms) summed over spans and windows,
+    the launches read from K1's count, set to 0 just before each checked
+    window launch (the full launches and the timed ones not counted)."""
+    out = {}
+    for d, srcs in sources.items():
+        launches, err, ms, plain_ms = 0, 0.0, 0.0, 0.0
+        for (stages, full_src), src in zip(calls, srcs):
+            p = stages[0].plan.chunks_axes[0].num_devices
+            block = p // d
+            if src.window != (block, p):
+                raise AssertionError(f"{label}: window source {src.window}, "
+                                     f"want {(block, p)}")
+            full = span_kernel.launch_span(
+                full_src, [(st.ext_windows, st.env_repl) for st in stages],
+                dev)
+            parts = []
+            for lo in range(0, p, block):
+                mine = [dataclasses.replace(st, ext_windows={
+                    k: v.narrow(1, lo, block).contiguous()
+                    for k, v in st.ext_windows.items()}) for st in stages]
+                io = [(st.ext_windows, st.env_repl) for st in mine]
+                span_kernel.LAUNCHES = 0
+                got = span_kernel.launch_span(src, io, dev, lo=lo)
+                launches += span_kernel.LAUNCHES
+                want = span_kernel.span_values_plain_stages(
+                    mine, dev, (lo, block))
+                for st, g, w in zip(mine, got, want):
+                    live = kernel_lower.lane_mask(st.plan, dev, (lo, block))
+                    if bool(live.any()):    # a window past the trip: none
+                        err = max(err, hold_lanes(
+                            torch, g, w, live, span_tol(src),
+                            f"{label} window ({lo}, {block}) of {p} stage "
+                            f"{st.plan.name}"))
+                parts.append([{k: v.clone() for k, v in g.items()}
+                              for g in got])
+                ms += cuda_ms(torch, lambda: span_kernel.launch_span(
+                    src, io, dev, lo=lo), reps=5, inner=5, warmup=1)
+                plain_ms += cuda_ms(
+                    torch, lambda: span_kernel.span_values_plain_stages(
+                        mine, dev, (lo, block)), reps=3, inner=1, warmup=1)
+            for i, st in enumerate(stages):
+                mask = kernel_lower.lane_mask(st.plan, dev)
+                for k, f in full[i].items():
+                    joined = torch.cat([pt[i][k] for pt in parts], dim=1)
+                    if not torch.equal(joined[mask], f[mask]):
+                        raise AssertionError(
+                            f"{label} stage {st.plan.name} {k}: the windows "
+                            f"of {block} ranks joined != the full launch "
+                            "bit for bit")
+        out[d] = (launches, err, ms, plain_ms)
+    return out
+
+
+def collective_turns(torch, stacked, process, run, name, card) -> None:
+    """Phase 36(c)'s collectives alone: each reduction that one ``run()``
+    logs on the process mesh (its group and payload), and the uncounted
+    join of the same operand, on the process mesh against the stacked
+    mesh, in turns (float32 operands of the logged bytes)."""
+    axis = process.split_axis
+    process.log = []
+    run()
+    log, process.log = process.log, None
+    for op, group, payload in sorted(set(log)):
+        if op not in ("psum", "pmax", "pmin") or group != process.shape[
+                axis]:
+            continue
+        x = torch.randn(group, max(1, payload // 4), device=process.device)
+        for what, fn in ((op, lambda m: getattr(m, op)(x, axis)),
+                         ("join", lambda m: m.join(x, axis))):
+            ms = turns(torch, {"process": lambda: fn(process),
+                               "stacked": lambda: fn(stacked)}, rounds=5)
+            print(f"process mesh turns {name} {what} alone over "
+                  f"{group} ranks, {payload} bytes a rank: process "
+                  f"{ms['process']:.4f} ms, stacked {ms['stacked']:.4f} ms "
+                  f"(median of 5 turns each after one) on {card}")
+
+
+def process_compile_phase(torch, dev, card):
+    """Phase 36: ``omp.compile`` over a ``ProcessMesh`` of a one-process
+    NCCL group (the card is one GPU, so the process holds every rank):
+    (a) phase 16's region programs, phase 17's PolyBench kernels and
+    phase 3's jacobi1d at their full sizes under ``kernel``,
+    ``collective``, ``fused`` and ``master_worker``, each result == the
+    stacked mesh's bit for bit (a refusal == its refusal), with the same
+    K1 launches and ``Mesh`` counters; (b) every K1 span of (a) launched
+    by the kernel of a rank window of P/2 and of P/4 ranks, for every
+    window, each window against its plain version and the windows joined
+    == the full launch bit for bit; (c) ``Compiled.run`` of
+    ``PROCESS_TURNS`` under ``kernel`` over both meshes, in turns.
+    Returns the windowed kernel-table rows."""
+    import torch.distributed as dist
+
+    from repro_torch import omp
+    from repro_torch.core import kernel_lower
+    from repro_torch.kernels import span_kernel
+    from repro_torch.mesh import make_process_mesh
+
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev.index or 0)
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    # per (programs, window divisor): launches, max abs err, ms, plain
+    # ms, bound s, bytes' least s, operations' least s
+    totals = collections.defaultdict(lambda: [0, 0.0, 0.0, 0.0, 0.0, 0.0,
+                                              0.0])
+    k1_process = 0
+    try:
+        timed = {}
+        for name, (progs, env, shape, axes, extra) in process_programs(
+                omp, torch, dev):
+            t0 = time.perf_counter()
+            meshes = {"stacked": omp.make_mesh(shape, axes, device=dev),
+                      "process": make_process_mesh(shape, axes, device=dev)}
+            seen = {}
+            for low, opts in PROCESS_LOWERINGS.items():
+                got = {w: process_run(torch, omp, span_kernel, progs, env,
+                                      m, {**opts, **extra})
+                       for w, m in meshes.items()}
+                st, pm = got["stacked"], got["process"]
+                if isinstance(st, str) or isinstance(pm, str):
+                    if st != pm:
+                        raise AssertionError(f"process mesh {name}/{low}: "
+                                             f"{pm!r} vs stacked {st!r}")
+                    seen[low] = "refused alike"
+                    continue
+                same_bits(torch, pm[1], st[1],
+                          f"process mesh {name}/{low}")
+                if pm[2] != st[2] or pm[3] != st[3]:
+                    raise AssertionError(
+                        f"process mesh {name}/{low}: counters {pm[2]} and "
+                        f"{pm[3]} K1 launches, stacked {st[2]} and {st[3]}")
+                if low == "kernel":
+                    planned = sum(c.kernel_plan.n_kernels for c in pm[0])
+                    if pm[3] != planned or planned == 0:
+                        raise AssertionError(
+                            f"process mesh {name}: K1 launched {pm[3]} "
+                            f"times, planned {planned}")
+                    k1_process += pm[3]
+                    kern = st[0]
+                    if name in PROCESS_TURNS:
+                        timed[name] = (st[0], pm[0], env)
+                seen[low] = (f"== stacked, {sum(pm[2][0].values())} "
+                             f"collectives, {pm[3]} K1 launches")
+            print(f"process mesh {name} on {shape} ({len(progs)} program(s)): "
+                  + "; ".join(f"{low} {s}" for low, s in seen.items())
+                  + f"; {time.perf_counter() - t0:.1f} s")
+
+            # (b) the rank windows world 1 never reaches
+            t0 = time.perf_counter()
+            calls = record_spans(span_kernel, lambda: run_blocks(kern, env))
+            sources = {d: window_sources(kernel_lower, kern, dev,
+                                         shape[0] // d)
+                       for d in WINDOW_DIVISORS}
+            warm_windows(torch, span_kernel, [
+                (src, [({k: v.narrow(1, 0, src.window[0]).contiguous()
+                         for k, v in st.ext_windows.items()}, st.env_repl)
+                       for st in stages])
+                for d in WINDOW_DIVISORS
+                for (stages, _), src in zip(calls, sources[d])], dev)
+            t_build = time.perf_counter() - t0
+            got = window_checks(torch, kernel_lower, span_kernel, calls,
+                                sources, dev, f"process mesh {name}")
+            group = "regions" if name in REGION_NAMES else "PolyBench"
+            # the windows of a span do its work once: its bound, the
+            # larger of its bytes' and its operations' least times
+            bytes_s = ops_s = bound_s = 0.0
+            for stages, full_src in calls:
+                b, f = span_bound(torch, stages, full_src)
+                df = full_src.dot_flops_per_lane * stages[0].plan.nest.\
+                    total_trip
+                o = pb_ops_s(f, df, "tf32x3" in full_src.text)
+                bytes_s, ops_s = bytes_s + b / HBM_BYTES_PER_S, ops_s + o
+                bound_s += max(b / HBM_BYTES_PER_S, o)
+            for d, (n, err, ms, plain_ms) in got.items():
+                tot = totals[(group, d)]
+                tot[0] += n
+                tot[1] = max(tot[1], err)
+                tot[2] += ms
+                tot[3] += plain_ms
+                tot[4] += bound_s
+                tot[5] += bytes_s
+                tot[6] += ops_s
+            print(f"rank windows {name}: {len(calls)} span(s) x windows of "
+                  + ", ".join(f"{shape[0] // d} ranks ({got[d][0]} "
+                              f"launches, max_abs_err {got[d][1]:.3e}, "
+                              f"{got[d][2]:.4f} ms, plain {got[d][3]:.4f} ms)"
+                              for d in WINDOW_DIVISORS)
+                  + f" == the full launch bit for bit; {len(calls) * 2} "
+                  f"windowed kernels built in {t_build:.1f} s "
+                  f"(8 threads), on {card}")
+            del calls, kern, meshes, env
+            torch.cuda.empty_cache()
+
+        # (c) the process mesh against the stacked mesh, in turns
+        for name in PROCESS_TURNS:
+            st, pm, env = timed[name]
+            ms = turns(torch, {"process": lambda: run_blocks(pm, env),
+                               "stacked": lambda: run_blocks(st, env)},
+                       rounds=5)
+            print(f"process mesh turns {name} lowering=kernel: "
+                  f"Compiled.run process {ms['process']:.4f} ms, stacked "
+                  f"{ms['stacked']:.4f} ms (ratio "
+                  f"{ms['process'] / ms['stacked']:.3f}; median of 5 turns "
+                  f"each after one) on {card}")
+            collective_turns(torch, st[0].mesh, pm[0].mesh,
+                             lambda: run_blocks(pm, env), name, card)
+        del timed
+    finally:
+        dist.destroy_process_group()
+    if k1_process == 0:
+        raise AssertionError("phase 36: K1 launched no time over the "
+                             "process mesh")
+    rows = []
+    for (group, d), (n, err, ms, plain_ms, bound_s, b_s, o_s) in \
+            totals.items():
+        rows.append({
+            "name": f"span_kernel[rank windows P/{d}, {group}]",
+            "route": "triton", "source": SOURCE, "replaces": REPLACES,
+            "launches": 0, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
+            "bound_by": "bytes" if b_s >= o_s else "operations",
+            "library_ms": None, "direct_launches": n,
+            "launches_note": "a world-1 process holds every rank, so its "
+                             "main path launches the full window "
+                             f"({k1_process} K1 launches over the process "
+                             "mesh in phase 36(a)) and no windowed kernel; "
+                             "direct_launches: phase 36(b)'s checked "
+                             "launches of the windowed kernels"})
+        print(f"times rank windows P/{d} {group}: {n} direct window "
+              "launches (0 on the main path), "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (each summed "
+              f"over the windows of every span), bound {bound_s * 1e3:.4f} "
+              f"ms (bytes {b_s * 1e3:.4f} ms, operations {o_s * 1e3:.4f} "
+              f"ms, summed over spans) on {card}")
+    return rows
+
+
 def dryrun_child(out_dir: str, cells) -> None:
     """Phase 34's cells in a fresh process (``python3 -c "import
     chip_smoke as c; c.dryrun_child(...)"``): ``dryrun.run_cell`` of each
@@ -5652,6 +6003,9 @@ def main(device: str = "cuda") -> int:
 
     elapsed.mark("the process mesh on the card (NCCL)")
     rows += process_mesh_phase(torch, dev, card)
+
+    elapsed.mark("the compiler over the process mesh, K1's rank windows")
+    rows += process_compile_phase(torch, dev, card)
 
     elapsed.mark("done")
     print(card)

@@ -430,8 +430,21 @@ def _env_signature(env: Mapping[str, Any]) -> tuple:
 
 
 def _mesh_signature(mesh) -> tuple:
-    return (tuple((str(a), int(mesh.shape[a])) for a in mesh.axis_names),
-            str(mesh.device))
+    """The mesh's shape and device; a process mesh adds its world size
+    and rank block (the same on every process: a process's artifacts
+    never depend on which ranks it holds), so that a process mesh and a
+    stacked mesh of one shape never share an artifact."""
+    sig = (tuple((str(a), int(mesh.shape[a])) for a in mesh.axis_names),
+           str(mesh.device))
+    if _is_process_mesh(mesh):
+        sig += (("processes", mesh.processes, mesh.split_axis, mesh.block),)
+    return sig
+
+
+def _is_process_mesh(mesh) -> bool:
+    from repro_torch.mesh import ProcessMesh
+
+    return isinstance(mesh, ProcessMesh)
 
 
 def _stable_program_token(p) -> tuple:
@@ -555,19 +568,20 @@ def compile(
     :class:`~repro_torch.core.pragma.ParallelRegion` to a distributed
     program on ``mesh`` (a :class:`repro_torch.mesh.Mesh`).
 
+    On a :class:`~repro_torch.mesh.ProcessMesh` every process compiles
+    the same program and calls ``run`` with the same whole env; each
+    stages and computes its own ranks of the first nest axis, and each
+    returns the whole result, the stacked mesh's bit for bit (a rank-2
+    nest whose ``j`` axis the processes split raises
+    ``NotImplementedError``).
+
     ``options`` carries every knob, or the fields come as keyword
     overrides.  ``env_like`` (shapes only) runs the pipeline eagerly;
     without it the pipeline runs on first call.
     """
+    from repro_torch.core import nest as nest_mod
     from repro_torch.core import transform as tf
-    from repro_torch.mesh import ProcessMesh
 
-    if isinstance(mesh, ProcessMesh):
-        # the executors index every rank's slab, (n_loc, P, c, ...)
-        raise NotImplementedError(
-            "omp.compile over a ProcessMesh: the compiler's executors over "
-            "the process mesh are ROADMAP.md §1 item 8; compile on a "
-            "stacked mesh (omp.make_mesh)")
     if options is None:
         options = Options(**overrides)
     elif overrides:
@@ -583,6 +597,7 @@ def compile(
             f"{type(program).__name__}")
 
     axis, num = tf.resolve_axes(program, mesh, options.axis)
+    nest_mod.rank_window(mesh, axis)    # a process mesh it cannot split
     _validate_combination(program, options, num)
     compiled = Compiled(program=program, mesh=mesh, options=options,
                         axis=axis, num_devices=num)
@@ -656,7 +671,7 @@ def _lowering_str(options: Options) -> str:
 
 
 def _build_block(program, env_shapes, num, axis, options,
-                 device) -> _Artifacts:
+                 device, block=None) -> _Artifacts:
     low = _lowering_str(options)
     shard_inputs = options.shard is ShardPolicy.SLICE
     nest, ctx = plan_mod.analyze_program(program, env_shapes, device)
@@ -693,23 +708,27 @@ def _build_block(program, env_shapes, num, axis, options,
             input="compute span + chunk geometry (tile derivation per axis, "
                   "span kernel generated from the body's aten graph)",
             output=kl.plan_block_kernel(plan, program, name=program.name,
-                                        device=device)),)
+                                        device=device, block=block)),)
     return _Artifacts(passes=passes, exe_plan=plan, program=program)
 
 
 def _build_artifacts(program, env_shapes, num, axis, options,
-                     device) -> _Artifacts:
+                     device, block=None) -> _Artifacts:
+    """Every pass's artifact; ``block``: the ranks of the first nest axis
+    a process of a process mesh holds (``None``: every rank), for which
+    the ``kernel`` pass generates its span kernels."""
     if isinstance(program, pragma.ParallelRegion):
         if options.lowering in (Lowering.FUSED, Lowering.KERNEL):
             return _build_region_fused(program, env_shapes, num, axis,
-                                       options, device)
+                                       options, device, block)
         return _build_region_staged(program, env_shapes, num, axis, options,
                                     device)
-    return _build_block(program, env_shapes, num, axis, options, device)
+    return _build_block(program, env_shapes, num, axis, options, device,
+                        block)
 
 
 def _build_region_fused(region, env_shapes, num, axis, options,
-                        device) -> _Artifacts:
+                        device, block=None) -> _Artifacts:
     from repro_torch.core import comm_schedule as cs_mod
     from repro_torch.core import region as region_mod
 
@@ -765,7 +784,8 @@ def _build_region_fused(region, env_shapes, num, axis, options,
             input="exchange-free compute spans + chunk geometry (one span "
                   "kernel per span, generated from the stages' aten "
                   "graphs)",
-            output=kl.plan_region_kernels(rp, device=device)),)
+            output=kl.plan_region_kernels(rp, device=device,
+                                          block=block)),)
     return _Artifacts(passes=passes, exe_plan=rp, program=region)
 
 
@@ -877,6 +897,12 @@ def _make_executor(program, mesh, axis, options: Options, exe_plan,
         kernel_plan=kernel_plan)
 
 
+def _writes_store(mesh) -> bool:
+    """Whether this process writes the persistent store: process 0 of a
+    process mesh, and any other process alone."""
+    return not _is_process_mesh(mesh) or mesh.process == 0
+
+
 # ---------------------------------------------------------------------------
 # The Compiled artifact
 # ---------------------------------------------------------------------------
@@ -938,6 +964,8 @@ class Compiled:
 
     def _ensure(self, env_like: Mapping[str, Any], *,
                 allow_restore: bool = True) -> None:
+        from repro_torch.core import nest as nest_mod
+
         sig = _env_signature(env_like)
         if sig == self._env_sig and self._exe is not None:
             return
@@ -950,14 +978,22 @@ class Compiled:
             self.cache_hit = True
             self._bind(entry.art, sig)
             return
-        if (allow_restore and _PERSISTENT is not None
-                and self._try_restore(sig)):
-            return
+        if allow_restore and _PERSISTENT is not None:
+            if _is_process_mesh(self.mesh):
+                # every process looks at the store as it stands after the
+                # commits before this one: they hit or miss together
+                import torch.distributed as dist
+
+                dist.barrier(group=self.mesh.group)
+            if self._try_restore(sig):
+                return
         _MISSES.inc()
         self.cache_hit = False
         env_shapes = {k: spec_of(v) for k, v in env_like.items()}
+        window = nest_mod.rank_window(self.mesh, self.axis)
         art = _build_artifacts(self.program, env_shapes, self.num_devices,
-                               self.axis, self.options, self.mesh.device)
+                               self.axis, self.options, self.mesh.device,
+                               None if window is None else window[1])
         with _CACHE_LOCK:
             _CACHE[key] = _Entry(art, next(_TICK))
             while len(_CACHE) > _CACHE_CAP:
@@ -988,7 +1024,9 @@ class Compiled:
         """Store a cold build's planned artifacts (a staged plan deferred
         to run time, or a plan that is not data, cannot be stored: its
         key builds cold in every process).  On the card, the first run
-        adds the span kernels' cubins (:meth:`_store_cubins`)."""
+        adds the span kernels' cubins (:meth:`_store_cubins`).  Over a
+        process mesh every process builds the same artifacts and process
+        0 alone writes them (every process may read)."""
         dkey = self._disk_key(sig)
         if dkey in _UNEXPORTABLE or dkey in _RESTORED:
             return
@@ -998,7 +1036,8 @@ class Compiled:
         if body is None:
             _UNEXPORTABLE.add(dkey)
             return
-        _PERSISTENT.save(dkey, body, self.mesh.device)
+        if _writes_store(self.mesh):
+            _PERSISTENT.save(dkey, body, self.mesh.device)
         _RESTORED[dkey] = stored
         if (self.mesh.device.type == "cuda" and stored.kernel is not None
                 and stored.kernel.spans):
@@ -1013,7 +1052,8 @@ class Compiled:
         self._cubins_due = None
         stored.cubins = span_kernel.export_cubins(stored.kernel)
         body = _encode(self.program, stored)
-        if _PERSISTENT is not None and body is not None and stored.cubins:
+        if (_PERSISTENT is not None and body is not None and stored.cubins
+                and _writes_store(self.mesh)):
             _PERSISTENT.save(dkey, body, self.mesh.device)
 
     def _try_restore(self, sig: tuple) -> bool:

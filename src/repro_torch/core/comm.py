@@ -590,36 +590,49 @@ def halo_exchange(
     replicated copy, so the consumer's window indexing is the same on
     both paths.  Rows outside the slab's ``[0, cover)`` are patched from
     the replicated ``prior`` copy; remaining out-of-range rows are only
-    consumed by masked padding lanes.
+    consumed by masked padding lanes.  On a process mesh ``stacks`` holds
+    the process's ranks (``block`` in place of ``P``), and so do the
+    windows.
     """
     win = _ring_extend(mesh, stacks, axis=axis, num_devices=num_devices,
                        chunk=chunk, delta_min=delta_min,
                        delta_max=delta_max)
     return patch_window_prior(win, chunk=chunk, delta_min=delta_min,
                               prior=prior, base=base, cover=cover,
-                              dtype=dtype)
+                              dtype=dtype,
+                              ranks=(mesh.local_ranks(axis).start,
+                                     num_devices))
 
 
-def _window_positions(n_loc, p, width, c, delta_min, device):
+def _window_positions(n_loc, p, width, c, delta_min, device, ranks=None):
     """k-space positions ``(n_loc, P, width)`` of every window relative
-    to the producing slab's base (chunk ``j = q*P + d``)."""
-    j = torch.arange(n_loc * p, device=device).reshape(n_loc, p, 1)
+    to the producing slab's base (chunk ``j = q*P + d``); ``ranks = (lo,
+    P)`` for windows of ranks ``lo .. lo + p - 1`` of ``P``."""
+    if ranks is None or ranks == (0, p):
+        j = torch.arange(n_loc * p, device=device).reshape(n_loc, p, 1)
+    else:
+        lo, p_total = ranks
+        j = (torch.arange(n_loc, device=device).reshape(n_loc, 1, 1)
+             * p_total + lo + torch.arange(p, device=device).reshape(1, p, 1))
     return j * c + delta_min + torch.arange(width, device=device)
 
 
 def patch_window_prior(win, *, chunk: int, delta_min: int, prior=None,
-                       base: int = 0, cover: int | None = None, dtype=None):
+                       base: int = 0, cover: int | None = None, dtype=None,
+                       ranks=None):
     """Patch window rows outside the slab's ``[0, cover)`` from the
     replicated ``prior`` copy and cast to the consumer dtype — the
     non-communicating half of :func:`halo_exchange`, shared with the
-    packed emitters (:mod:`repro_torch.core.comm_schedule`)."""
+    packed emitters (:mod:`repro_torch.core.comm_schedule`).  ``ranks =
+    (lo, P)``: ``win`` holds ranks ``lo ..`` of ``P`` (default: all)."""
     if prior is not None:
         n_loc, p, width = win.shape[:3]
         rho = _window_positions(n_loc, p, width, chunk, delta_min,
-                                win.device)
+                                win.device, ranks)
         pos = (base + rho).clamp(0, prior.shape[0] - 1)
         pvals = prior[pos]
-        cov = cover if cover is not None else n_loc * p * chunk
+        p_total = p if ranks is None else ranks[1]
+        cov = cover if cover is not None else n_loc * p_total * chunk
         inside = (rho >= 0) & (rho < cov)
         mask = inside.reshape(inside.shape + (1,) * (win.dim() - 3))
         win = torch.where(mask, win, pvals.to(win.dtype))
@@ -647,37 +660,44 @@ def halo_exchange2(
     P_j, w_j, *rest)``.  The column pass widens the *already-extended*
     windows, so the corner blocks travel two hops (no diagonal sends).
     Positions outside the slab's cover rectangle are patched from the
-    replicated ``prior`` copy."""
+    replicated ``prior`` copy.  On a process mesh ``stacks`` holds the
+    process's ``i`` ranks; the column pass's payloads carry them
+    (:meth:`Mesh.carrying`)."""
     (p_i, p_j) = num_devices
     (c_i, c_j) = chunks
     (dmin_i, dmax_i), (dmin_j, dmax_j) = deltas
+    mine = mesh.local_ranks(axes[0])
     win = _ring_extend(mesh, stacks, axis=axes[0], num_devices=p_i,
                        chunk=c_i, delta_min=dmin_i, delta_max=dmax_i,
                        dims=(0, 1, 2))
-    win = _ring_extend(mesh, win, axis=axes[1], num_devices=p_j,
-                       chunk=c_j, delta_min=dmin_j, delta_max=dmax_j,
-                       dims=(3, 4, 5))
+    win = _ring_extend(mesh.carrying(axes[0]), win, axis=axes[1],
+                       num_devices=p_j, chunk=c_j, delta_min=dmin_j,
+                       delta_max=dmax_j, dims=(3, 4, 5))
     return patch_window_prior2(win, chunks=chunks, deltas=deltas,
                                prior=prior, bases=bases, covers=covers,
-                               dtype=dtype)
+                               dtype=dtype, ranks=(mine.start, p_i))
 
 
 def patch_window_prior2(win, *, chunks: tuple[int, int], deltas, prior=None,
                         bases: tuple[int, int] = (0, 0),
-                        covers: tuple[int, int] | None = None, dtype=None):
+                        covers: tuple[int, int] | None = None, dtype=None,
+                        ranks=None):
     """Rank-2 :func:`patch_window_prior`: patch positions outside the
-    slab's cover rectangle from the replicated ``prior`` copy."""
+    slab's cover rectangle from the replicated ``prior`` copy; ``ranks =
+    (lo, P_i)`` for windows of the ``i`` ranks ``lo ..`` of ``P_i``."""
     (c_i, c_j) = chunks
     (dmin_i, _), (dmin_j, _) = deltas
     if prior is not None:
         n_i, p_i, w_i, n_j, p_j, w_j = win.shape[:6]
-        rho_i = _window_positions(n_i, p_i, w_i, c_i, dmin_i, win.device)
+        rho_i = _window_positions(n_i, p_i, w_i, c_i, dmin_i, win.device,
+                                  ranks)
         rho_j = _window_positions(n_j, p_j, w_j, c_j, dmin_j, win.device)
         pos_i = (bases[0] + rho_i).clamp(0, prior.shape[0] - 1)
         pos_j = (bases[1] + rho_j).clamp(0, prior.shape[1] - 1)
         pvals = prior[pos_i[:, :, :, None, None, None],
                       pos_j[None, None, None]]
-        cov_i = covers[0] if covers is not None else n_i * p_i * c_i
+        pt_i = p_i if ranks is None else ranks[1]
+        cov_i = covers[0] if covers is not None else n_i * pt_i * c_i
         cov_j = covers[1] if covers is not None else n_j * p_j * c_j
         inside = (((rho_i >= 0) & (rho_i < cov_i))[:, :, :, None, None, None]
                   & ((rho_j >= 0) & (rho_j < cov_j))[None, None, None])

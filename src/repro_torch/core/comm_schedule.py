@@ -414,10 +414,11 @@ def aggregated_halo_exchange(mesh, items, *, axis: str,
     wins = _ring_extend_many(
         mesh, [(it.stacks, it.chunks[0], it.shifts[0][0], it.shifts[0][1])
                for it in items], axis=axis, num_devices=num_devices)
+    ranks = (mesh.local_ranks(axis).start, num_devices)
     return [comm_mod.patch_window_prior(
         win, chunk=it.chunks[0], delta_min=it.shifts[0][0], prior=it.prior,
         base=it.bases[0], cover=None if it.covers is None else it.covers[0],
-        dtype=it.dtype) for win, it in zip(wins, items)]
+        dtype=it.dtype, ranks=ranks) for win, it in zip(wins, items)]
 
 
 def aggregated_halo_exchange2(mesh, items, *, axes,
@@ -433,17 +434,20 @@ def aggregated_halo_exchange2(mesh, items, *, axes,
             mesh, it.stacks, axes=axes, num_devices=num_devices,
             chunks=it.chunks, deltas=it.shifts, prior=it.prior,
             bases=it.bases, covers=it.covers, dtype=it.dtype)]
+    mine = mesh.local_ranks(axes[0])
     wins = _ring_extend_many(
         mesh, [(it.stacks, it.chunks[0], it.shifts[0][0], it.shifts[0][1])
                for it in items], axis=axes[0], num_devices=num_devices[0],
         dims=(0, 1, 2))
     wins = _ring_extend_many(
-        mesh, [(win, it.chunks[1], it.shifts[1][0], it.shifts[1][1])
-               for win, it in zip(wins, items)], axis=axes[1],
+        mesh.carrying(axes[0]),
+        [(win, it.chunks[1], it.shifts[1][0], it.shifts[1][1])
+         for win, it in zip(wins, items)], axis=axes[1],
         num_devices=num_devices[1], dims=(3, 4, 5))
     return [comm_mod.patch_window_prior2(
         win, chunks=it.chunks, deltas=it.shifts, prior=it.prior,
-        bases=it.bases, covers=it.covers, dtype=it.dtype)
+        bases=it.bases, covers=it.covers, dtype=it.dtype,
+        ranks=(mine.start, num_devices[0]))
         for win, it in zip(wins, items)]
 
 

@@ -20,6 +20,15 @@ layout ``(n_loc, P, c, *value_shape)`` (``(n_i, P_i, c_i, n_j, P_j, c_j,
 Every merge (scatter/put/reduce folds) runs outside on those values via
 :func:`merge_chunk_values`, which is also how the plain executor
 (``transform._run_local_chunks``) folds: both lowerings share one merge.
+
+On a :class:`~repro_torch.mesh.ProcessMesh` each process launches the span
+kernel on its own *rank window* ``(lo, block)`` of the first nest axis's
+ranks (:func:`~repro_torch.core.nest.rank_window`): the kernel generated
+for that ``block`` (:func:`~repro_torch.kernels.span_kernel.generate_span`)
+reads and writes ``(n_loc, block, c, ...)`` slabs and takes ``lo`` as an
+argument, so every process runs one source and one compiled kernel; a
+stacked mesh is the window ``(0, P)`` and generates the source it always
+did.
 """
 from __future__ import annotations
 
@@ -231,30 +240,34 @@ def _span_meta(plans, names, indices, source) -> KernelSpan:
 
 
 def plan_block_kernel(plan, program, name: str | None = None,
-                      device=None) -> KernelPlan:
+                      device=None, block: int | None = None) -> KernelPlan:
     """KernelPlan of a single ParallelFor block (one span), with the span
     kernel's source generated from the body — an op the template cannot
-    express raises ``CompileError`` here, at compile time."""
+    express raises ``CompileError`` here, at compile time.  ``block``:
+    the ranks of a process's rank window (``None``: every rank)."""
     if plan.nest.total_trip == 0 or not plan.written_keys:
         return KernelPlan(name=name or plan.name, rank=plan.rank,
                           spans=(), n_loop_stages=0)
-    source = span_kernel.generate(plan, program, device=device)
+    source = span_kernel.generate(plan, program, device=device, block=block)
     span = _span_meta([plan], [name or plan.name], [0], source)
     return KernelPlan(name=name or plan.name, rank=plan.rank,
                       spans=(span,), n_loop_stages=1)
 
 
-def plan_region_kernels(rp, device=None) -> KernelPlan:
+def plan_region_kernels(rp, device=None,
+                        block: int | None = None) -> KernelPlan:
     """KernelPlan of a fused region: one span per exchange-free chain,
     each with ONE generated kernel (``CompileError`` at compile time for
-    a body the template cannot express)."""
+    a body the template cannot express); ``block`` as
+    :func:`plan_block_kernel`'s."""
     spans = []
     for idxs in compute_region_spans(rp):
         ses = [rp.stages[i] for i in idxs]
         plans = [se.plan for se in ses]
         fwd = _forwarded_per_stage(plans)
         source = span_kernel.generate_span(
-            [(se.plan, se.stage, f) for se, f in zip(ses, fwd)], device)
+            [(se.plan, se.stage, f) for se, f in zip(ses, fwd)], device,
+            block=block)
         spans.append(_span_meta(plans, [se.name for se in ses], idxs,
                                 source))
     return KernelPlan(name=rp.name, rank=rp.rank, spans=tuple(spans),
@@ -278,25 +291,26 @@ class SpanStage:
     forwarded: frozenset = frozenset()  # keys served by earlier stages
 
 
-def execute_span(stages: list[SpanStage], span: KernelSpan, device
-                 ) -> list[tuple[dict, dict]]:
+def execute_span(stages: list[SpanStage], span: KernelSpan, device,
+                 window=None) -> list[tuple[dict, dict]]:
     """Run a span's loop bodies as ONE span-kernel launch over every
-    rank; returns each stage's per-rank ``(carry, ys)``, merged outside
-    the kernel."""
-    values = span_kernel.span_stage_values(stages, span.source, device)
+    rank (a rank ``window``'s); returns each stage's per-rank ``(carry,
+    ys)``, merged outside the kernel."""
+    values = span_kernel.span_stage_values(stages, span.source, device,
+                                           window=window)
     return [(merge_chunk_values if sp.plan.rank == 1 else
-             merge_chunk_values2)(sp.plan, vals)
+             merge_chunk_values2)(sp.plan, vals, window)
             for sp, vals in zip(stages, values)]
 
 
 def run_local_chunks_kernel(plan, program, env_in, slab_stacks,
-                            kernel_plan: KernelPlan, device):
+                            kernel_plan: KernelPlan, device, window=None):
     """Drop-in for ``transform._run_local_chunks``/``2`` backed by one
     span-kernel launch."""
     (span,) = kernel_plan.spans
     sp = SpanStage(plan=plan, program=program,
                    ext_windows=slab_stacks, env_repl=env_in)
-    (carry, ys), = execute_span([sp], span, device)
+    (carry, ys), = execute_span([sp], span, device, window)
     return carry, ys
 
 
@@ -305,22 +319,23 @@ def run_local_chunks_kernel(plan, program, env_in, slab_stacks,
 # ---------------------------------------------------------------------------
 
 
-def _valid(ch, trip: int, device):
+def _valid(ch, trip: int, device, window=None):
     """``(n_loc, P, c)``: which lanes hold a real iteration, and their
-    iteration numbers."""
-    _, ks = nest_mod.slot_iterations(ch, device)
+    iteration numbers (``block`` ranks for a rank ``window``)."""
+    _, ks = nest_mod.slot_iterations(ch, device, window)
     return ks < trip, ks
 
 
-def lane_mask(plan, device) -> torch.Tensor:
+def lane_mask(plan, device, window=None) -> torch.Tensor:
     """Which lanes of the dense value layout hold a real iteration:
-    ``(n_loc, P, c)``, or ``(n_i, P_i, c_i, n_j, P_j, c_j)`` for rank 2.
+    ``(n_loc, P, c)``, or ``(n_i, P_i, c_i, n_j, P_j, c_j)`` for rank 2
+    (``block`` in place of the first ``P`` for a rank ``window``).
     The span kernel writes these lanes, and leaves the padding slots of
     the chunk plan unwritten."""
     if plan.rank == 1:
-        return _valid(plan.chunks, plan.loop.trip_count, device)[0]
+        return _valid(plan.chunks, plan.loop.trip_count, device, window)[0]
     (ch_i, ch_j), (loop_i, loop_j) = plan.chunks_axes, plan.nest.axes
-    valid_i, _ = _valid(ch_i, loop_i.trip_count, device)
+    valid_i, _ = _valid(ch_i, loop_i.trip_count, device, window)
     valid_j, _ = _valid(ch_j, loop_j.trip_count, device)
     return valid_i[:, :, :, None, None, None] & valid_j[None, None, None]
 
@@ -343,17 +358,18 @@ def _fold_partials(rop, v, valid, lead: tuple[int, ...]):
     return rop.pairwise(carry0, part)
 
 
-def merge_chunk_values(plan, values):
+def merge_chunk_values(plan, values, window=None):
     """``(n_loc, P, c, *value_shape)`` dense values -> per-rank ``(carry,
     ys)``: ``ys`` keeps the identity/partial values in the slab layout;
     ``carry`` holds scatter ``(buf, mask)`` pairs ``(P, *shape)`` /
     ``(P, shape0)``, put rows ``(P, *shape)`` (zeros off the owner) and
-    reduction partials ``(P, *value_shape)``."""
+    reduction partials ``(P, *value_shape)`` — ``block`` in place of
+    ``P`` for the ranks of a rank ``window`` ``(lo, block)``."""
     ch = plan.chunks
     t = plan.loop.trip_count
-    p = ch.num_devices
+    lo, p = (0, ch.num_devices) if window is None else window
     device = next(iter(values.values())).device if values else None
-    valid, ks = _valid(ch, t, device)
+    valid, ks = _valid(ch, t, device, window)
     carry: dict[str, Any] = {}
     ys: dict[str, Any] = {}
     for key, dec in plan.vars.items():
@@ -383,11 +399,12 @@ def merge_chunk_values(plan, values):
         elif dec.out_strategy == "put":
             j_star = (t - 1) // ch.chunk
             lane = (t - 1) - j_star * ch.chunk
-            slots = nest_mod.slot_chunk_ids(ch).reshape(ch.local_chunks, p)
+            slots = nest_mod.slot_table(ch)
             q_star, d_star = (int(a[0]) for a in np.nonzero(slots == j_star))
             row = torch.zeros((p,) + tuple(info.shape), dtype=info.dtype,
                               device=device)
-            row[d_star] = v[q_star, d_star, lane]
+            if lo <= d_star < lo + p:
+                row[d_star - lo] = v[q_star, d_star - lo, lane]
             carry[key] = row
         elif dec.out_strategy == "reduce":
             rop = red_mod.get_reduction(dec.reduction_op)
@@ -395,12 +412,13 @@ def merge_chunk_values(plan, values):
     return carry, ys
 
 
-def merge_chunk_values2(plan, values):
+def merge_chunk_values2(plan, values, window=None):
     """``(n_i, P_i, c_i, n_j, P_j, c_j, *value_shape)`` dense values ->
     per-rank ``(carry, ys)``; reduction partials lead with
-    ``(P_i, P_j)``."""
+    ``(P_i, P_j)`` (``block`` in place of ``P_i`` for a rank
+    ``window``)."""
     device = next(iter(values.values())).device if values else None
-    valid = lane_mask(plan, device)
+    valid = lane_mask(plan, device, window)
     carry: dict[str, Any] = {}
     ys: dict[str, Any] = {}
     for key, dec in plan.vars.items():

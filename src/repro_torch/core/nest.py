@@ -20,6 +20,13 @@ chunk ``j`` executes on rank ``j % P`` as local chunk ``j // P``; the
 padded axis reshapes to ``(n_loc, P, c)`` whose middle dim IS the rank
 axis.  A rank-2 nest composes two such layouts:
 ``(n_i, P_i, c_i, n_j, P_j, c_j, *rest)``.
+
+A process of a :class:`~repro_torch.mesh.ProcessMesh` holds a *rank
+window* ``(lo, block)`` of the first nest axis's ranks
+(:func:`rank_window`): its slot tables, staged slabs and dense values are
+``(n_loc, block, c, ...)`` — columns ``lo .. lo + block - 1`` of the
+global layout, staged from its own slots only — and a ``window`` of
+``None`` is every rank (a stacked mesh).
 """
 from __future__ import annotations
 
@@ -139,26 +146,53 @@ def restore_chunk_order(ch) -> np.ndarray | None:
     return inv
 
 
-def slot_iterations(ch, device) -> tuple[torch.Tensor, torch.Tensor]:
+def rank_window(mesh, axis) -> tuple[int, int] | None:
+    """The ranks of the first nest axis (``axis``, or ``axis[0]`` for a
+    rank-2 nest) this process holds, as ``(lo, block)``; ``None`` where it
+    holds them all (a stacked mesh, an axis not split over processes).
+    A rank-2 nest splits only its ``i`` axis's ranks."""
+    axes = axis if isinstance(axis, tuple) else (axis,)
+    for a in axes[1:]:
+        if len(mesh.local_ranks(a)) != mesh.shape[a]:
+            raise NotImplementedError(
+                f"a rank-2 nest over {axes} on {mesh!r}: its j axis {a!r} "
+                "is split over processes; a process mesh splits the nest's "
+                "i axis only (put it first in the mesh)")
+    r = mesh.local_ranks(axes[0])
+    return None if len(r) == mesh.shape[axes[0]] else (r.start, len(r))
+
+
+def slot_table(ch, window=None) -> np.ndarray:
+    """Global chunk id of every (local chunk, rank) slot, ``(n_loc, P)``
+    — or ``(n_loc, block)``, the columns of a rank ``window``."""
+    ids = slot_chunk_ids(ch).reshape(ch.local_chunks, ch.num_devices)
+    if window is not None:
+        lo, block = window
+        ids = ids[:, lo:lo + block]
+    return ids
+
+
+def slot_iterations(ch, device, window=None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Every (local chunk, rank) slot's global chunk id ``(n_loc, P)`` and
     the iteration number of each of its lanes ``(n_loc, P, c)`` — the
-    chunk-cyclic deal (or the weighted ``slot_map``) as tensors."""
-    js = torch.as_tensor(slot_chunk_ids(ch).reshape(ch.local_chunks,
-                                                    ch.num_devices),
-                         device=device)
+    chunk-cyclic deal (or the weighted ``slot_map``) as tensors; the
+    ``block`` ranks of a rank ``window`` in place of ``P``."""
+    js = torch.as_tensor(slot_table(ch, window), device=device)
     return js, js[..., None] * ch.chunk + torch.arange(ch.chunk,
                                                        device=device)
 
 
 def window_rows(ch, halo: tuple[int, int], nrows: int,
-                device=None) -> torch.Tensor:
+                device=None, window=None) -> torch.Tensor:
     """Row indices of every chunk's read window, ``(num_chunks, width)``
-    in slot order, clipped in-bounds (out-of-range rows are only ever
-    consumed by masked padding lanes).  Built on ``device``: at
-    EXTRALARGE sizes the index array is as large as the buffer."""
+    in slot order (the slots of a rank ``window`` only), clipped
+    in-bounds (out-of-range rows are only ever consumed by masked
+    padding lanes).  Built on ``device``: at EXTRALARGE sizes the index
+    array is as large as the buffer."""
     b_min, _ = halo
     width = window_extent(ch.chunk, halo)
-    js = torch.as_tensor(slot_chunk_ids(ch), device=device)
+    js = torch.as_tensor(slot_table(ch, window).reshape(-1), device=device)
     rows = (js[:, None] * ch.chunk + b_min
             + torch.arange(width, device=device)[None, :])
     return rows.clamp(0, max(0, nrows - 1))
@@ -189,9 +223,23 @@ def _index(x: torch.Tensor, idx, dim: int = 0) -> torch.Tensor:
         x, dim, torch.as_tensor(idx, device=x.device).reshape(-1))
 
 
-def pad_reshape(x: torch.Tensor, ch) -> torch.Tensor:
+def pad_reshape(x: torch.Tensor, ch, window=None) -> torch.Tensor:
     """(T, *rest) -> (n_loc, P, c, *rest) chunk-cyclic (or slot-ordered)
-    layout."""
+    layout; ``(n_loc, block, c, *rest)`` for a rank ``window``, whose
+    slots' rows alone are read (rows past ``T`` are zeros, as the
+    padding)."""
+    rest = tuple(x.shape[1:])
+    if window is not None:
+        n = x.shape[0]
+        rows = (torch.as_tensor(slot_table(ch, window), device=x.device)
+                [..., None] * ch.chunk
+                + torch.arange(ch.chunk, device=x.device))
+        got = _index(x, rows.clamp(max=max(0, n - 1))).reshape(
+            tuple(rows.shape) + rest)
+        if ch.padded_trip > n:
+            keep = (rows < n).reshape(tuple(rows.shape) + (1,) * len(rest))
+            got = got.masked_fill(~keep, 0)
+        return got
     pad = ch.padded_trip - x.shape[0]
     if pad:
         x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
@@ -203,25 +251,33 @@ def pad_reshape(x: torch.Tensor, ch) -> torch.Tensor:
                      + tuple(x.shape[1:]))
 
 
-def halo_slabs(x: torch.Tensor, ch, halo: tuple[int, int]) -> torch.Tensor:
+def _ranks(ch, window) -> int:
+    """Rank columns of the layout: ``P``, or a rank window's ``block``."""
+    return ch.num_devices if window is None else window[1]
+
+
+def halo_slabs(x: torch.Tensor, ch, halo: tuple[int, int],
+               window=None) -> torch.Tensor:
     """(N, *rest) -> (n_loc, P, c + halo_width, *rest): each chunk's slab
-    carries its read window (rows duplicated at chunk edges)."""
+    carries its read window (rows duplicated at chunk edges); ``block``
+    in place of ``P`` for a rank ``window``."""
     width = window_extent(ch.chunk, halo)
-    rows = window_rows(ch, halo, x.shape[0], x.device)
+    rows = window_rows(ch, halo, x.shape[0], x.device, window)
     slab = _index(x, rows)
-    return slab.reshape((ch.local_chunks, ch.num_devices, width)
+    return slab.reshape((ch.local_chunks, _ranks(ch, window), width)
                         + tuple(x.shape[1:]))
 
 
-def halo_slabs2(x: torch.Tensor, chs, halos) -> torch.Tensor:
-    """(N0, N1, *rest) -> (n_i, P_i, w_i, n_j, P_j, w_j, *rest)."""
+def halo_slabs2(x: torch.Tensor, chs, halos, window=None) -> torch.Tensor:
+    """(N0, N1, *rest) -> (n_i, P_i, w_i, n_j, P_j, w_j, *rest); a rank
+    ``window`` cuts the ``i`` axis's ranks."""
     ch_i, ch_j = chs
     halo_i, halo_j = halos
-    rows_i = window_rows(ch_i, halo_i, x.shape[0], x.device)   # (K_i, w_i)
+    rows_i = window_rows(ch_i, halo_i, x.shape[0], x.device, window)
     rows_j = window_rows(ch_j, halo_j, x.shape[1], x.device)   # (K_j, w_j)
     slab = _index(_index(x, rows_i, 0), rows_j, 1)   # (K_i*w_i, K_j*w_j, *)
     return slab.reshape(
-        (ch_i.local_chunks, ch_i.num_devices, rows_i.shape[1],
+        (ch_i.local_chunks, _ranks(ch_i, window), rows_i.shape[1],
          ch_j.local_chunks, ch_j.num_devices, rows_j.shape[1])
         + tuple(x.shape[2:]))
 

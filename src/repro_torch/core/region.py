@@ -33,7 +33,12 @@ whole:
   of stages run as ONE span-kernel launch
   (:mod:`repro_torch.core.kernel_lower`).  ``Lowering.COLLECTIVE`` keeps
   the paper's per-loop staging (:meth:`DistributedRegion._run_staged`)
-  as the baseline.
+  as the baseline.  On a :class:`~repro_torch.mesh.ProcessMesh` a
+  process's resident slabs and halo windows hold its own ranks
+  (``(n_loc, block, c, *rest)``), a reshard gathers across processes
+  (the counted ``all_gather``, whose result it uses), serial glue runs on
+  every process on the same replicated values, and the exit joins the
+  slabs uncounted (:meth:`~repro_torch.mesh.Mesh.join`).
 
 Residency compatibility: loop A's write slab holds row ``base + j*c + r``
 at (chunk ``j``, lane ``r``); loop B consumes it in place iff both loops
@@ -504,12 +509,65 @@ class DistributedRegion:
         return report_mod.render_region(self.plan)
 
 
+def region_to_mpi(
+    region: pragma.ParallelRegion,
+    mesh,
+    *,
+    axis: str | tuple | None = None,
+    lowering: str = "collective",
+    fuse: bool = True,
+    shard_inputs: bool = False,
+    unroll_chunks: bool = False,
+    env_like: Mapping[str, Any] | None = None,
+    paper_master_excluded: bool | None = None,
+    comm: str = "auto",
+):
+    """Deprecated: use ``omp.compile(region, mesh, omp.Options(...))``.
+
+    Thin shim: translates the legacy kwargs to
+    :class:`~repro_torch.core.api.Options` — ``fuse=True`` +
+    ``lowering="collective"`` becomes ``Lowering.FUSED``,
+    ``fuse=False`` becomes ``Lowering.COLLECTIVE`` — and returns the
+    :class:`~repro_torch.core.api.Compiled` artifact (callable like the
+    ``DistributedRegion`` it used to return, with ``.plan`` /
+    ``.report()`` intact).
+    """
+    import warnings
+
+    from repro_torch.core import api
+
+    warnings.warn(
+        "omp.region_to_mpi() is deprecated; use omp.compile(region, mesh, "
+        "omp.Options(lowering=..., comm=...)) instead",
+        DeprecationWarning, stacklevel=2)
+    if isinstance(region, pragma.ParallelFor):
+        region = pragma.ParallelRegion((region,))
+    if lowering == "master_worker":
+        low = api.Lowering.MASTER_WORKER
+    elif lowering != "collective":
+        raise api.CompileError(f"unknown lowering {lowering!r}")
+    elif fuse:
+        low = api.Lowering.FUSED
+    else:
+        low = api.Lowering.COLLECTIVE
+    options = api.Options(
+        axis=axis,
+        lowering=low,
+        comm=comm,
+        shard=(api.ShardPolicy.SLICE if shard_inputs
+               else api.ShardPolicy.REPLICATE),
+        unroll_chunks=unroll_chunks,
+        paper_master_excluded=paper_master_excluded,
+    )
+    return api.compile(region, mesh, options, env_like=env_like)
+
+
 # ---------------------------------------------------------------------------
 # Fused execution (the whole region as one program on the mesh)
 # ---------------------------------------------------------------------------
 
 
-def _span_stages(dr, si, env_in, slab_stacks, st, feed_window):
+def _span_stages(dr, si, env_in, slab_stacks, st, feed_window, window):
     """The kernel-side feeds of every stage of the span starting at
     stage ``si``: later stages' external feeds come from the current
     ``st`` (spans never cross an exchange, so those entries are stable
@@ -543,7 +601,7 @@ def _span_stages(dr, si, env_in, slab_stacks, st, feed_window):
                                   ext_windows=ext, env_repl=repl,
                                   forwarded=frozenset(fwd)))
         written |= kl.written_key_set(sp_plan)
-    results = kl.execute_span(specs, span, dr.mesh.device)
+    results = kl.execute_span(specs, span, dr.mesh.device, window)
     return dict(zip(span.stage_indices, results))
 
 
@@ -564,9 +622,10 @@ def _execute_region(dr: DistributedRegion, env: dict) -> dict:
     aggregate = sched is not None and sched.mode == "aggregate"
     if not rp.touched_keys:
         return dict(env)
+    window = nest_mod.rank_window(mesh, axis)
 
-    # per key: ("repl", tensor) or ("slab", stacks (n_loc, P, c, *rest),
-    # base, cover, prior, dtype)
+    # per key: ("repl", tensor) or ("slab", stacks (n_loc, P, c, *rest) —
+    # block ranks of P on a process mesh —, base, cover, prior, dtype)
     st: dict[str, tuple] = {k: ("repl", v) for k, v in env.items()}
     prefetched: dict[tuple[int, str], Any] = {}
     span_results: dict[int, tuple] = {}
@@ -590,7 +649,7 @@ def _execute_region(dr: DistributedRegion, env: dict) -> dict:
         if st[key][0] == "repl":
             return st[key][1]
         _, stacks, base, cover, prior, dtype = st[key]
-        mesh.all_gather(stacks.movedim(1, 0), axis)
+        stacks = mesh.all_gather(stacks.movedim(1, 0), axis).movedim(0, 1)
         flat = stacks.reshape((-1,) + tuple(stacks.shape[3:]))[:cover]
         flat = flat.to(dtype)
         if prior is None:
@@ -603,7 +662,7 @@ def _execute_region(dr: DistributedRegion, env: dict) -> dict:
 
     def slice_window(se, key, dec):
         halo = dec.halo if dec.halo is not None else (0, 0)
-        return nest_mod.halo_slabs(st[key][1], se.plan.chunks, halo)
+        return nest_mod.halo_slabs(st[key][1], se.plan.chunks, halo, window)
 
     for si, se in enumerate(rp.stages):
         for k in se.gathers:
@@ -656,11 +715,11 @@ def _execute_region(dr: DistributedRegion, env: dict) -> dict:
         if dr.use_kernel:
             if si not in span_results:
                 span_results.update(_span_stages(
-                    dr, si, env_in, slab_stacks, st, slice_window))
+                    dr, si, env_in, slab_stacks, st, slice_window, window))
             carry, ys = span_results.pop(si)
         else:
             carry, ys = tf._run_local_chunks(plan, se.stage, env_in,
-                                             slab_stacks, device)
+                                             slab_stacks, device, window)
 
         # cross-device combines of this stage's merges: per key inline,
         # or one fused collective per (collective, dtype) group
@@ -730,6 +789,7 @@ def _execute_region(dr: DistributedRegion, env: dict) -> dict:
             result[key] = st[key][1]
             continue
         _, stacks, base, cover, prior, _ = st[key]
+        stacks = mesh.join(stacks, axis, 1)
         flat = stacks.reshape((-1,) + tuple(stacks.shape[3:]))[:lay.cover]
         flat = flat.to(env[key].dtype if key in env else flat.dtype)
         if lay.has_prior:
@@ -755,6 +815,7 @@ def _execute_region2(dr: DistributedRegion, env: dict) -> dict:
     aggregate = sched is not None and sched.mode == "aggregate"
     if not rp.touched_keys:
         return dict(env)
+    window = nest_mod.rank_window(mesh, axes)
 
     st: dict[str, tuple] = {k: ("repl", v) for k, v in env.items()}
     prefetched: dict[tuple[int, str], Any] = {}
@@ -784,7 +845,7 @@ def _execute_region2(dr: DistributedRegion, env: dict) -> dict:
         if st[key][0] == "repl":
             return st[key][1]
         _, stacks, bases, covers, prior, dtype = st[key]
-        mesh.all_gather(stacks.movedim(1, 0), ax_i)
+        stacks = mesh.all_gather(stacks.movedim(1, 0), ax_i).movedim(0, 1)
         mesh.all_gather(stacks.movedim(4, 0), ax_j)
         flat = flat2(stacks, covers).to(dtype)
         if prior is None:
@@ -802,8 +863,8 @@ def _execute_region2(dr: DistributedRegion, env: dict) -> dict:
         x = st[key][1]
         chs = se.plan.chunks_axes
         if dec.shard_ndim == 2:
-            return nest_mod.halo_slabs2(x, chs, halos)
-        return nest_mod.halo_slabs(x, chs[0], halos[0])
+            return nest_mod.halo_slabs2(x, chs, halos, window)
+        return nest_mod.halo_slabs(x, chs[0], halos[0], window)
 
     for si, se in enumerate(rp.stages):
         for k in se.gathers:
@@ -856,11 +917,11 @@ def _execute_region2(dr: DistributedRegion, env: dict) -> dict:
         if dr.use_kernel:
             if si not in span_results:
                 span_results.update(_span_stages(
-                    dr, si, env_in, slab_stacks, st, slice_window))
+                    dr, si, env_in, slab_stacks, st, slice_window, window))
             carry, ys = span_results.pop(si)
         else:
             carry, ys = tf._run_local_chunks2(plan, se.stage, env_in,
-                                              slab_stacks, device)
+                                              slab_stacks, device, window)
 
         reduce_items: dict[str, tuple] = {}
         for key, dec in plan.vars.items():
@@ -902,7 +963,7 @@ def _execute_region2(dr: DistributedRegion, env: dict) -> dict:
             result[key] = st[key][1]
             continue
         _, stacks, bases, covers, prior, _ = st[key]
-        flat = flat2(stacks, lay.covers)
+        flat = flat2(mesh.join(stacks, ax_i, 1), lay.covers)
         flat = flat.to(env[key].dtype if key in env else flat.dtype)
         if lay.has_prior:
             full = prior.clone()

@@ -22,6 +22,14 @@ counterpart of :mod:`repro.core.transform`.
   point-to-point send through rank 0 instead
   (:func:`_execute_master_worker`), and each rank computes from the
   copies it received.
+
+On a :class:`~repro_torch.mesh.ProcessMesh` every process runs the same
+program on the same whole env, as every host does under the reference's
+multi-controller ``shard_map``: it stages and computes its own rank window
+only (:func:`~repro_torch.core.nest.rank_window`), the combines cross
+processes through the mesh's collectives, and the dense slabs join
+uncounted (:meth:`~repro_torch.mesh.Mesh.join`) before the reassembly, so
+that every process returns the whole result.
 """
 from __future__ import annotations
 
@@ -193,6 +201,46 @@ def resolve_axes(program_or_rank, mesh, axis):
     return axis, mesh.shape[axis]
 
 
+def to_mpi(
+    program: pragma.ParallelFor,
+    mesh,
+    *,
+    axis: str | tuple | None = None,
+    lowering: str = "collective",
+    shard_inputs: bool = False,
+    keep_sharded: bool = False,
+    unroll_chunks: bool = False,
+    env_like: Mapping[str, Any] | None = None,
+    paper_master_excluded: bool | None = None,
+):
+    """Deprecated: use ``omp.compile(program, mesh, omp.Options(...))``.
+
+    Thin shim: translates the legacy kwargs to
+    :class:`~repro_torch.core.api.Options` and returns the
+    :class:`~repro_torch.core.api.Compiled` artifact (callable like the
+    ``DistributedProgram`` it used to return, with ``.plan`` /
+    ``.report()`` intact).
+    """
+    import warnings
+
+    from repro_torch.core import api
+
+    warnings.warn(
+        "omp.to_mpi() is deprecated; use omp.compile(program, mesh, "
+        "omp.Options(lowering=..., shard=...)) instead",
+        DeprecationWarning, stacklevel=2)
+    options = api.Options(
+        axis=axis,
+        lowering=lowering,
+        shard=(api.ShardPolicy.SLICE if shard_inputs
+               else api.ShardPolicy.REPLICATE),
+        keep_sharded=keep_sharded,
+        unroll_chunks=unroll_chunks,
+        paper_master_excluded=paper_master_excluded,
+    )
+    return api.compile(program, mesh, options, env_like=env_like)
+
+
 # ---------------------------------------------------------------------------
 # Execution
 # ---------------------------------------------------------------------------
@@ -228,10 +276,11 @@ def _execute(dp: DistributedProgram, env: dict) -> dict:
     return _execute_collective(dp, env)
 
 
-def _lane_iterations(ch, loop, device):
-    """Slot table plus every lane's loop index, ``(n_loc, P, c)`` int32;
-    masked lanes (k >= trip) clamp to the last iteration."""
-    js, ks = nest_mod.slot_iterations(ch, device)
+def _lane_iterations(ch, loop, device, window=None):
+    """Slot table plus every lane's loop index, ``(n_loc, P, c)`` int32
+    (``block`` ranks for a rank ``window``); masked lanes (k >= trip)
+    clamp to the last iteration."""
+    js, ks = nest_mod.slot_iterations(ch, device, window)
     kc = ks.clamp(max=max(0, loop.trip_count - 1))
     return js, (loop.start + loop.step * kc).to(torch.int32)
 
@@ -253,10 +302,11 @@ def _env_sub(plan, env_in, wins, offs, device):
 
 
 def lane_values(plan, program, env_in, slab_stacks, device, *,
-                ranks=None, env_rank=None) -> dict:
+                ranks=None, env_rank=None, window=None) -> dict:
     """Dense per-lane body values of every rank's chunks, in the global
     slab layout ``(n_loc, P, c, *value_shape)`` (rank 1) — the plain
-    PyTorch evaluation that the span kernel computes in one launch.
+    PyTorch evaluation that the span kernel computes in one launch;
+    ``(n_loc, block, c, ...)`` for the ranks of a rank ``window``.
 
     ``slab_stacks`` hold the sharded inputs as ``(n_loc, P, w, *rest)``
     windows; ``env_in`` the replicated ones.  vmap runs over ranks
@@ -268,7 +318,7 @@ def lane_values(plan, program, env_in, slab_stacks, device, *,
     replicated inputs as every rank's own received copy ``(P, *shape)``.
     """
     ch, loop = plan.chunks, plan.loop
-    js, ivec = _lane_iterations(ch, loop, device)
+    js, ivec = _lane_iterations(ch, loop, device, window)
     if ranks is not None:
         js, ivec = js.index_select(1, ranks), ivec.index_select(1, ranks)
     offs = {k: (js * ch.chunk + plan.vars[k].window()[0]).to(torch.int32)
@@ -293,14 +343,16 @@ def lane_values(plan, program, env_in, slab_stacks, device, *,
         ivec, dict(slab_stacks), offs, dict(env_rank or {}))
 
 
-def lane_values2(plan, program, env_in, slab_stacks, device) -> dict:
-    """Rank-2 :func:`lane_values`: ``(n_i, P_i, c_i, n_j, P_j, c_j, *v)``.
+def lane_values2(plan, program, env_in, slab_stacks, device, *,
+                 window=None) -> dict:
+    """Rank-2 :func:`lane_values`: ``(n_i, P_i, c_i, n_j, P_j, c_j, *v)``
+    (``block`` in place of ``P_i`` for a rank ``window``).
 
     Sharded inputs are ``(n_i, P_i, w_i, n_j, P_j, w_j, *rest)`` windows
     (``shard_ndim == 2``) or ``(n_i, P_i, w_i, *rest)`` (``== 1``)."""
     ch_i, ch_j = plan.chunks_axes
     loop_i, loop_j = plan.nest.axes
-    js_i, ivec = _lane_iterations(ch_i, loop_i, device)
+    js_i, ivec = _lane_iterations(ch_i, loop_i, device, window)
     js_j, jvec = _lane_iterations(ch_j, loop_j, device)
     w2 = {k: v for k, v in slab_stacks.items() if plan.vars[k].shard_ndim == 2}
     w1 = {k: v for k, v in slab_stacks.items() if k not in w2}
@@ -334,24 +386,29 @@ def lane_values2(plan, program, env_in, slab_stacks, device) -> dict:
     return over_pi(ivec, jvec, w2, w1, oi, oj)
 
 
-def _run_local_chunks(plan, program, env_in, slab_stacks, device):
-    """Every rank's chunks, plain PyTorch: per-rank ``(carry, ys)`` —
-    ``ys`` dense values in the global slab layout, ``carry`` the
-    scatter/put/reduce partials with a leading rank dim."""
+def _run_local_chunks(plan, program, env_in, slab_stacks, device,
+                      window=None):
+    """Every rank's chunks (a rank ``window``'s), plain PyTorch: per-rank
+    ``(carry, ys)`` — ``ys`` dense values in the slab layout, ``carry``
+    the scatter/put/reduce partials with a leading rank dim."""
     return kl.merge_chunk_values(
-        plan, lane_values(plan, program, env_in, slab_stacks, device))
+        plan, lane_values(plan, program, env_in, slab_stacks, device,
+                          window=window), window)
 
 
-def _run_local_chunks2(plan, program, env_in, slab_stacks, device):
+def _run_local_chunks2(plan, program, env_in, slab_stacks, device,
+                       window=None):
     """Rank-2 :func:`_run_local_chunks` (partials lead with (P_i, P_j))."""
     return kl.merge_chunk_values2(
-        plan, lane_values2(plan, program, env_in, slab_stacks, device))
+        plan, lane_values2(plan, program, env_in, slab_stacks, device,
+                           window=window), window)
 
 
-def stage_inputs(plan, env):
+def stage_inputs(plan, env, window=None):
     """The compute phase's inputs: ``(replicated, slabs)`` — replicated
     buffers as they are, sharded ones staged into chunk-cyclic windows
-    (the data distribution the reference's ``shard_map`` in_specs do)."""
+    (the data distribution the reference's ``shard_map`` in_specs do),
+    the slots of a rank ``window`` only."""
     repl = {k: env[k] for k in plan.replicated_in_keys}
     slabs = {}
     for k in plan.sharded_in_keys:
@@ -359,25 +416,27 @@ def stage_inputs(plan, env):
         if plan.rank == 2:
             if dec.shard_ndim == 2:
                 slabs[k] = nest_mod.halo_slabs2(env[k], plan.chunks_axes,
-                                                dec.halo_axes)
+                                                dec.halo_axes, window)
             else:
                 slabs[k] = nest_mod.halo_slabs(env[k], plan.chunks_axes[0],
-                                               dec.halo_axes[0])
+                                               dec.halo_axes[0], window)
         elif dec.in_strategy == "shard_halo":
-            slabs[k] = nest_mod.halo_slabs(env[k], plan.chunks, dec.halo)
+            slabs[k] = nest_mod.halo_slabs(env[k], plan.chunks, dec.halo,
+                                           window)
         else:
-            slabs[k] = nest_mod.pad_reshape(env[k], plan.chunks)
+            slabs[k] = nest_mod.pad_reshape(env[k], plan.chunks, window)
     return repl, slabs
 
 
 def _compute(dp, env):
     plan, program, device = dp.plan, dp.program, dp.mesh.device
-    env_repl, env_slab = stage_inputs(plan, env)
+    window = nest_mod.rank_window(dp.mesh, plan.axis)
+    env_repl, env_slab = stage_inputs(plan, env, window)
     if dp.use_kernel:
         return kl.run_local_chunks_kernel(plan, program, env_repl, env_slab,
-                                          dp.kernel_plan, device)
+                                          dp.kernel_plan, device, window)
     run = _run_local_chunks if plan.rank == 1 else _run_local_chunks2
-    return run(plan, program, env_repl, env_slab, device)
+    return run(plan, program, env_repl, env_slab, device, window)
 
 
 def _combine(mesh, entries, axis, aggregate: bool):
@@ -424,7 +483,8 @@ def _execute_collective(dp: DistributedProgram, env: dict) -> dict:
     result = dict(env)
     for key, dec in plan.vars.items():
         if dec.out_strategy in ("identity", "partial"):
-            flat = nest_mod.unpad_flat(ys[key], ch, t).to(env[key].dtype)
+            flat = nest_mod.unpad_flat(mesh.join(ys[key], axis, 1), ch,
+                                       t).to(env[key].dtype)
             if dec.out_strategy == "identity":
                 result[key] = flat
             else:
@@ -471,8 +531,8 @@ def _execute_collective2(dp: DistributedProgram, env: dict) -> dict:
     result = dict(env)
     for key, dec in plan.vars.items():
         if dec.out_strategy in ("identity", "partial"):
-            flat = nest_mod.unpad_flat2(ys[key], chs, trips).to(
-                env[key].dtype)
+            flat = nest_mod.unpad_flat2(mesh.join(ys[key], axes[0], 1), chs,
+                                        trips).to(env[key].dtype)
             if dec.out_strategy == "identity":
                 result[key] = flat
             else:
@@ -515,15 +575,20 @@ def _execute_master_worker(dp: DistributedProgram, env: dict) -> dict:
     P - 1`` compute ranks and rank 0 recomputes worker 0's chunks (its
     result is never used), as in the reference.  Every send is one
     :meth:`Mesh.ppermute` with one ``(src, dst)`` pair, in the
-    reference's order."""
+    reference's order.  On a process mesh every per-rank tensor holds
+    the process's ranks; the master's row lives on the process that
+    holds rank 0, and the results read rank 0 through :meth:`Mesh.take`."""
     plan, program, mesh = dp.plan, dp.program, dp.mesh
     axis, ch = plan.axis, plan.chunks
     device = mesh.device
-    p_total = mesh.shape[axis]
     w = ch.num_devices
     t = plan.loop.trip_count
-    first = p_total - w          # 1 when the master is excluded, else 0
+    first = mesh.shape[axis] - w  # 1 when the master is excluded, else 0
     d = mesh.axis_index(axis)
+    mine = mesh.local_ranks(axis)
+    n_mine = len(mine)
+    master_here = mine.start == 0     # this process holds rank 0
+    skip = first if master_here else 0   # its excluded master's slot
     wd = (d.long() - first).clamp(0, w - 1)
 
     # master -> worker sends of every IN buffer; each rank computes from
@@ -531,19 +596,23 @@ def _execute_master_worker(dp: DistributedProgram, env: dict) -> dict:
     received = {}
     for key in plan.context.env_keys:
         if plan.vars[key].in_strategy == "replicate":
-            x = env[key].expand((p_total,) + tuple(env[key].shape))
+            x = env[key].expand((n_mine,) + tuple(env[key].shape))
             received[key] = _broadcast(mesh, x, first, d, axis)
     values = lane_values(plan, program, {}, {}, device, ranks=wd,
                          env_rank=received)
+    # the compute ranks this process holds: a window of the w
+    window = (None if n_mine == mesh.shape[axis]
+              else (max(mine.start - first, 0), n_mine - skip))
     carry, _ = kl.merge_chunk_values(
-        plan, {k: v[:, first:] for k, v in values.items()})
+        plan, {k: v[:, skip:] for k, v in values.items()}, window)
 
     def pad(x, fill=0):
         """Compute-rank partials ``(w, ...)`` -> mesh ranks ``(P, ...)``,
         the excluded master's slot ``fill``."""
-        if not first:
+        if not skip:
             return x
-        return torch.cat([torch.full_like(x[:1], fill), x])
+        return torch.cat([torch.full((1,) + tuple(x.shape[1:]), fill,
+                                     dtype=x.dtype, device=x.device), x])
 
     result = dict(env)
     for key, dec in plan.vars.items():
@@ -553,7 +622,7 @@ def _execute_master_worker(dp: DistributedProgram, env: dict) -> dict:
             # workers -> master sends of each slab stack, the master
             # assembles the padded buffer, then re-broadcasts it
             stack = values[key].transpose(0, 1)     # (P, n_loc, c, *rest)
-            full = torch.zeros((p_total, ch.padded_trip) + rest,
+            full = torch.zeros((n_mine, ch.padded_trip) + rest,
                                dtype=info.dtype, device=device)
             lanes = torch.arange(ch.chunk, device=device)
             locs = torch.arange(ch.local_chunks, device=device)[:, None]
@@ -561,11 +630,14 @@ def _execute_master_worker(dp: DistributedProgram, env: dict) -> dict:
                 src = src_w + first
                 got = (stack if src == 0
                        else mesh.ppermute(stack, axis, [(src, 0)]))
+                if not master_here:
+                    continue
                 # the padded rows of src_w's chunks: chunk q * w + src_w
                 rows = ((locs * w + src_w) * ch.chunk + lanes).reshape(-1)
                 full[0].index_copy_(0, rows, got[0].reshape(
                     (-1,) + rest).to(info.dtype))
-            flat = _broadcast(mesh, full, first, d, axis)[0][:t]
+            flat = mesh.take(_broadcast(mesh, full, first, d, axis), axis,
+                             0)[:t]
             if dec.out_strategy == "identity":
                 result[key] = flat.to(env[key].dtype)
             else:
@@ -586,7 +658,8 @@ def _execute_master_worker(dp: DistributedProgram, env: dict) -> dict:
             val = pad(carry[key])
             if owner != 0:
                 val = _mw_send(mesh, val, owner, 0, d, val, axis)
-            result[key] = _broadcast(mesh, val, first, d, axis)[0]
+            result[key] = mesh.take(_broadcast(mesh, val, first, d, axis),
+                                    axis, 0)
         elif dec.out_strategy == "reduce":
             # Table 3: workers send partials; the master folds them in
             # rank order into the identity-initialised accumulator
@@ -600,7 +673,7 @@ def _execute_master_worker(dp: DistributedProgram, env: dict) -> dict:
                 got = (part if src == 0
                        else mesh.ppermute(part, axis, [(src, 0)]))
                 acc = torch.where(master, rop.pairwise(acc, got), acc)
-            val = _broadcast(mesh, acc, first, d, axis)[0]
+            val = mesh.take(_broadcast(mesh, acc, first, d, axis), axis, 0)
             if key in env:
                 val = rop.pairwise(env[key], val)
             result[key] = val

@@ -69,6 +69,20 @@ the Pallas kernel traced the body into its own body:
 * the epilogue stores the dense values, masked, in the global slab
   layout ``(n_loc, P, c, *value_shape)``.
 
+**A rank window.**  On a :class:`~repro_torch.mesh.ProcessMesh` a
+process launches the kernel over its own ranks ``lo .. lo + block - 1``
+of the first nest axis only: :func:`generate_span` with ``block`` writes
+a kernel whose slabs and dense outputs are ``(n_loc, block, c, ...)``
+(rank 2: the ``i`` axis's ranks), whose prologue maps a program's local
+slot ``s`` to the global slot ``(s // block) * P + lo + s % block`` (so
+iteration numbers and window offsets stay global, and addresses local),
+and which reads ``lo`` from a one-element int32 tensor, its first
+argument: every process runs one source and one compiled kernel.  Its
+grid covers the live local slots of the window with the most (a window
+with fewer runs the rest on padding slots, which no merge reads).
+``block`` equal to ``P`` (a stacked mesh) generates the source it always
+did, character for character.
+
 A span of several stages (:func:`generate_span`) is one function: one
 prologue, then the stages' bodies in span order, each storing all its
 written keys (the merges outside need them).  A key an earlier stage of
@@ -123,6 +137,7 @@ import os
 from pathlib import Path
 from typing import Any
 
+import numpy as np
 import torch
 
 from repro_torch.core import context as ctx_mod
@@ -292,8 +307,8 @@ PROLOGUE1 = """\
     pid = tl.program_id(0){wide}
 {vsplit}    slot = pid // {nt}
     tile = pid - slot * {nt}
-    lane = tile * {tile} + tl.arange(0, {tile})[:, None]
-    it = slot * {c} + lane
+{window}    lane = tile * {tile} + tl.arange(0, {tile})[:, None]
+    it = {gslot} * {c} + lane
     lmask = lane < {c}
     i0 = ({start} + {step} * tl.minimum(it, {tmax})).to(tl.int32)
 """
@@ -306,14 +321,20 @@ PROLOGUE2 = """\
     r = r // {nsj}
     ti = r % {nti}
     si = r // {nti}
-    f = tl.arange(0, {lanes})[:, None]
+{window}    f = tl.arange(0, {lanes})[:, None]
     li = ti * {ti} + f // {tj}
     lj = tj * {tj} + f % {tj}
-    iti = si * {ci} + li
+    iti = {gslot} * {ci} + li
     itj = sj * {cj} + lj
     lmask = (li < {ci}) & (lj < {cj})
     i0 = ({starti} + {stepi} * tl.minimum(iti, {tmaxi})).to(tl.int32)
     j0 = ({startj} + {stepj} * tl.minimum(itj, {tmaxj})).to(tl.int32)
+"""
+
+#: A rank window's global slot of local slot ``{s}`` (``rank_lo``: the
+#: window's first rank, the kernel's first argument).
+WINDOW = """\
+    {g} = {s} // {block} * {p} + tl.load(rank_lo) + {s} % {block}
 """
 
 #: The value tile of a program, first in the program id, so that the
@@ -341,6 +362,8 @@ class SpanSource:
     value_tiles: int = 1     # programs per lane tile (the grid's value axis)
     num_warps: int = NUM_WARPS
     num_stages: int = 3      # the launch's software-pipelining depth
+    window: tuple = ()       # (block, P): a rank window's kernel (lo is
+    #                          its first argument); () for every rank
 
 
 # ---------------------------------------------------------------------------
@@ -551,9 +574,16 @@ class _Gen:
     """Walks the aten graphs of a span's stages in order, emitting one
     kernel body line by line; :meth:`stage` starts each stage."""
 
-    def __init__(self, plans, traces):
+    def __init__(self, plans, traces, block: int | None = None):
         plan0 = plans[0]
         self.rank = plan0.rank
+        p0 = plan0.chunks_axes[0].num_devices
+        #: a rank window's (block, P), or None for every rank; the name of
+        #: the global slot of the first nest axis (the local one's where
+        #: the two are the same)
+        self.window = None if block in (None, p0) else (block, p0)
+        self.gslot = ("slot" if self.rank == 1 else "si") \
+            if self.window is None else ("gslot" if self.rank == 1 else "gsi")
         self.lines: list = []       # lines, and lists placed before a loop
         self.head: list[str] = []
         self.ind = ""
@@ -809,7 +839,7 @@ class _Gen:
         offs, widths = [], []
         for d in range(n_sh):
             halo = dec.window(d)
-            slot = "slot" if self.rank == 1 else ("si", "sj")[d]
+            slot = self.gslot if d == 0 else "sj"
             offs.append(f"{slot} * {chs[d].chunk} + {halo[0]}")
             widths.append(window_extent(chs[d].chunk, halo))
         exprs = []
@@ -2059,7 +2089,7 @@ class _Gen:
         if tag not in self.iter_vecs:
             loop = self.plan.nest.axes[d]
             ch, tl_ = self.plan.chunks_axes[d], self.tiles[d]
-            s, t = ("si", "ti") if d == 0 else ("sj", "tj")
+            s, t = (self.gslot, "ti") if d == 0 else ("sj", "tj")
             shape = "[:, None]" if d == 0 else "[None, :]"
             name = f"{'ij'[d]}v{self.si}"
             self.head.append(
@@ -2214,18 +2244,24 @@ class _Gen:
                    f"mask={mask})")
 
 
-def _prologue(plan, tiles, wide: bool, value_tiles: int) -> str:
+def _prologue(plan, tiles, wide: bool, value_tiles: int,
+              gen: "_Gen") -> str:
     w = ".to(tl.int64)" if wide else ""
     vsplit = VSPLIT.format(nv=value_tiles) if value_tiles > 1 else ""
+    local = "slot" if plan.rank == 1 else "si"
+    window = "" if gen.window is None else WINDOW.format(
+        g=gen.gslot, s=local, block=gen.window[0], p=gen.window[1])
     if plan.rank == 1:
         ch, loop = plan.chunks, plan.loop
         return PROLOGUE1.format(
             wide=w, vsplit=vsplit, nt=tiles[0].n_tiles, tile=tiles[0].tile,
+            window=window, gslot=gen.gslot,
             c=ch.chunk, start=loop.start, step=loop.step,
             tmax=loop.trip_count - 1)
     (ch_i, ch_j), (lp_i, lp_j) = plan.chunks_axes, plan.nest.axes
     return PROLOGUE2.format(
-        wide=w, vsplit=vsplit, ntj=tiles[1].n_tiles, nti=tiles[0].n_tiles,
+        wide=w, vsplit=vsplit, window=window, gslot=gen.gslot,
+        ntj=tiles[1].n_tiles, nti=tiles[0].n_tiles,
         nsj=live_slots(plan)[1],
         lanes=tiles[0].tile * tiles[1].tile, ti=tiles[0].tile,
         tj=tiles[1].tile, ci=ch_i.chunk, cj=ch_j.chunk,
@@ -2243,11 +2279,27 @@ def live_slots(plan) -> tuple[int, ...]:
                  for lp, ch in zip(plan.nest.axes, plan.chunks_axes))
 
 
-def _out_shape(plan, key) -> tuple:
+def window_slots(plan, block: int) -> int:
+    """Live slots of the first nest axis in the rank window of ``block``
+    ranks that holds the most: the windowed grid's slot range (every
+    window ``(lo, block)`` of the cyclic deal, ``lo`` from 0 to ``P -
+    block``)."""
+    ch = plan.chunks_axes[0]
+    live = live_slots(plan)[0]
+    q = np.arange(ch.local_chunks)[:, None] * ch.num_devices
+    return max(int(((q + lo + np.arange(block)) < live).sum())
+               for lo in range(ch.num_devices - block + 1))
+
+
+def _out_shape(plan, key, window=None) -> tuple:
+    """A dense output's shape: ``(n_loc, P, c, ...)`` per nest axis, the
+    first axis's ``P`` a rank window's ``block``."""
     vshape = tuple(plan.context.vars[key].write.value_shape)
     lead = []
-    for ch in plan.chunks_axes:
-        lead += [ch.local_chunks, ch.num_devices, ch.chunk]
+    for d, ch in enumerate(plan.chunks_axes):
+        ranks = window[0] if window is not None and d == 0 \
+            else ch.num_devices
+        lead += [ch.local_chunks, ranks, ch.chunk]
     return tuple(lead) + vshape
 
 
@@ -2297,19 +2349,22 @@ def _launch_shape(shape: _Shape) -> dict:
     return {}
 
 
-def generate(plan, program, device=None) -> SpanSource:
+def generate(plan, program, device=None, block: int | None = None
+             ) -> SpanSource:
     """The span kernel of one block (a span of one stage)."""
-    return generate_span([(plan, program, frozenset())], device)
+    return generate_span([(plan, program, frozenset())], device, block)
 
 
-def generate_span(stages, device=None) -> SpanSource:
+def generate_span(stages, device=None, block: int | None = None
+                  ) -> SpanSource:
     """ONE span kernel for a chain of same-geometry stages, generated
     from their bodies' aten graphs in span order.  ``stages``: ``(plan,
     program, forwarded keys)`` per stage; a forwarded key is read from
     the register tile an earlier stage stored for the same lanes.  Every
-    stage's written keys are stored in the global dense layout.
-    ``CompileError`` for a body the template cannot express, or a
-    forwarded read that does not address the lane's own row."""
+    stage's written keys are stored in the global dense layout (a rank
+    window's, for ``block`` ranks of the first nest axis: see the module
+    docstring).  ``CompileError`` for a body the template cannot express,
+    or a forwarded read that does not address the lane's own row."""
     plans = [plan for plan, _, _ in stages]
     if any(ch.slot_map is not None for plan in plans
            for ch in plan.chunks_axes):
@@ -2319,7 +2374,7 @@ def generate_span(stages, device=None) -> SpanSource:
     _check_span_geometry(plans)
     device = torch.device("cpu") if device is None else device
     traces = [_traces(plan, program, device) for plan, program, _ in stages]
-    gen = _Gen(plans, traces)
+    gen = _Gen(plans, traces, block)
     outputs = []
     for si, ((plan, program, forwarded), (trace_a, _)) in enumerate(
             zip(stages, traces)):
@@ -2329,13 +2384,15 @@ def generate_span(stages, device=None) -> SpanSource:
         updates = trace_a.updates()
         for key in plan.written_keys:
             gen.store(key, updates[key].value, f"o{si}_{len(outputs)}")
-            outputs.append((si, key, _out_shape(plan, key),
+            outputs.append((si, key, _out_shape(plan, key, gen.window),
                             plan.context.vars[key].write.value_dtype))
     plan0 = plans[0]
     params = [f"p{si}_{i}" for i, (_, si, _) in enumerate(gen.inputs)] + \
         [f"o{si}_{i}" for i, (si, _, _, _) in enumerate(outputs)]
+    if gen.window is not None:
+        params = ["rank_lo"] + params
     lines = _flat(gen.lines)
-    body = (_prologue(plan0, gen.tiles, gen.wide, gen.value_tiles)
+    body = (_prologue(plan0, gen.tiles, gen.wide, gen.value_tiles, gen)
             + "".join(line + "\n" for line in gen.head)
             + "\n".join(lines) + "\n")
     digest = hashlib.sha256(
@@ -2352,7 +2409,10 @@ def generate_span(stages, device=None) -> SpanSource:
         + "".join(f"@triton.jit\ndef {name}(a, b):\n{_COMBINERS[name]}\n\n"
                   for name in gen.combiners)
         + f"@triton.jit\ndef {fn_name}({', '.join(params)}):\n{body}")
-    n_prog = math.prod(live_slots(plan0)) \
+    slots = list(live_slots(plan0))
+    if gen.window is not None:
+        slots[0] = window_slots(plan0, gen.window[0])
+    n_prog = math.prod(slots) \
         * math.prod(t.n_tiles for t in gen.tiles) * gen.value_tiles
     return SpanSource(fn_name=fn_name, text=text, inputs=tuple(gen.inputs),
                       outputs=tuple(outputs), n_programs=n_prog,
@@ -2360,7 +2420,7 @@ def generate_span(stages, device=None) -> SpanSource:
                       dot_flops_per_lane=gen.dot_flops,
                       forwarded=tuple(dict.fromkeys(gen.fwd_reads)),
                       tiles=gen.tiles, value_tiles=gen.value_tiles,
-                      **_launch_shape(gen.shape))
+                      window=gen.window or (), **_launch_shape(gen.shape))
 
 
 # ---------------------------------------------------------------------------
@@ -2393,17 +2453,37 @@ def _kernel(source: SpanSource):
     return fn
 
 
-def kernel_args(source: SpanSource, stage_io) -> list:
+_RANK_LO: dict = {}
+
+
+def rank_lo(lo: int, device) -> torch.Tensor:
+    """A rank window's first rank as the one-element int32 tensor a
+    windowed kernel reads (one per ``(lo, device)``, kept)."""
+    key = (int(lo), str(device))
+    t = _RANK_LO.get(key)
+    if t is None:
+        t = _RANK_LO[key] = torch.tensor([int(lo)], dtype=torch.int32,
+                                         device=device)
+    return t
+
+
+def kernel_args(source: SpanSource, stage_io, lo: int = 0,
+                device=None) -> list:
     """The kernel's pointer arguments from ``stage_io`` (``(windows,
     env_repl)`` per stage): each input contiguous, and a matrix that a
     product reads transposed (kind ``"replT"``) as a contiguous copy with
     its last two dims swapped, so that the kernel's tiles of it run
-    along N."""
+    along N; a rank window's kernel takes its first rank ``lo`` first,
+    on ``device`` (default: the inputs', or the CPU's)."""
     args = []
     for kind, si, key in source.inputs:
         t = stage_io[si][0 if kind == "win" else 1][key]
         args.append(t.transpose(-2, -1).contiguous() if kind == "replT"
                     else t.contiguous())
+    if source.window:
+        if device is None:
+            device = args[0].device if args else torch.device("cpu")
+        args.insert(0, rank_lo(lo, device))
     return args
 
 
@@ -2425,14 +2505,15 @@ def _warm(source: SpanSource, args, outs):
     return k
 
 
-def launch_span_triton(source: SpanSource, stage_io, device) -> list:
+def launch_span_triton(source: SpanSource, stage_io, device,
+                       lo: int = 0) -> list:
     """The span kernel launched through Triton's own Python path (its
     binder, specialisation and cache lookup on every call), into one
     ``torch.empty`` per output: the launch :func:`launch_span` replaced,
     kept as it was to hold the new launcher against it, bit for bit and
     in time.  Counts no launch."""
     fn = _kernel(source)
-    args = kernel_args(source, stage_io)
+    args = kernel_args(source, stage_io, lo, device)
     flat = [torch.empty(shape, dtype=dtype, device=device)
             for _, _, shape, dtype in source.outputs]
     fn[(source.n_programs,)](*args, *flat, num_warps=source.num_warps,
@@ -2596,7 +2677,8 @@ class _Launcher:
     def add(self, key, entry: _Compiled) -> None:
         """Keep ``entry`` as the compiled kernel of ``key``."""
         self.kernels[key] = entry
-        n_ptrs = len(self.source.inputs) + len(self.source.outputs)
+        n_ptrs = (len(self.source.inputs) + len(self.source.outputs)
+                  + bool(self.source.window))   # a rank window's lo
         self.blob_t = ctypes.c_uint64 * (6 + n_ptrs + len(entry.extra))
         self.tail = [0] * len(entry.extra)
 
@@ -2691,16 +2773,18 @@ def import_cubins(kernel_plan, cubins: dict, device) -> int:
     return failed
 
 
-def launch_span(source: SpanSource, stage_io, device: torch.device) -> list:
-    """One launch over every rank's chunks for a whole span;
-    ``stage_io``: ``(windows, env_repl)`` per stage.  Returns each
-    stage's dense values (views into one allocation)."""
+def launch_span(source: SpanSource, stage_io, device: torch.device,
+                lo: int = 0) -> list:
+    """One launch over every rank's chunks for a whole span (the ranks
+    ``lo ..`` of a rank window's kernel); ``stage_io``: ``(windows,
+    env_repl)`` per stage.  Returns each stage's dense values (views into
+    one allocation)."""
     global LAUNCHES
     key = launcher_key(source)
     launcher = _LAUNCHERS.get(key)
     if launcher is None:
         launcher = _LAUNCHERS[key] = _Launcher(source)
-    args = kernel_args(source, stage_io)
+    args = kernel_args(source, stage_io, lo, device)
     outs = launcher.outputs(device)
     current = torch._C._cuda_getDevice()
     if device.index is None or device.index == current:
@@ -2713,16 +2797,17 @@ def launch_span(source: SpanSource, stage_io, device: torch.device) -> list:
 
 
 def span_values_plain(plan, program, windows: dict, env_repl: dict,
-                      device) -> dict:
+                      device, window=None) -> dict:
     """The span kernel's function in plain PyTorch: the body vmapped over
-    every rank's chunk lanes (same inputs, same output layout)."""
+    every rank's chunk lanes (a rank ``window``'s; same inputs, same
+    output layout)."""
     from repro_torch.core import transform
 
     run = transform.lane_values if plan.rank == 1 else transform.lane_values2
-    return run(plan, program, env_repl, windows, device)
+    return run(plan, program, env_repl, windows, device, window=window)
 
 
-def span_values_plain_stages(stages, device) -> list:
+def span_values_plain_stages(stages, device, window=None) -> list:
     """A span of several stages in plain PyTorch: each stage's lane
     values in order, a forwarded key's window being the dense values the
     latest earlier stage wrote for it (handed over as a tensor).
@@ -2734,7 +2819,7 @@ def span_values_plain_stages(stages, device) -> list:
         windows = dict(st.ext_windows)
         windows.update({k: handed[k] for k in st.forwarded})
         vals = span_values_plain(st.plan, st.program, windows, st.env_repl,
-                                 device)
+                                 device, window)
         for k, dec in st.plan.vars.items():
             if dec.out_strategy in ("identity", "partial"):
                 handed[k] = vals[k]
@@ -2765,9 +2850,11 @@ def _check_device(tensors, device) -> torch.device:
     return device
 
 
-def span_stage_values(stages, source: SpanSource | None, device) -> list:
+def span_stage_values(stages, source: SpanSource | None, device,
+                      window=None) -> list:
     """Dense per-lane values of every stage of a span, as one launch on
-    CUDA (or the plain version on the CPU); see
+    CUDA (or the plain version on the CPU), over the ranks of a rank
+    ``window`` ``(lo, block)`` (``None``: every rank); see
     :func:`span_values_plain_stages` for ``stages``."""
     tensors = []
     for st in stages:
@@ -2775,9 +2862,16 @@ def span_stage_values(stages, source: SpanSource | None, device) -> list:
         tensors += st.env_repl.values()
     device = _check_device(tensors, device)
     if device.type == "cpu":
-        return span_values_plain_stages(stages, device)
+        return span_values_plain_stages(stages, device, window)
     if source is None:
         raise ValueError("no span kernel source for a CUDA span: compile "
                          "with lowering='kernel'")
-    return launch_span(source, [(st.ext_windows, st.env_repl)
-                                for st in stages], device)
+    block = None if window is None else window[1]
+    if (source.window[0] if source.window else None) != block:
+        raise ValueError(
+            f"span kernel {source.fn_name} was generated for "
+            f"{source.window or 'every rank'} and launched on the rank "
+            f"window {window}: compile on the mesh it runs on")
+    io = [(st.ext_windows, st.env_repl) for st in stages]
+    return launch_span(source, io, device,
+                       lo=0 if window is None else window[0])

@@ -44,7 +44,10 @@ all-to-all's operand, a permute's sent value): what
 a ``torch.distributed`` group behind the same interface: a caller loops
 over the ranks its process holds (:attr:`Mesh.local_shape`,
 :meth:`Mesh.local_ranks`; a stacked mesh holds every rank), and the
-results and counters are the stacked mesh's.
+results and counters are the stacked mesh's.  :meth:`Mesh.take`,
+:meth:`Mesh.total` and :meth:`Mesh.join` are the bookkeeping a stacked
+mesh does in place (a rank's value on every process, a sum over
+processes, every rank's stack on every process) and count nothing.
 """
 from __future__ import annotations
 
@@ -140,6 +143,25 @@ class Mesh:
         tensor): bookkeeping that a stacked mesh does in place."""
         return value
 
+    def join(self, x: torch.Tensor, axis: str, dim: int = 0) -> torch.Tensor:
+        """Every rank's value of the per-rank ``x`` (``axis``'s rank dim at
+        ``dim``), in rank order, on every process: a reassembly that the
+        stacked mesh does as layout (the reference's "at the jit level",
+        not messages).  Counted nothing."""
+        return x
+
+    #: the factor this mesh counts an operand's bytes at (1 but on
+    #: :meth:`ProcessMesh.carrying`'s mesh)
+    _carried = 1
+
+    def carrying(self, axis: str) -> "Mesh":
+        """This mesh, for collectives over the other axes whose operands
+        carry the ``axis`` ranks this process holds (a rank dim of them
+        rides in the payload): they count as the stacked mesh counts its
+        operand, which carries every ``axis`` rank.  A stacked mesh holds
+        every rank: itself."""
+        return self
+
     def unshard_local(self, xs: torch.Tensor, spec) -> torch.Tensor:
         """The part of the tensor this process's ranks hold, from their
         blocks (on a stacked mesh: :meth:`unshard`)."""
@@ -172,7 +194,7 @@ class Mesh:
         """One launch of ``op`` over ``group`` ranks and ``x``'s bytes
         times ``scale``; ``payload`` (one rank's bytes for :attr:`log`)
         defaults to those bytes over ``group``."""
-        nbytes = x.numel() * x.element_size() * scale
+        nbytes = x.numel() * x.element_size() * scale * self._carried
         c = self._counts
         c.launches[op] += 1
         c.bytes[op] += nbytes
@@ -345,7 +367,7 @@ class Mesh:
         """One ``ppermute`` launch; bytes: one rank's value per pair."""
         c = self._counts
         c.launches["ppermute"] += 1
-        sent = x[0].numel() * x.element_size()
+        sent = x[0].numel() * x.element_size() * self._carried
         c.bytes["ppermute"] += pairs * sent
         if c.log is not None:
             c.log.append(("ppermute", p, sent))
@@ -406,7 +428,7 @@ class ProcessMesh(Mesh):
     collective is the stacked mesh's own.  Over the split axis:
 
     * ``psum``/``pmax``/``pmin`` gather every rank's operand in rank
-      order (``all_gather_into_tensor``) and fold it rank by rank as
+      order (one ``all_gather``) and fold it rank by rank as
       :meth:`Mesh.psum` does, so the result is the stacked mesh's bit for
       bit whatever the world size.  The price is the wire: each process
       receives the other ranks' operands, (P - 1)/P x P x S bytes for an
@@ -414,12 +436,12 @@ class ProcessMesh(Mesh):
       2 (P - 1)/P x S: P/2 times as much (equal at two processes), paid
       for results that do not depend on how the ranks are spread;
     * ``all_gather`` returns the whole ``(P, ...)`` stack
-      (``all_gather_into_tensor``), ``all_to_all`` is one
+      (one ``all_gather``), ``all_to_all`` is one
       ``all_to_all_single``, and ``ppermute`` moves the pairs within a
       process in place and sends the pairs that cross processes with
       ``batch_isend_irecv``; a rank no pair targets receives zeros;
     * ``shard`` keeps this process's blocks, ``unshard`` gathers the
-      whole tensor (``all_gather_into_tensor`` over the split axis, the
+      whole tensor (one ``all_gather`` over the split axis, the
       stacked gather over the others).
 
     ``ppermute`` and ``all_gather`` over the split axis are
@@ -444,10 +466,14 @@ class ProcessMesh(Mesh):
     the same call over all the ranks (the bytes of the whole operand),
     so ``lower_cell`` and :mod:`repro_torch.launch.audit` read the same
     numbers on either mesh.  Over an axis the process holds whole the
-    operand is the process's own.  :meth:`take` and :meth:`total`
-    (process bookkeeping, which a stacked mesh does in place) count
-    nothing.  On ``meta`` tensors nothing is sent: the shapes come out
-    as they would."""
+    operand is the process's own, and the stacked mesh's where it carries
+    no split-axis rank dim; one that carries the process's block of them
+    (a rank-2 halo's column ring) goes through :meth:`carrying`'s mesh,
+    which counts it ``processes`` times, as the stacked mesh's operand
+    carries every block.  :meth:`take`, :meth:`total` and :meth:`join`
+    (process bookkeeping and reassembly, which a stacked mesh does in
+    place) count nothing.  On ``meta`` tensors nothing is sent: the
+    shapes come out as they would."""
 
     def __init__(self, axis_shapes: Sequence[int], axis_names: Sequence[str],
                  device: torch.device, group=None) -> None:
@@ -484,6 +510,7 @@ class ProcessMesh(Mesh):
         self._local = Mesh(tuple(self.local_shape.values()), self.axis_names,
                            self.device, counts=self,
                            rank_dims=(self.split_axis,) if n > 1 else ())
+        self._carrier = _Carrying(self)
 
     def __repr__(self) -> str:
         axes = ", ".join(f"{a}={s}" for a, s in self.shape.items())
@@ -514,16 +541,16 @@ class ProcessMesh(Mesh):
 
     def _gather(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """Every process's ``x`` stacked along ``dim`` in process order
-        (``all_gather_into_tensor``): the split axis's ranks in rank
-        order."""
+        (``all_gather`` into the blocks of one tensor; its one-tensor
+        forms are deprecated in one installed torch and missing in
+        another): the split axis's ranks in rank order."""
         xs = x.movedim(dim, 0).contiguous()
-        out = torch.empty((xs.shape[0] * self.processes,)
-                          + tuple(xs.shape[1:]), dtype=x.dtype,
-                          device=x.device)
+        out = torch.empty((self.processes,) + tuple(xs.shape),
+                          dtype=x.dtype, device=x.device)
         if x.device.type != "meta":
-            dist.all_gather_into_tensor(_wire(out), _wire(xs),
-                                        group=self.group)
-        return out.movedim(0, dim)
+            dist.all_gather(list(_wire(out).unbind(0)), _wire(xs),
+                            group=self.group)
+        return out.flatten(0, 1).movedim(0, dim)
 
     def _exchange(self, x: torch.Tensor, pairs, add: bool = False):
         """Rank ``d`` of the result gets rank ``s`` of ``x`` for every
@@ -545,7 +572,8 @@ class ProcessMesh(Mesh):
                     dist.isend, _wire(x[s - lo].contiguous()),
                     self._peer(d // self.block), self.group, tag))
             elif here_d:
-                buf = torch.empty_like(x[0])
+                buf = torch.empty(x.shape[1:], dtype=x.dtype,
+                                  device=x.device)
                 got.append((d - lo, buf))
                 ops.append(dist.P2POp(dist.irecv, _wire(buf),
                                       self._peer(s // self.block),
@@ -627,6 +655,16 @@ class ProcessMesh(Mesh):
             return x[rank]
         return _Take.apply(x, self, rank)
 
+    def join(self, x: torch.Tensor, axis: str, dim: int = 0) -> torch.Tensor:
+        if axis != self.split_axis:
+            return x
+        return self._gather(x, dim)
+
+    def carrying(self, axis: str) -> Mesh:
+        if axis != self.split_axis or self.processes == 1:
+            return self
+        return self._carrier
+
     def total(self, value):
         t = torch.as_tensor(value, device=self.device)
         t = t.to(torch.int64) if not t.is_floating_point() else t.clone()
@@ -670,6 +708,27 @@ class ProcessMesh(Mesh):
 
     def shard_local(self, x: torch.Tensor, spec) -> torch.Tensor:
         return self._local.shard(x, spec)
+
+
+class _Carrying(Mesh):
+    """:meth:`ProcessMesh.carrying`'s mesh: the process's ranks, for
+    collectives over the axes it holds whole, on the process mesh's
+    counters, each operand counted once a process (the operands of every
+    process's block of the split axis's ranks, as the stacked mesh's
+    operand carries them).  A collective over the split axis raises."""
+
+    def __init__(self, owner: ProcessMesh) -> None:
+        super().__init__(tuple(owner.local_shape.values()), owner.axis_names,
+                         owner.device, counts=owner)
+        self._carried = owner.processes
+        self._split = owner.split_axis
+
+    def _axes(self, axis) -> tuple[str, ...]:
+        names = super()._axes(axis)
+        if self._split in names:
+            raise ValueError(f"a collective over the split axis "
+                             f"{self._split!r} on the mesh carrying it")
+        return names
 
 
 class _Gather(torch.autograd.Function):

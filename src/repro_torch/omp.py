@@ -13,7 +13,12 @@ Mirrors :mod:`repro.omp`:
   lower``, plus ``kernel`` under ``lowering="kernel"``) and returns the
   distributed program as a :class:`~repro_torch.core.api.Compiled`;
 * ``omp.make_mesh(shape, axis_names, device=None)`` builds the
-  stacked-rank mesh — on the CUDA card unless ``device`` says otherwise;
+  stacked-rank mesh — on the CUDA card unless ``device`` says otherwise
+  (``repro_torch.mesh.make_process_mesh`` spreads its first axis over the
+  processes of a ``torch.distributed`` group; ``omp.compile`` takes
+  either);
+* ``omp.to_mpi`` / ``omp.region_to_mpi`` are the reference's deprecated
+  shims over ``omp.compile``;
 * ``omp.enable_persistent_cache(path)`` keeps compiles across processes
   in an :class:`~repro_torch.core.aot_store.AOTStore`.
 """
@@ -88,6 +93,7 @@ from repro_torch.core.region import (  # noqa: F401
     SlabLayout,
     SlabLayout2,
     plan_region,
+    region_to_mpi,
 )
 from repro_torch.core.schedule import (  # noqa: F401
     ChunkPlan,
@@ -96,5 +102,9 @@ from repro_torch.core.schedule import (  # noqa: F401
     make_nest_chunk_plans,
     paper_chunk_size,
 )
-from repro_torch.core.transform import DistributedProgram, run_reference  # noqa: F401
+from repro_torch.core.transform import (  # noqa: F401
+    DistributedProgram,
+    run_reference,
+    to_mpi,
+)
 from repro_torch.mesh import Mesh, make_mesh  # noqa: F401

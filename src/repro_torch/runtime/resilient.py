@@ -149,10 +149,18 @@ class ResilientExecutor:
     # -------------------------------------------------------- recovery --
     def _recover(self, env) -> dict:
         """Persistent failure: drop one rank, recompile on the shrunk
-        mesh, re-place inputs, re-run."""
-        from repro_torch.mesh import make_mesh
+        mesh, re-place inputs, re-run.  A process mesh raises: its
+        survivors would have to re-split the first axis over the
+        processes, which is not built."""
+        from repro_torch.mesh import ProcessMesh, make_mesh
 
         mesh = self.compiled.mesh
+        if isinstance(mesh, ProcessMesh):
+            raise NotImplementedError(
+                f"degraded-mesh recovery on {mesh!r}: recovery across "
+                "processes, where the survivors' first axis must still "
+                "divide over the world, is ROADMAP.md §1 item 2 "
+                "(\"Recovery across processes\"); a stacked mesh recovers")
         old_shape = tuple(mesh.shape[a] for a in mesh.axis_names)
         # a single-rank mesh has nothing to drop
         n_alive = max(1, math.prod(old_shape) - 1)

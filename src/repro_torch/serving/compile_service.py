@@ -30,6 +30,17 @@ translation requests) submit concurrently; the service
 (:func:`~repro_torch.core.api.enable_persistent_cache`), as the
 reference's does: a fresh service process restores compiles instead of
 planning them (and, on the card, of compiling their span kernels).
+
+Over a :class:`~repro_torch.mesh.ProcessMesh` every process runs a service
+of its own on its own ranks, and the requests of a run meet their peers'
+collectives: each service runs its requests (compile and run) one at a
+time on one worker thread, whose queue is first in, first out, in the
+order :meth:`CompileService.submit` (and :meth:`CompileService.run` and
+:meth:`CompileService.warmup`, which queue there too) received them.
+That order must be the same on every process; requests of one cold key
+still make one compile.  The escalations are decided alike on every
+process (one process's exhausted spike budget escalates them all), so
+that their plans stay the same.
 """
 from __future__ import annotations
 
@@ -118,6 +129,8 @@ class CompileService:
                                 if device_weights is not None else None)
         self._weighted_options: Any = None
         self.remesh_plan: RemeshPlan | None = None
+        #: over a process mesh: one worker, so the same order everywhere
+        self._across = api_mod._is_process_mesh(mesh)
 
     # ------------------------------------------------------------- keys --
     def _key(self, program, options) -> tuple:
@@ -131,6 +144,11 @@ class CompileService:
             options=None) -> dict:
         """Compile (or reuse) ``program`` and run it on ``env``.
         Blocking; safe to call from many client threads at once."""
+        if self._across:
+            return self.submit(program, env, options).result()
+        return self._run(program, env, options)
+
+    def _run(self, program, env: Mapping[str, Any], options) -> dict:
         options = options if options is not None else self.options
         self.stats.inc("requests")
         compiled = self._get_compiled(program, env, options)
@@ -147,21 +165,27 @@ class CompileService:
                options=None) -> Future:
         """Async variant of :meth:`run`: returns a Future resolving to
         the output environment."""
-        if self._pool is None:
-            self._pool = ThreadPoolExecutor(
-                max_workers=self._max_workers,
-                thread_name_prefix="compile-service")
-        return self._pool.submit(self.run, program, env, options)
+        return self._queue(self._run, program, env, options)
+
+    def _queue(self, fn, *args) -> Future:
+        with self._lock:
+            if self._pool is None:
+                self._pool = ThreadPoolExecutor(
+                    max_workers=1 if self._across else self._max_workers,
+                    thread_name_prefix="compile-service")
+        return self._pool.submit(fn, *args)
 
     def warmup(self, programs, env_like: Mapping[str, Any],
                options=None) -> int:
         """Pre-compile ``programs`` (shapes only); returns how many
         cold compiles that took."""
+        options = options if options is not None else self.options
         before = self.stats.cold_compiles
         for p in programs:
-            self._get_compiled(p, env_like,
-                               options if options is not None
-                               else self.options)
+            if self._across:
+                self._queue(self._get_compiled, p, env_like, options).result()
+            else:
+                self._get_compiled(p, env_like, options)
         return self.stats.cold_compiles - before
 
     # ------------------------------------------------------ single-flight --
@@ -211,6 +235,8 @@ class CompileService:
         with self._monitor_lock:
             self.stats.run_seconds += dt
             status = self.monitor.observe(dt)
+            if self._across and self.mesh.total(int(status == "evict")):
+                status = "evict"        # some process's budget ran out
             if status != "evict" or self.remesh_plan is not None:
                 return
             if (self._device_weights is not None

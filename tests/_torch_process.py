@@ -16,6 +16,7 @@ holds where the value is per rank), and the two meshes' counters.
 from __future__ import annotations
 
 import os
+import warnings
 
 import torch
 
@@ -109,8 +110,14 @@ def collectives(rank, world) -> dict:
             res[f"1/{op}/{dtype}"] = (getattr(st, op)(x, "data"),
                                       getattr(pm, op)(x[lo:hi], "data"))
     x = rand(4, 7)
-    res["1/all_gather"] = (st.all_gather(x, "data"),
-                           pm.all_gather(x[lo:hi], "data"))
+    # the split axis's gathers call no deprecated function (a
+    # FutureWarning raises here)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", FutureWarning)
+        res["1/all_gather"] = (st.all_gather(x, "data"),
+                               pm.all_gather(x[lo:hi], "data"))
+        res["1/psum/warnings"] = (st.psum(x, "data"),
+                                  pm.psum(x[lo:hi], "data"))
     y = rand(4, 8, 4)
     for sa, ca in ((0, 1), (1, 0), (0, 0)):
         res[f"1/all_to_all/{sa}{ca}"] = (
@@ -306,12 +313,14 @@ def _refused(fn) -> str:
 
 
 def refusals(rank, world) -> dict:
-    """What the process mesh refuses, as ``"<Error>: <message>"``."""
+    """What the process mesh refuses, as ``"<Error>: <message>"``: among
+    them the recovery of a compiled program over it."""
     from repro_torch import omp, polybench
     from repro_torch.configs import ShapeConfig, TrainConfig, smoke_config
     from repro_torch.launch import steps
     from repro_torch.launch.mesh import make_process_mesh
     from repro_torch.mesh import ProcessMesh
+    from repro_torch.runtime import ResilientExecutor, RetryPolicy
 
     cpu = torch.device("cpu")
     out = {
@@ -334,9 +343,170 @@ def refusals(rank, world) -> dict:
     finally:
         steps.moe_groups = old
     kern = polybench.make("gemm", dict(ni=8, nj=8, nk=8))
-    out["compiled"] = _refused(lambda: omp.compile(
-        kern.programs[0], make_process_mesh(1, ranks=2, device=cpu)))
+    compiled = omp.compile(kern.programs[0],
+                           make_process_mesh(1, ranks=2, device=cpu))
+    out["recovery"] = _refused(lambda: ResilientExecutor(
+        compiled, policy=RetryPolicy(max_retries=0))._recover(
+            kern.env_fn("cpu")))
     return out
+
+
+# ---------------------------------------------------------------------------
+# The compiler
+# ---------------------------------------------------------------------------
+
+
+def _tapped(log: list):
+    """Patch the staging, the dense-value merges and K1's wrapper to note
+    the rank dim (dim 1) of every staged slab and every span's and
+    merge's dense values in ``log``; returns the undo."""
+    from repro_torch.core import kernel_lower as kl
+    from repro_torch.core import nest
+    from repro_torch.kernels import span_kernel
+
+    saved = []
+
+    def tap(mod, name, pick):
+        fn = getattr(mod, name)
+
+        def wrapped(*a, **k):
+            out = fn(*a, **k)
+            log.extend(int(t.shape[1]) for t in pick(a, k, out))
+            return out
+        saved.append((mod, name, fn))
+        setattr(mod, name, wrapped)
+
+    for name in ("pad_reshape", "halo_slabs", "halo_slabs2"):
+        tap(nest, name, lambda a, k, out: [out])
+    for name in ("merge_chunk_values", "merge_chunk_values2"):
+        tap(kl, name, lambda a, k, out: a[1].values())
+    tap(span_kernel, "span_stage_values", lambda a, k, out: [
+        t for st in a[0] for t in st.ext_windows.values()] + [
+        t for vals in out for t in vals.values()])
+
+    def undo():
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    return undo
+
+
+def _outcome(mesh, program, env, options):
+    """``omp.compile`` and one run on ``mesh``: the result, the plan
+    artifacts (the rendered report, the cost summary, the chunk plans,
+    the kernel spans) and the counters; or the refusal."""
+    from repro_torch import omp
+    from repro_torch.core.loop import LoopNotCanonical
+
+    mesh.reset_counters()
+    mesh.log = []
+    try:
+        c = omp.compile(program, mesh, **options)
+        out = c(env)
+    except (omp.CompileError, LoopNotCanonical, NotImplementedError) as e:
+        return {"refused": f"{type(e).__name__}: {e}"}
+    kp = c.kernel_plan
+    return {"out": out, "report": c.report(), "cost": c.cost_summary(),
+            "schedule": repr(c.passes[1].output),
+            "spans": None if kp is None else list(kp.spans),
+            "counters": counters(mesh)}
+
+
+def _shared_store(store) -> dict:
+    """Every process of the group compiles one program on the process
+    mesh with the persistent store in the one directory ``store`` (cold:
+    process 0 alone writes the entry), then again after the in-memory
+    cache is dropped (every process restores it); the entries on disk and
+    each compile's ``restored``; a :class:`CompileService` on the
+    process mesh serving four concurrent requests of one cold key; and one
+    serving requests of three programs, queued at once in one order on
+    every process (their collectives pair only if each process runs them
+    in that order), then one more through ``run``."""
+    import torch.distributed as dist
+
+    from repro_torch import omp, polybench
+    from repro_torch.mesh import ProcessMesh
+    from repro_torch.serving.compile_service import CompileService
+
+    kern = polybench.make("gemm", dict(ni=12, nj=10, nk=8))
+    env = kern.env_fn("cpu")
+    mesh = ProcessMesh((4,), ("data",), torch.device("cpu"))
+    omp.enable_persistent_cache(store)
+    try:
+        restored, written = [], []
+        for _ in range(2):
+            omp.clear_compile_cache()
+            c = omp.compile(kern.programs[0], mesh, lowering="kernel")
+            out = c(env)
+            restored.append(c.restored)
+            written.append(omp.compile_cache_stats()["disk_bytes_written"])
+            dist.barrier()
+        entries = sorted(os.listdir(store))
+    finally:
+        omp.disable_persistent_cache()
+    # four concurrent requests of one cold key to a service on each
+    # process: one compile, each request's result the stacked mesh's
+    svc = CompileService(mesh, options=omp.Options(lowering="collective"))
+    futures = [svc.submit(kern.programs[0], env) for _ in range(4)]
+    served = [f.result()["C"] for f in futures]
+    svc.shutdown()
+    cold = svc.stats.cold_compiles
+    stacked_mesh = omp.make_mesh((4,), ("data",), device="cpu")
+    stacked = omp.compile(kern.programs[0], stacked_mesh,
+                          lowering="collective")(env)["C"]
+    # gemm joins its result, bicg's s and atax's fold each psum a payload
+    # of their own size: out of order, the processes' collectives mismatch
+    small = dict(m=12, n=10)
+    progs = {"gemm": (kern.programs[0], env, "C")}
+    for name, i, key in (("bicg", 1, "s"), ("atax", 2, "y")):
+        k = polybench.make(name, small)
+        progs[name] = (k.programs[i], k.env_fn("cpu"), key)
+    order = ["gemm", "bicg", "atax", "bicg", "gemm", "atax", "bicg"]
+    svc = CompileService(mesh, options=omp.Options(lowering="collective"))
+    futures = [svc.submit(progs[n][0], progs[n][1]) for n in order]
+    mixed = [(n, f.result()[progs[n][2]]) for n, f in zip(order, futures)]
+    mixed.append(("atax", svc.run(progs["atax"][0],
+                                  progs["atax"][1])["y"]))
+    svc.shutdown()
+    want = {n: omp.compile(p, stacked_mesh, lowering="collective")(e)[key]
+            for n, (p, e, key) in progs.items()}
+    return {"restored": restored, "entries": entries, "out": out["C"],
+            "written": written, "served": served, "stacked": stacked,
+            "cold_compiles": cold, "mixed": mixed, "mixed_want": want,
+            "mixed_cold_compiles": svc.stats.cold_compiles}
+
+
+def compile_cases(rank, world, inputs, store=None) -> dict:
+    """Each case of ``inputs`` (a file holding a pickled list of (name,
+    program, env, mesh shape, axes, [options])): compiled and run on the
+    stacked mesh and on a process mesh of the same shape, ``(want, got)``
+    per option set; and for the process mesh the rank dims of what it
+    staged and computed (``dims``, every one its block where the first
+    nest axis is split), beside that block.  With ``store``, also
+    :func:`_shared_store` (under the key ``"store"``)."""
+    import pickle
+
+    from repro_torch.mesh import Mesh, ProcessMesh
+
+    cpu = torch.device("cpu")
+    with open(inputs, "rb") as fh:
+        cases = pickle.load(fh)
+    res = {}
+    if store is not None:
+        res["store"] = _shared_store(store)
+    for name, program, env, shape, axes, options in cases:
+        st = Mesh(shape, axes, cpu)
+        pm = ProcessMesh(shape, axes, cpu)
+        for i, opts in enumerate(options):
+            want = _outcome(st, program, env, opts)
+            dims: list = []
+            undo = _tapped(dims)
+            try:
+                got = _outcome(pm, program, env, opts)
+            finally:
+                undo()
+            res[(name, i)] = {"want": want, "got": got, "dims": sorted(
+                set(dims)), "block": pm.block}
+    return res
 
 
 def world2(rank, world) -> dict:

@@ -328,7 +328,7 @@ def _cuda_route(name, monkeypatch):
     monkeypatch.setattr(span_kernel, "span_values_plain_stages",
                         lambda *a: calls.append("plain") or [{}])
     monkeypatch.setattr(span_kernel, "launch_span",
-                        lambda src, io, dev: calls.append(
+                        lambda src, io, dev, lo=0: calls.append(
                             ("launch", src.fn_name, dev.type)) or [{}])
     span_kernel.span_stage_values(stages, source, "cpu")
     monkeypatch.setattr(span_kernel, "_check_device",
@@ -373,7 +373,7 @@ def test_cuda_span_of_a_product_never_reaches_the_plain_version(
     monkeypatch.setattr(span_kernel, "span_values_plain_stages",
                         lambda *a: calls.append("plain") or [{}])
     monkeypatch.setattr(span_kernel, "launch_span",
-                        lambda src, io, dev: calls.append(
+                        lambda src, io, dev, lo=0: calls.append(
                             ("launch", src.fn_name, dev.type)) or [{}])
     span_kernel.span_stage_values(stages, source, "cpu")
     # the inputs stand on the card: only the device check is bypassed

@@ -110,13 +110,13 @@ def test_compressed_allreduce_over_two_processes(runs):
 def test_refusals_name_their_reason(runs):
     """CUDA tensors over gloo; a first axis the world does not divide; a
     sequence sharded over data ranks in two processes; an MoE unit (one
-    dispatch group over the batch) across two processes; the compiler on
-    a process mesh."""
+    dispatch group over the batch) across two processes; the recovery of
+    a program compiled on a process mesh (which now compiles)."""
     for res in runs[2]:
         got = res["refusals"]
         assert got["cuda"].startswith("ValueError") and "gloo" in got["cuda"]
         assert "does not split over 2 processes" in got["split"]
         assert "shard_seq" in got["shard_seq"]
         assert "MoE unit of 2 ranks" in got["moe_unit"]
-        assert got["compiled"].startswith("NotImplementedError")
-        assert "ROADMAP.md §1 item 8" in got["compiled"]
+        assert got["recovery"].startswith("NotImplementedError")
+        assert "ROADMAP.md §1 item 2" in got["recovery"]

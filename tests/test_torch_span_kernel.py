@@ -675,7 +675,7 @@ def test_cuda_tensor_never_reaches_the_plain_version(monkeypatch):
     monkeypatch.setattr(span_kernel, "span_values_plain_stages",
                         lambda *a: calls.append("plain") or [{}])
     monkeypatch.setattr(span_kernel, "launch_span",
-                        lambda *a: calls.append("launch") or [{}])
+                        lambda *a, **k: calls.append("launch") or [{}])
 
     def stages(comp, prog, slabs, repl):
         return [kernel_lower.SpanStage(plan=comp.plan, program=prog,
@@ -765,9 +765,9 @@ def _span_calls(prog, env, mesh, monkeypatch):
     calls = []
     wrapper = span_kernel.span_stage_values
 
-    def spy(stages, source, device):
+    def spy(stages, source, device, window=None):
         calls.append((list(stages), source))
-        return wrapper(stages, source, device)
+        return wrapper(stages, source, device, window=window)
 
     monkeypatch.setattr(span_kernel, "span_stage_values", spy)
     comp = omp.compile(prog, mesh, lowering="kernel")
